@@ -1,0 +1,214 @@
+"""The port's two kernels against the JAX package's.
+
+K1 (event engine) and K2 (Harvest refinement): each plain PyTorch version is
+held, in float64, to the JAX package's XLA twin and to its Pallas kernel run
+in interpret mode, at test_ops.py's shapes.  The CUDA kernels are held to the
+plain versions on the card (``gpu`` marker; skipped without CUDA).  JAX is
+imported only by the tests that use it, so that the ``gpu`` tests also run
+where JAX is not installed:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -m gpu -q
+"""
+from fractions import Fraction
+
+import numpy as np
+import pytest
+import torch
+
+# K1 geometries: 8 kHz analysis (stride 8/1 samples per 1 ms frame) and the
+# 22.05 kHz input's 7350 Hz analysis (stride 147/20)
+GEOMETRIES = (8000.0, 7350.0)
+
+
+def _event_rows(fs, seed=1, n=3000):
+    """test_ops.py's rows: noisy tones, an edgeless row, a near-noise row."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / fs
+    rows = []
+    for f in (80.0, 125.0, 333.0, 707.0):
+        rows.extend([np.sin(2 * np.pi * f * t + rng.rand() * 6)
+                     + 0.05 * rng.randn(n) for _ in range(3)])
+    rows.append(np.zeros(n))
+    rows.append(rng.randn(n) * 1e-6)
+    return np.stack(rows)
+
+
+def _assert_f0_close(got, want, rtol):
+    got, want = np.asarray(got), np.asarray(want)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    both_nan = np.isnan(got) & np.isnan(want)
+    np.testing.assert_allclose(np.where(both_nan, 0.0, got),
+                               np.where(both_nan, 0.0, want),
+                               rtol=rtol, atol=rtol)
+
+
+@pytest.mark.parametrize("fs", GEOMETRIES)
+def test_k1_plain_matches_xla_twin(fs):
+    import jax.numpy as jnp
+
+    from world_tpu.f0.events import batched_interval_interp as jax_k1
+    from world_tpu_torch.f0.events import batched_interval_interp
+
+    x = _event_rows(fs)
+    tq = np.arange(400) / 1000.0
+    want_f0, want_m = jax_k1(jnp.asarray(x), fs, jnp.asarray(tq), fs * 0.001)
+    got_f0, got_m = batched_interval_interp(torch.tensor(x), fs,
+                                            torch.tensor(tq), fs * 0.001)
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    _assert_f0_close(got_f0.numpy(), want_f0, rtol=1e-10)
+
+
+@pytest.mark.parametrize("fs", GEOMETRIES)
+def test_k1_plain_matches_pallas_interpret(fs):
+    import jax.numpy as jnp
+
+    from world_tpu.ops.edge_interp import _interval_interp_pallas
+    from world_tpu_torch.ops.edge_interp import interval_interp
+
+    x = _event_rows(fs, seed=2)
+    Q = 400
+    tq = np.arange(Q) / 1000.0
+    frac = Fraction(fs * 0.001).limit_denominator(1000)
+    want_f0, want_m = _interval_interp_pallas(
+        jnp.asarray(x), jnp.asarray(tq), fs, frac.numerator, frac.denominator,
+        Q, blk=8, interpret=True)
+    got_f0, got_m = interval_interp(torch.tensor(x), fs, torch.tensor(tq),
+                                    fs * 0.001)
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    _assert_f0_close(got_f0.numpy(), want_f0, rtol=1e-10)
+
+
+def _refine_operands(seed, C=5, B=200, W=45, actual_fs=7350.0):
+    """test_ops.py's refinement operands, with empty slots."""
+    rng = np.random.RandomState(seed)
+    seg = rng.randn(B, W)
+    phase = rng.randn(B, W) * 1e-3
+    f0 = rng.rand(C, B) * 700 + 80
+    f0[0, :7] = 1e-12                       # empty slots
+    return seg, phase, f0, actual_fs, (W - 1) // 2
+
+
+def test_k2_plain_matches_xla_twin():
+    import jax.numpy as jnp
+
+    from world_tpu.ops.refine_dft import dft_basis, refine_full_xla
+    from world_tpu_torch.ops.refine_dft import refine_plain
+
+    seg, phase, f0, afs, mh = _refine_operands(0)
+    W = seg.shape[1]
+    nb = 33                                  # S = 64
+    want = refine_full_xla(jnp.asarray(seg), jnp.asarray(phase), jnp.asarray(f0),
+                           dft_basis(W, nb, jnp.float64), afs, mh, nb, 71.0,
+                           800.0)
+    got = refine_plain(torch.tensor(seg), torch.tensor(phase), torch.tensor(f0),
+                       afs, mh, 2 * (nb - 1), 71.0, 800.0)
+    assert int((np.asarray(want[0]) > 0).sum()) > 100   # the gate passes many
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-9,
+                                   atol=1e-12)
+
+
+@pytest.mark.parametrize("W", [45, 341])
+def test_k2_plain_matches_pallas_interpret(W):
+    """At test_ops.py's shape and at the main path's window width (8 kHz
+    analysis, max_half 170, S = 1024)."""
+    import jax.numpy as jnp
+
+    from world_tpu.ops.refine_dft import _refine_pallas, dft_basis
+    from world_tpu_torch.ops.refine_dft import refine_full
+
+    afs = 7350.0 if W == 45 else 8000.0
+    seg, phase, f0, afs, mh = _refine_operands(1, C=4, B=150, W=W,
+                                               actual_fs=afs)
+    S = int(2 ** np.ceil(np.log2(W) + 1))
+    nb = S // 2 + 1
+    want = _refine_pallas(jnp.asarray(seg), jnp.asarray(phase), jnp.asarray(f0),
+                          dft_basis(W, nb, jnp.float64), afs, mh, nb, 71.0,
+                          800.0, interpret=True)
+    got = refine_full(torch.tensor(seg), torch.tensor(phase), torch.tensor(f0),
+                      afs, mh, S, 71.0, 800.0)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-9,
+                                   atol=1e-12)
+
+
+def test_wrappers_take_plain_path_on_cpu_without_counting():
+    from world_tpu_torch.ops import edge_interp, refine_dft
+
+    before = (edge_interp.counter.launches, refine_dft.counter.launches)
+    x = torch.tensor(_event_rows(8000.0, n=400))
+    edge_interp.interval_interp(x, 8000.0, torch.arange(40) / 1000.0, 8.0)
+    seg, phase, f0, afs, mh = _refine_operands(2, C=2, B=20)
+    refine_dft.refine_full(torch.tensor(seg), torch.tensor(phase),
+                           torch.tensor(f0), afs, mh, 64, 71.0, 800.0)
+    assert (edge_interp.counter.launches, refine_dft.counter.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels (need the card)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fs", GEOMETRIES)
+def test_k1_cuda_matches_plain(cuda, fs, dtype):
+    """Same operations in the same order: bitwise equal."""
+    from world_tpu_torch.f0.events import batched_interval_interp
+    from world_tpu_torch.ops.edge_interp import counter, event_engine_cuda
+
+    x = torch.tensor(_event_rows(fs, n=20000), dtype=dtype, device=cuda)
+    tq = torch.as_tensor(np.arange(2500) / 1000.0, dtype=dtype, device=cuda)
+    before = counter.launches
+    got_f0, got_m = event_engine_cuda(x, fs, tq, fs * 0.001)
+    assert counter.launches == before + 1
+    want_f0, want_m = batched_interval_interp(x, fs, tq, fs * 0.001)
+    assert torch.equal(got_m, want_m)
+    assert torch.equal(torch.nan_to_num(got_f0), torch.nan_to_num(want_f0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_cuda_matches_plain(cuda, dtype):
+    """float64: rtol 1e-9; float32: the 24 dot products are summed in
+    another order, so refined f0 agrees to 1e-4 relative where both gates
+    pass and the gate flips on at most 0.1% of the slots."""
+    from world_tpu_torch.ops.refine_dft import refine_cuda, refine_plain
+
+    seg, phase, f0, afs, mh = _refine_operands(3, C=8, B=600, W=341,
+                                               actual_fs=8000.0)
+    args = [torch.tensor(a, dtype=dtype, device=cuda) for a in (seg, phase, f0)]
+    got = refine_cuda(*args, afs, mh, 1024, 71.0, 800.0)
+    want = refine_plain(*args, afs, mh, 1024, 71.0, 800.0)
+    if dtype == torch.float64:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-12)
+        return
+    both = (got[0] > 0) & (want[0] > 0)
+    rel = ((got[0] - want[0]).abs() / want[0].clamp(min=1e-30))[both]
+    assert float(rel.max()) <= 1e-4
+    flips = int(((got[0] > 0) != (want[0] > 0)).sum())
+    assert flips <= 1e-3 * got[0].numel()
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_bad_input(cuda):
+    from world_tpu_torch.ops.edge_interp import event_engine_cuda
+    from world_tpu_torch.ops.refine_dft import refine_cuda
+
+    x = torch.zeros((4, 100), device=cuda)
+    with pytest.raises(TypeError):
+        event_engine_cuda(x, 8000.0, torch.zeros(10, dtype=torch.float64,
+                                                 device=cuda), 8.0)
+    with pytest.raises(ValueError):
+        event_engine_cuda(x.t(), 8000.0, torch.zeros(10, device=cuda), 8.0)
+    seg = torch.zeros((10, 45), device=cuda)
+    with pytest.raises(ValueError):
+        refine_cuda(seg, seg, torch.zeros((2, 10), device=cuda), 8000.0, 21,
+                    64, 71.0, 800.0)

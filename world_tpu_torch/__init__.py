@@ -1,0 +1,11 @@
+"""world_tpu_torch: the WORLD vocoder on PyTorch and CUDA (NVIDIA Hopper).
+
+A port of ``world_tpu`` (JAX/Pallas), which stays the reference.  Importing
+the package applies the precision policy of :mod:`world_tpu_torch._backend`
+and builds nothing; the CUDA kernels build on first use.
+"""
+from . import _backend  # noqa: F401  (precision policy)
+from .api import World
+from .parallel.batch import HarvestRequiem, encode_decode_one
+
+__all__ = ["World", "HarvestRequiem", "encode_decode_one"]

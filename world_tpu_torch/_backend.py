@@ -1,0 +1,147 @@
+"""Device, precision policy and the hand-written CUDA kernel loader.
+
+Precision: TF32 would quantize the band FIR bank and the decimator input
+inside cuDNN convolutions (the same class of fault as a reduced-precision
+matrix pass quantizing the signal), so it is switched off for matmuls and
+convolutions, and float32 matmuls run at "highest" precision.  The policy is
+applied once, when the package is imported.
+
+Kernels: ``csrc/*.cu`` is compiled with ``nvcc`` on first use into the
+git-ignored ``_build/`` directory as one shared library with a plain C
+interface, and loaded with ``ctypes``.  The build needs nothing outside the
+package.  No compiler is looked for and nothing is built on import.
+"""
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+# -fmad=false: every kernel keeps the operation order of its plain PyTorch
+# twin, whose elementwise ops each round separately; products that must be
+# fused (the refinement's two-product) call fma() explicitly.
+# No --use_fast_math: the refinement windows need correctly rounded cos.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false"]
+
+
+class LaunchCounter:
+    """Launches of one CUDA kernel: its wrapper adds one where it launches
+    the kernel, and nowhere else (the plain version does not count)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """Accept a torch dtype or a numpy-style name ("float32", "float64")."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return {"float32": torch.float32, "float64": torch.float64}[str(dtype)]
+
+
+def scalar(v: float, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a 0-dim tensor of ``like``'s dtype on ``like``'s device."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
+
+
+def rdiv(v: float, x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded ``v / x``.  ``v / x`` with a Python ``v`` is
+    ``x.reciprocal() * v`` in PyTorch, and a CUDA tensor divided by a Python
+    scalar is multiplied by the scalar's reciprocal: both round twice."""
+    return torch.div(scalar(v, x), x)
+
+
+def sdiv(x: torch.Tensor, v: float) -> torch.Tensor:
+    """The correctly rounded ``x / v`` on every device (see :func:`rdiv`)."""
+    return torch.div(x, scalar(v, x))
+
+
+def check_kernel_input(t: torch.Tensor, name: str, dtype: torch.dtype,
+                       device: torch.device, ndim: int):
+    """Raise unless ``t`` is a contiguous CUDA tensor of the kernel's type."""
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+@functools.lru_cache(maxsize=1)
+def kernel_library():
+    """Build (once per source content) and load the kernel library.
+
+    Returns ``(lib, build_seconds)``; build_seconds is 0.0 when an up-to-date
+    library was already on disk."""
+    digest = hashlib.sha256()
+    for p in _sources():
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    BUILD_DIR.mkdir(exist_ok=True)
+    lib_path = BUILD_DIR / f"libworld_kernels_{digest.hexdigest()[:16]}.so"
+    seconds = 0.0
+    if not lib_path.exists():
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n"
+                               f"{res.stderr}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"world_event_engine_{suffix}")
+        # x, rows, n, tq, Q, pnum, qden, fs, scratch_idx, count, out_f0, out_m, stream
+        fn.argtypes = [P, I, I, P, I, I, I, D, P, P, P, P, P]
+        fn.restype = I
+        fn = getattr(lib, f"world_refine_dft_{suffix}")
+        # seg, phase, f0, C, F, W, max_half, S, cos_tab, sin_tab, fs,
+        # f0_floor, f0_ceil, out, stream
+        fn.argtypes = [P, P, P, I, I, I, I, I, P, P, D, D, D, P, P]
+        fn.restype = I
+    return lib, seconds
+
+
+def launch(name: str, dtype: torch.dtype, *args):
+    """Call ``world_<name>_<f32|f64>`` on the current CUDA stream and raise on
+    a launch error (the C function returns ``cudaGetLastError()``)."""
+    lib, _ = kernel_library()
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, f"world_{name}_{suffix}")(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel world_{name}_{suffix} failed to "
+                           f"launch: cudaError {err}")

@@ -1,0 +1,59 @@
+"""D4C-Requiem band aperiodicity (port of world_tpu/aperiodicity/d4c_requiem.py)."""
+import numpy as np
+import torch
+
+from .._backend import sdiv
+from .common import (band_window, coarse_aperiodicity, frame_slabs,
+                     love_train_fft_size, love_train_vuv,
+                     smoothed_power_spectrum_half, static_centroid_half,
+                     static_group_delay_half)
+
+
+def requiem_fft_size(fs: int) -> int:
+    return int(2 ** np.ceil(np.log2(3 * fs / 47 + 1)))
+
+
+def n_bands_ap(fs: int, frequency_interval: float = 3000.0) -> int:
+    return int(np.floor(min(15000, fs / 2 - frequency_interval)
+                        / frequency_interval))
+
+
+def d4c_requiem_core(x: torch.Tensor, fs: int, f0_seq: torch.Tensor,
+                     temporal_positions: torch.Tensor, fft_size: int,
+                     threshold: float, frequency_interval: float, n_ap: int,
+                     frame_period_ms: float) -> torch.Tensor:
+    """Coarse band aperiodicity (B, n_frames, n_ap+2) in dB for rows x
+    (B, n) and f0 (B, n_frames) on the uniform frame grid."""
+    B, n_frames = f0_seq.shape
+    dtype = x.dtype
+    f0_low_limit = 47.0
+    window = band_window(fs, fft_size, frequency_interval)
+    max_half_lt = int(1.5 * fs / 40.0 + 0.5)
+    max_half = int(2.0 * fs / f0_low_limit + 0.5)
+    fft_lt = love_train_fft_size(fs)
+    f0 = f0_seq.reshape(-1)
+    t = temporal_positions.to(dtype).repeat(B)
+
+    seg_lt = frame_slabs(x, fs, frame_period_ms, n_frames, max_half_lt)
+    vuv_lt = love_train_vuv(seg_lt, fs, f0, t, threshold, max_half_lt, fft_lt)
+
+    current_f0 = torch.clamp(f0, min=f0_low_limit)
+    margin = int(np.ceil(fs / (4 * 47.0))) + 3
+    slab = frame_slabs(x, fs, frame_period_ms, n_frames, max_half + margin)
+    centroid = static_centroid_half(slab, margin, fs, current_f0, t, max_half,
+                                    fft_size)
+    seg = slab[:, margin:slab.shape[1] - margin]
+    spsh = smoothed_power_spectrum_half(seg, fs, current_f0, t, max_half,
+                                        fft_size)
+    gd = static_group_delay_half(centroid, spsh, fs, current_f0, fft_size)
+    coarse = coarse_aperiodicity(gd, float(fs), fft_size, frequency_interval,
+                                 n_ap, window)
+    mid = -torch.clamp(coarse - sdiv((current_f0[:, None] - 100.0) * 2.0, 100.0),
+                       min=0.0)
+    top = torch.full((mid.shape[0], 1), -60.0, dtype=dtype, device=x.device)
+    bot = torch.full((mid.shape[0], 1), -0.000000000001, dtype=dtype,
+                     device=x.device)
+    band_ap = torch.cat([top, mid, bot], dim=1)
+    # unvoiced frames: the whole column is -1e-12 (d4cRequiem.py:33-34)
+    band_ap = torch.where(vuv_lt[:, None], band_ap, bot)
+    return band_ap.reshape(B, n_frames, n_ap + 2)

@@ -1,0 +1,658 @@
+"""Harvest F0 estimation (port of world_tpu/f0/harvest.py).
+
+Every stage takes a leading batch axis of utterances: the band filtering,
+the event engine (K1, bands x 4 event types x batch as rows), the candidate
+detection and compaction, the refinement (K2, batch folded into frames) and
+the per-frame contour stages run batched; FixStep3's chains and merge and the
+section smoothing run per utterance.
+
+Left out on purpose, since they change no result:
+  * the f0 bucketing of the refinement (``_bucket_caps`` /
+    ``_refine_bucketed``): an MXU flop saver; the CUDA kernel gets the same
+    saving by looping only over each candidate's own window;
+  * the long-audio memory bounds (``band_chunk``, ``frame_chunk``, the
+    blocked FIR past 65,536 samples): bands and frames are independent.
+"""
+import math
+import warnings
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .._backend import rdiv
+from ..dsp.fir import fir_bank_full
+from ..dsp.iir import decimate_matlab, decimator_impulse
+from ..dsp.rounding import matlab_round_half
+from ..dsp.scanops import compact_rows
+from ..dsp.windows import np_nuttall
+from ..frames import uniform_centered_slabs
+from ..ops.refine_dft import dft_table, refine_full
+from .events import four_event_interp
+
+EPS = 2.220446049250313e-16
+C2_SLOTS = 48           # refinement slots per frame after compaction
+
+
+# ---------------------------------------------------------------------------
+# static tables
+# ---------------------------------------------------------------------------
+
+def boundary_f0_list(f0_floor: float, f0_ceil: float) -> np.ndarray:
+    adj_floor = f0_floor * 0.9
+    adj_ceil = f0_ceil * 1.1
+    channels_in_octave = 40
+    return adj_floor * 2.0 ** (
+        (np.arange(np.ceil(np.log2(adj_ceil / adj_floor) * channels_in_octave))
+         + 1) / channels_in_octave)
+
+
+def band_filter_bank(boundary_f0s: np.ndarray, actual_fs: float):
+    """Static per-band Nuttall band-pass FIRs (harvest.py:252-257): bank
+    (n_bands, L) left-aligned, bias (n_bands,) output offsets."""
+    halfs = [int(math.floor(actual_fs / bf * 2 + 0.5)) for bf in boundary_f0s]
+    max_len = 2 * max(halfs) + 1
+    bank = np.zeros((len(halfs), max_len))
+    bias = np.zeros(len(halfs), dtype=np.int64)
+    for i, (h, bf) in enumerate(zip(halfs, boundary_f0s)):
+        n = 2 * h + 1
+        shifter = np.cos(2 * np.pi * bf * np.arange(-h, h + 1) / actual_fs)
+        bank[i, :n] = np_nuttall(n) * shifter
+        bias[i] = h + 1
+    return bank, bias
+
+
+# Zero-phase kernel of SmoothF0's forward+backward biquad (harvest.py:663-695):
+# its poles sit at radius 0.875, so the response at lag 300 — the
+# reference's own section padding — is below float64 eps.
+_SMOOTH_B = np.array([0.0078202080334971724, 0.015640416066994345,
+                      0.0078202080334971724])
+_SMOOTH_A = np.array([1.0, -1.7347257688092754, 0.76600660094326412])
+_SMOOTH_RADIUS = 300
+
+
+def smooth_zero_phase_kernel() -> np.ndarray:
+    """(2R+1,) symmetric impulse response h * reverse(h) of the biquad."""
+    R = _SMOOTH_RADIUS
+    h = np.zeros(R + 1)
+    x = np.zeros(R + 1)
+    x[0] = 1.0
+    for i in range(R + 1):
+        acc = _SMOOTH_B[0] * x[i]
+        if i >= 1:
+            acc += _SMOOTH_B[1] * x[i - 1] - _SMOOTH_A[1] * h[i - 1]
+        if i >= 2:
+            acc += _SMOOTH_B[2] * x[i - 2] - _SMOOTH_A[2] * h[i - 2]
+        h[i] = acc
+    return np.convolve(h, h[::-1])
+
+
+# ---------------------------------------------------------------------------
+# downsampling + band candidates
+# ---------------------------------------------------------------------------
+
+def decimation(fs: int, target_fs: int = 8000):
+    """(ratio, actual_fs) of Harvest's downsampler."""
+    ratio = int(fs / target_fs + 0.5)
+    return ratio, (float(fs) if fs <= target_fs else fs / ratio)
+
+
+def refinement_geometry(actual_fs: float, f0_floor: float):
+    """(max_half, S): the widest candidate half-window and the DFT size it
+    needs; every candidate's fft_size divides S."""
+    max_half = int(np.ceil(3 * actual_fs / f0_floor / 2))
+    return max_half, int(2 ** np.ceil(np.log2(2 * max_half + 1) + 1))
+
+
+def harvest_tables(fs: int, f0_floor: float, f0_ceil: float,
+                   dtype: torch.dtype, device) -> dict:
+    """Harvest's static tables, built on the host in float64: the band FIR
+    bank and its output offsets, the decimator's truncated impulse response,
+    the refinement DFT table and the smoothing kernel (kept in float64: its
+    spectrum is taken in float64, as the JAX package does)."""
+    ratio, actual_fs = decimation(fs)
+    bank, bias = band_filter_bank(boundary_f0_list(f0_floor, f0_ceil),
+                                  actual_fs)
+    decim = decimator_impulse(ratio) if fs > 8000 else np.zeros(0)
+    _, S = refinement_geometry(actual_fs, f0_floor)
+    cos_tab, sin_tab = dft_table(S, dtype, device)
+    as_t = lambda a, dt: torch.tensor(np.asarray(a), dtype=dt, device=device)  # noqa: E731
+    return {"band_bank": as_t(bank, dtype),
+            "band_bias": as_t(bias, torch.int64),
+            "decimator_ir": as_t(decim, dtype),
+            "refine_cos": cos_tab, "refine_sin": sin_tab,
+            "smooth_kernel": as_t(smooth_zero_phase_kernel(), torch.float64)}
+
+
+def downsample(x: torch.Tensor, fs: int, target_fs: int = 8000,
+               h: torch.Tensor = None):
+    """CalculateDownsampledSignal for rows x (B, n): (y (B, ny), actual_fs).
+    ``h``: the decimator's truncated impulse response (computed when None)."""
+    ratio = int(fs / target_fs + 0.5)
+    if fs <= target_fs:
+        y = x
+        actual_fs = float(fs)
+    else:
+        offset = int(np.ceil(140 / ratio) * ratio)
+        B = x.shape[0]
+        xp = torch.cat([x[:, :1].expand(B, offset), x,
+                        x[:, -1:].expand(B, offset)], dim=1)
+        y0 = decimate_matlab(xp, ratio, order=3, h=h)
+        actual_fs = fs / ratio
+        y = y0[:, offset // ratio:-(offset // ratio)]
+    return y - y.mean(dim=1, keepdim=True), actual_fs
+
+
+def band_filtered(y: torch.Tensor, bank: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """(B, n_bands, ny) band-pass outputs, each read at its band's offset."""
+    B, y_len = y.shape
+    n_bands = bank.shape[0]
+    conv = fir_bank_full(y, bank)                         # (B, n_bands, y_len+L-1)
+    idx = bias[:, None] + torch.arange(y_len, device=y.device)[None, :]
+    return torch.gather(conv, 2, idx.expand(B, n_bands, y_len))
+
+
+def raw_band_candidates(y: torch.Tensor, actual_fs: float, bank: torch.Tensor,
+                        bias: torch.Tensor, boundary_f0s: np.ndarray,
+                        temporal_positions: torch.Tensor, f0_floor: float,
+                        f0_ceil: float) -> torch.Tensor:
+    """CalculateCandidates: (B, n_bands, n_frames) per-band f0 means."""
+    B, y_len = y.shape
+    n_bands = bank.shape[0]
+    filtered = band_filtered(y, bank, bias)
+    f0c, _ = four_event_interp(filtered.reshape(B * n_bands, y_len), actual_fs,
+                               temporal_positions, actual_fs * 0.001)
+    f0c = f0c.reshape(B, n_bands, -1)
+    bf = torch.as_tensor(boundary_f0s, dtype=y.dtype, device=y.device)[:, None]
+    bad = ((f0c > bf * 1.1) | (f0c < bf * 0.9) | (f0c > f0_ceil)
+           | (f0c < f0_floor))
+    return torch.where(bad, torch.zeros_like(f0c), f0c)
+
+
+def detect_candidates(raw: torch.Tensor, max_candidates: int,
+                      threshold: int = 10):
+    """Per-frame runs of >= threshold positive bands -> run mean f0.
+    raw (B, n_bands, F) -> (cands (B, max_candidates, F), n_detected (B,))."""
+    n_bands = raw.shape[-2]
+    max_runs = n_bands // 2 + 1
+    band = torch.arange(n_bands, device=raw.device)[:, None]
+    # the reference zeroes the first and last band before run detection
+    pos = (raw > 0) & (band > 0) & (band < n_bands - 1)
+    prev = F.pad(pos[..., :-1, :], (0, 0, 1, 0))
+    nxt = F.pad(pos[..., 1:, :], (0, 0, 0, 1))
+    start = (pos & ~prev).to(torch.int64)
+    end = (pos & ~nxt).to(torch.int64)
+    cs_start = torch.cumsum(start, dim=-2).transpose(-1, -2).contiguous()
+    cs_end = torch.cumsum(end, dim=-2).transpose(-1, -2).contiguous()
+    q = torch.arange(1, max_runs + 1, device=raw.device)
+    q = q.expand(cs_start.shape[:-1] + (max_runs,)).contiguous()
+    start_pos = torch.searchsorted(cs_start, q).clamp(max=n_bands - 1)
+    end_pos = torch.searchsorted(cs_end, q).clamp(max=n_bands - 1)
+    n_runs = cs_start[..., -1]
+    run_valid = (torch.arange(max_runs, device=raw.device) < n_runs[..., None])
+
+    raw_cs = torch.cumsum(raw, dim=-2).transpose(-1, -2)
+    raw_cs0 = F.pad(raw_cs, (1, 0))
+    sums = (torch.gather(raw_cs0, -1, end_pos + 1)
+            - torch.gather(raw_cs0, -1, start_pos))
+    lens = end_pos - start_pos + 1
+    qualify = run_valid & (lens >= threshold)
+    means = torch.where(qualify, sums / torch.clamp(lens, min=1),
+                        torch.zeros_like(sums))
+    cands, rank = compact_rows(means, qualify, max_candidates)
+    return cands.transpose(-1, -2), rank[..., -1].amax(dim=-1)
+
+
+def overlap_candidates(cands: torch.Tensor, n: int = 3) -> torch.Tensor:
+    """OverlapF0Candidates with the reference's row-0 quirk; (B, mc, F) ->
+    (B, (2n+1)*mc, F)."""
+    n_over = 2 * n + 1
+    n_frames = cands.shape[-1]
+    blocks = []
+    for i in range(n_over):
+        st1 = max(-(i - n) + 1, 1)
+        ed1 = min(-(i - n), 0)
+        width = n_frames + ed1 - (st1 - 1)
+        block = torch.zeros_like(cands)
+        block[..., st1 - 1:st1 - 1 + width] = cands[..., -ed1:-ed1 + width]
+        blocks.append(block)
+    out = torch.cat(blocks, dim=-2)
+    # row 0 was initialized from cands[n_over-1] before block 0 overwrote
+    # columns [n:], leaving columns [0:n] holding cands[n_over-1, 0:n]
+    out[..., 0, :n] = cands[..., n_over - 1, :n]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# refinement
+# ---------------------------------------------------------------------------
+
+def refinement_phase(actual_fs: float, max_half: int,
+                     temporal_positions: torch.Tensor) -> torch.Tensor:
+    """(F, W) window phase of GetRefinedF0 (see world_tpu/f0/harvest.py:242-259):
+    (base - 0.499)/fs, minus 1/fs where t*fs + base + 0.001 <= 0."""
+    dtype, dev = temporal_positions.dtype, temporal_positions.device
+    base = np.arange(-max_half, max_half + 1, dtype=np.float64)
+    phase_c = torch.as_tensor((base - 0.499) / np.float64(actual_fs),
+                              dtype=dtype, device=dev)
+    inv_fs = torch.as_tensor(np.float64(1.0) / actual_fs, dtype=dtype, device=dev)
+    raw = (temporal_positions[:, None] * torch.as_tensor(actual_fs, dtype=dtype,
+                                                         device=dev)
+           + torch.as_tensor(base, dtype=dtype, device=dev)[None, :] + 0.001)
+    return phase_c[None, :] - (raw <= 0.0).to(dtype) * inv_fs
+
+
+def refinement_inputs(y: torch.Tensor, actual_fs: float,
+                      temporal_positions: torch.Tensor, cands: torch.Tensor,
+                      max_half: int):
+    """K2's operands for (B, C, F) candidates on rows y (B, ny), with the
+    batch folded into the frame axis: seg and phase (B*F, W), f0 (C, B*F).
+    Every frame's segment is shared by its candidates."""
+    B, C, Fr = cands.shape
+    W = 2 * max_half + 1
+    seg = uniform_centered_slabs(y, actual_fs, actual_fs * 0.001 / actual_fs,
+                                 Fr, max_half, offset=-1)          # (B, F, W)
+    phase = refinement_phase(actual_fs, max_half, temporal_positions)
+    f0 = torch.clamp(cands, min=1e-12)
+    return (seg.reshape(B * Fr, W).contiguous(),
+            phase.expand(B, Fr, W).reshape(B * Fr, W).contiguous(),
+            f0.permute(1, 0, 2).reshape(C, B * Fr).contiguous())
+
+
+def refine_candidates(y: torch.Tensor, actual_fs: float,
+                      temporal_positions: torch.Tensor, cands: torch.Tensor,
+                      f0_floor: float, f0_ceil: float, max_half: int,
+                      table=None):
+    """RefineCandidates for (B, C, F) candidates: (refined, score) (B, C, F).
+    ``table``: the refinement DFT (cos, sin) table (computed when None)."""
+    B, C, Fr = cands.shape
+    seg, phase, f0 = refinement_inputs(y, actual_fs, temporal_positions, cands,
+                                       max_half)
+    _, S = refinement_geometry(actual_fs, f0_floor)
+    ref, score = refine_full(seg, phase, f0, actual_fs, max_half, S, f0_floor,
+                             f0_ceil, table)
+    unfold = lambda t: t.reshape(C, B, Fr).permute(1, 0, 2)   # noqa: E731
+    return unfold(ref), unfold(score)
+
+
+def remove_unreliable(cands: torch.Tensor, scores: torch.Tensor,
+                      threshold: float = 0.05):
+    """RemoveUnreliableCandidates on (B, C, F)."""
+    Fr = cands.shape[-1]
+    ref = torch.clamp(cands, min=torch.finfo(cands.dtype).tiny)
+
+    def min_err_vs(other):
+        e = (torch.abs(ref[..., :, None, :] - other[..., None, :, :])
+             / ref[..., :, None, :])
+        return torch.clamp(e.amin(dim=-2), max=1.0)
+
+    nxt = F.pad(cands[..., 1:], (0, 1))
+    prv = F.pad(cands[..., :-1], (1, 0))
+    min_error = torch.minimum(min_err_vs(nxt), min_err_vs(prv))
+    i = torch.arange(Fr, device=cands.device)
+    interior = (i >= 1) & (i <= Fr - 2)
+    remove = (cands != 0) & (min_error > threshold) & interior
+    zero = torch.zeros((), dtype=cands.dtype, device=cands.device)
+    return torch.where(remove, zero, cands), torch.where(remove, zero, scores)
+
+
+# ---------------------------------------------------------------------------
+# contour fixing
+# ---------------------------------------------------------------------------
+
+def search_f0_base(cands: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """Highest-score candidate per frame (first one on ties)."""
+    idx = torch.argmax(scores, dim=-2, keepdim=True)
+    return torch.gather(cands, -2, idx).squeeze(-2)
+
+
+def fix_step1(f0_base: torch.Tensor, allowed_range: float = 0.008):
+    """Zero rapid changes; f0_base (B, n)."""
+    n = f0_base.shape[-1]
+    p1 = F.pad(f0_base[..., :-1], (1, 0))
+    p2 = F.pad(f0_base[..., :-2], (2, 0))
+    ref = p1 * 2 - p2
+    rapid = ((torch.abs((f0_base - ref) / (ref + EPS)) > allowed_range)
+             & (torch.abs((f0_base - p1) / (p1 + EPS)) > allowed_range))
+    i = torch.arange(n, device=f0_base.device)
+    out = torch.where((i >= 2) & (f0_base != 0) & rapid,
+                      torch.zeros_like(f0_base), f0_base)
+    out[..., :2] = 0.0
+    return out
+
+
+def _voiced_edges(f0: torch.Tensor):
+    """Voiced mask with GetBoundaryList's edge forcing, and its run starts
+    and ends."""
+    n = f0.shape[-1]
+    i = torch.arange(n, device=f0.device)
+    v = (f0 != 0) & (i > 0) & (i < n - 1)
+    v_prev = F.pad(v[..., :-1], (1, 0))
+    v_next = F.pad(v[..., 1:], (0, 1))
+    return v, v & ~v_prev, v & ~v_next, i
+
+
+def _cummax(t):
+    return torch.cummax(t, dim=-1).values
+
+
+def _rev_cummin(t):
+    return torch.flip(torch.cummin(torch.flip(t, (-1,)), dim=-1).values, (-1,))
+
+
+def fix_step2(f0_step1: torch.Tensor, voice_range_minimum: int = 6):
+    """Remove short voiced sections."""
+    n = f0_step1.shape[-1]
+    v, is_start, is_end, i = _voiced_edges(f0_step1)
+    minus1 = torch.full_like(i, -1)
+    run_start = _cummax(torch.where(is_start, i, minus1))
+    run_end = _rev_cummin(torch.where(is_end, i, torch.full_like(i, n + 10)))
+    short = v & ((run_end - run_start) < voice_range_minimum)
+    return torch.where(short, torch.zeros_like(f0_step1), f0_step1)
+
+
+def sections(f0: torch.Tensor, max_sections: int):
+    """Starts and ends (count,) int64 of the first ``max_sections`` voiced
+    sections of f0 (n,) under GetBoundaryList's edge forcing."""
+    _, is_start, is_end, _ = _voiced_edges(f0)
+    starts = is_start.nonzero()[:max_sections, 0]
+    ends = is_end.nonzero()[:max_sections, 0]
+    return starts, ends
+
+
+def _extend_chains(f0, origin, last_point, shift: int, cands, allowed_range,
+                   n_steps: int):
+    """ExtendF0 from every section at once: n_steps SelectBestF0 picks.
+    Returns (positions, values, active) each (n_steps, Ns), and the shifted
+    origins (Ns,)."""
+    n = f0.shape[0]
+    C = cands.shape[0]
+    tiny = torch.finfo(f0.dtype).tiny
+    zero = torch.zeros((), dtype=f0.dtype, device=f0.device)
+    tmp = f0[origin]
+    misses = torch.zeros_like(origin)
+    shifted = origin.clone()
+    stopped = torch.zeros_like(origin, dtype=torch.bool)
+    cols = torch.arange(origin.shape[0], device=f0.device)
+    out_pos, out_val, out_act = [], [], []
+    for k in range(n_steps):
+        pos = origin + shift * (k + 1)
+        in_range = pos <= last_point + 1 if shift > 0 else pos >= last_point - 1
+        active = ~stopped & in_range
+        ref = torch.clamp(tmp, min=tiny)
+        cand = cands[:, pos.clamp(0, n - 1)]                   # (C, Ns)
+        err = torch.abs(ref - cand) / ref
+        j = C - 1 - torch.argmin(torch.flip(err, (0,)), dim=0)  # last argmin
+        ok = err[j, cols] <= allowed_range
+        val = torch.where(ok & active, cand[j, cols], zero)
+        hit = active & (val != 0)
+        tmp = torch.where(hit, val, tmp)
+        shifted = torch.where(hit, pos, shifted)
+        misses = torch.where(hit, torch.zeros_like(misses),
+                             misses + active.to(misses.dtype))
+        stopped = stopped | (misses >= 4) | ~in_range
+        out_pos.append(pos)
+        out_val.append(val)
+        out_act.append(active)
+    return (torch.stack(out_pos), torch.stack(out_val), torch.stack(out_act),
+            shifted)
+
+
+def _place_chain(row, pos, val, act):
+    """row[s, pos[k, s]] = val[k, s] wherever act[k, s]."""
+    k_idx, s_idx = act.nonzero(as_tuple=True)
+    row[s_idx, pos[k_idx, s_idx]] = val[k_idx, s_idx]
+
+
+def fix_step3(f0_step2: torch.Tensor, cands: torch.Tensor, scores: torch.Tensor,
+              allowed_range: float = 0.18, max_sections: int = 256):
+    """Extend + merge voiced sections (harvest.py:357-383) for one utterance:
+    f0_step2 (n,), cands/scores (C, n)."""
+    n = f0_step2.shape[0]
+    dev, dtype = f0_step2.device, f0_step2.dtype
+    starts, ends = sections(f0_step2, max_sections)
+    if starts.shape[0] == 0:
+        return f0_step2
+    threshold1, threshold2 = 100, 2200.0
+    pos_f, val_f, act_f, r1 = _extend_chains(
+        f0_step2, ends, torch.clamp(ends + threshold1, max=n - 2), 1, cands,
+        allowed_range, threshold1 + 1)
+    pos_b, val_b, act_b, r0 = _extend_chains(
+        f0_step2, starts, torch.clamp(starts - threshold1, min=1), -1, cands,
+        allowed_range, threshold1 + 1)
+    i = torch.arange(n, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    rows = torch.where((i >= starts[:, None]) & (i <= ends[:, None]),
+                       f0_step2[None, :], zero)
+    _place_chain(rows, pos_f, val_f, act_f)
+    _place_chain(rows, pos_b, val_b, act_b)
+    in_rng = (i >= r0[:, None]) & (i <= r1[:, None])
+    mean_f0 = (torch.where(in_rng, rows, zero).sum(dim=1)
+               / in_rng.sum(dim=1))
+    keeps = rdiv(threshold2, mean_f0) < (r1 - r0)
+
+    # MergeF0 (harvest.py:442-486): kept sections in order of extended start
+    order = torch.argsort(torch.where(keeps, r0, torch.full_like(r0, n + 10)),
+                          stable=True)
+    n_kept = int(keeps.sum())
+    if n_kept == 0:
+        return f0_step2
+    order = order[:n_kept]
+
+    def sscore(contour):
+        eq = cands == contour[None, :]
+        return torch.where(eq, scores, zero).amax(dim=0)
+
+    first = order[0]
+    f0_m, cur_st, cur_ed = rows[first], r0[first], r1[first]
+    for s in order[1:]:
+        row, st2, ed2 = rows[s], r0[s], r1[s]
+        disjoint = (st2 - cur_ed) > 0
+        f0_dis = torch.where((i >= st2) & (i <= ed2), row, f0_m)
+        contained = (cur_st <= st2) & (cur_ed >= ed2)
+        ov = (i >= st2) & (i <= cur_ed)
+        s1 = torch.where(ov, sscore(f0_m), zero).sum()
+        s2 = torch.where(ov, sscore(row), zero).sum()
+        take2_from = torch.where(s1 > s2, cur_ed, st2)
+        f0_sub = torch.where((i >= take2_from) & (i <= ed2), row, f0_m)
+        f0_ovl = torch.where(contained, f0_m, f0_sub)
+        new_ed_ovl = torch.where(contained, cur_ed, ed2)
+        f0_m = torch.where(disjoint, f0_dis, f0_ovl)
+        cur_st = torch.where(disjoint, st2, cur_st)
+        cur_ed = torch.where(disjoint, ed2, new_ed_ovl)
+    return f0_m
+
+
+def fix_step4(f0_step3: torch.Tensor, threshold: int = 9):
+    """Fill short unvoiced gaps by linear interpolation; (B, n)."""
+    n = f0_step3.shape[-1]
+    v, is_start, is_end, i = _voiced_edges(f0_step3)
+    big = n + 10
+    prev_end = _cummax(torch.where(is_end, i, torch.full_like(i, -1)))
+    next_start = _rev_cummin(torch.where(is_start, i, torch.full_like(i, big)))
+    pe = F.pad(prev_end[..., :-1], (1, 0), value=-1)
+    ns = F.pad(next_start[..., 1:], (0, 1), value=big)
+    gap = ~v & (pe >= 0) & (ns < big)
+    distance = ns - pe - 1
+    tmp0 = torch.gather(f0_step3, -1, pe.clamp(0, n - 1)) + 1
+    tmp1 = torch.gather(f0_step3, -1, ns.clamp(0, n - 1)) - 1
+    c = (tmp1 - tmp0) / (distance + 1)
+    fill = tmp0 + c * (i - pe)
+    return torch.where(gap & (distance < threshold), fill, f0_step3)
+
+
+def smooth_f0(f0: torch.Tensor, max_sections: int = 256,
+              kernel: torch.Tensor = None) -> torch.Tensor:
+    """Per-voiced-section zero-phase biquad smoothing (harvest.py:533-559) as
+    one batched FFT convolution of the constant-extended section rows; f0
+    (n,).  ``kernel``: the (2R+1,) float64 zero-phase kernel (computed when
+    None)."""
+    R = _SMOOTH_RADIUS
+    dtype, dev = f0.dtype, f0.device
+    padded = F.pad(f0, (R, R))
+    m = padded.shape[0]
+    starts, ends = sections(padded, max_sections)
+    if starts.shape[0] == 0:
+        return torch.zeros_like(f0)
+    N = int(2 ** np.ceil(np.log2(m + 2 * R)))
+    if kernel is None:
+        kernel = torch.as_tensor(smooth_zero_phase_kernel(), device=dev)
+    kern = torch.zeros(N, dtype=torch.float64, device=dev)
+    kern[:R + 1] = kernel[R:]
+    kern[-R:] = kernel[:R]
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    gf = torch.fft.rfft(kern).to(cdtype)
+    i = torch.arange(m, device=dev)
+    st, ed = starts[:, None], ends[:, None]
+    rows = torch.where(i < st, padded[starts][:, None],
+                       torch.where(i > ed, padded[ends][:, None],
+                                   padded[None, :]))
+    out = torch.fft.irfft(torch.fft.rfft(rows, N) * gf, N)[:, :m]
+    in_sec = (i >= st) & (i <= ed)
+    smoothed = torch.where(in_sec, out, torch.zeros((), dtype=dtype,
+                                                      device=dev)).sum(dim=0)
+    return smoothed[R:m - R]
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def default_max_candidates(f0_floor: float = 71, f0_ceil: float = 800) -> int:
+    n_bands = int(np.ceil(np.log2((f0_ceil * 1.1) / (f0_floor * 0.9)) * 40))
+    return int(n_bands / 10 + 0.5)
+
+
+def default_max_sections(signal_length: int, fs) -> int:
+    num_samples = int(1000 * signal_length / fs + 1)
+    return max(256, num_samples // 32 + 64)
+
+
+def warn_capacity(refine_overflow: bool, section_overflow: bool,
+                  max_sections: int):
+    """Surface static-table saturation, as world_tpu.f0.harvest does."""
+    if refine_overflow:
+        warnings.warn(
+            "harvest: per-frame candidate count exceeded the refinement "
+            f"slot capacity ({C2_SLOTS}); some candidates were dropped — "
+            "results may degrade on this input", RuntimeWarning, stacklevel=3)
+    if section_overflow:
+        warnings.warn(
+            f"harvest: voiced-section count exceeded max_sections="
+            f"{max_sections}; extra sections were ignored — raise "
+            f"max_sections", RuntimeWarning, stacklevel=3)
+
+
+def _n_sections(f: torch.Tensor) -> torch.Tensor:
+    v = f != 0
+    return (v & ~F.pad(v[..., :-1], (1, 0))).sum(dim=-1)
+
+
+def harvest_core(x: torch.Tensor, fs: int, f0_floor: float, f0_ceil: float,
+                 frame_period: float, max_candidates: int, max_sections: int,
+                 debug_outputs: bool = False, tables: dict = None) -> dict:
+    """Harvest on rows x (B, n).  ``tables`` is :func:`harvest_tables`'
+    dict (built when None)."""
+    B, signal_length = x.shape
+    dtype, dev = x.dtype, x.device
+    num_samples = int(1000 * signal_length / fs + 1)
+    basic_tp = torch.as_tensor(np.arange(num_samples) / 1000, dtype=dtype,
+                               device=dev)
+    bfl = boundary_f0_list(f0_floor, f0_ceil)
+
+    if tables is None:
+        tables = harvest_tables(fs, f0_floor, f0_ceil, dtype, dev)
+    y, actual_fs = downsample(x, fs, 8000, h=tables["decimator_ir"])
+    raw = raw_band_candidates(y, actual_fs, tables["band_bank"],
+                              tables["band_bias"], bfl, basic_tp,
+                              f0_floor, f0_ceil)
+    cands0, _ = detect_candidates(raw, max_candidates)
+    cands1 = overlap_candidates(cands0)
+    max_half, _ = refinement_geometry(actual_fs, f0_floor)
+
+    # compact the sparse candidate grid to C2 slots per frame, in order
+    C = cands1.shape[-2]
+    C2 = min(C2_SLOTS, C)
+    nzT = (cands1 != 0).transpose(-1, -2)                  # (B, F, C)
+    compactT, rankT = compact_rows(cands1.transpose(-1, -2), nzT, C2)
+    compact = compactT.transpose(-1, -2).contiguous()      # (B, C2, F)
+    refine_overflow = rankT[..., -1].amax(dim=-1) > C2
+    ref_c, score_c = refine_candidates(y, actual_fs, basic_tp, compact,
+                                       f0_floor, f0_ceil, max_half,
+                                       (tables["refine_cos"],
+                                        tables["refine_sin"]))
+    cands3, scores3 = remove_unreliable(ref_c, score_c)
+
+    f0_base = search_f0_base(cands3, scores3)
+    f0_step1 = fix_step1(f0_base, 0.008)
+    f0_step2 = fix_step2(f0_step1, 6)
+    f0_step3 = torch.stack([fix_step3(f0_step2[b], cands3[b], scores3[b], 0.18,
+                                      max_sections) for b in range(B)])
+    f0_step4 = fix_step4(f0_step3, 9)
+    vuv_full = (f0_step4 != 0).to(dtype)
+    smoothed = torch.stack([smooth_f0(f0_step4[b], max_sections,
+                                      tables["smooth_kernel"])
+                            for b in range(B)])
+    section_overflow = torch.maximum(_n_sections(f0_step2),
+                                     _n_sections(f0_step4)) > max_sections
+
+    out_samples = int(1000 * signal_length / fs / frame_period + 1)
+    tp_out = torch.as_tensor(np.arange(out_samples) * frame_period / 1000,
+                             dtype=dtype, device=dev)
+    idx = torch.clamp(matlab_round_half(tp_out * 1000),
+                      max=smoothed.shape[-1] - 1).to(torch.int64)
+    out = {
+        "temporal_positions": tp_out,
+        "f0": smoothed[:, idx],
+        "vuv": vuv_full[:, idx],
+        "_refine_overflow": refine_overflow,
+        "_section_overflow": section_overflow,
+    }
+    if debug_outputs:
+        def scatter_back(sf):
+            back_ok = nzT & (rankT <= C2)
+            slot = torch.clamp(rankT - 1, 0, C2 - 1)
+            got = torch.gather(sf.transpose(-1, -2), -1, slot)
+            return torch.where(back_ok, got, torch.zeros_like(got)).transpose(-1, -2)
+
+        out.update({
+            "_raw_candidates": raw,
+            "_cands_detected": cands0,
+            "_cands_overlap": cands1,
+            "_cands_refined": scatter_back(ref_c),
+            "_scores_refined": scatter_back(score_c),
+            "_cands_clean": scatter_back(cands3),
+            "_scores_clean": scatter_back(scores3),
+            "_f0_base": f0_base,
+            "_f0_step1": f0_step1,
+            "_f0_step2": f0_step2,
+            "_f0_step3": f0_step3,
+            "_f0_step4": f0_step4,
+            "_smoothed": smoothed,
+        })
+    return out
+
+
+def harvest(x: torch.Tensor, fs: int, f0_floor: float = 71,
+            f0_ceil: float = 800, frame_period: float = 5,
+            max_candidates: int = None, max_sections: int = None,
+            check_capacity: bool = True, debug_outputs: bool = False) -> dict:
+    """Harvest F0 estimation of one utterance x (n,) or a batch (B, n).
+    Outputs keep the input's batch shape."""
+    single = x.dim() == 1
+    xb = x[None] if single else x
+    if max_candidates is None:
+        max_candidates = default_max_candidates(f0_floor, f0_ceil)
+    if max_sections is None:
+        max_sections = default_max_sections(xb.shape[1], fs)
+    out = harvest_core(xb, int(fs), float(f0_floor), float(f0_ceil),
+                       float(frame_period), int(max_candidates),
+                       int(max_sections), debug_outputs=debug_outputs)
+    if check_capacity:
+        warn_capacity(bool(out["_refine_overflow"].any()),
+                      bool(out["_section_overflow"].any()), max_sections)
+    if single:
+        out = {k: (v if k == "temporal_positions" else v[0])
+               for k, v in out.items()}
+    return out

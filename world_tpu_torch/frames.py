@@ -1,0 +1,80 @@
+"""Fixed-shape framing (world_tpu/frames.py): per-frame signal slabs on the
+uniform frame grid and the F0-adaptive analysis windows.
+
+The JAX package cuts the slabs with strided patch extraction (TPU gathers
+serialize); here a slab is one ``gather`` at integer indices computed on the
+host.  Index clamping equals the reference's min/max clamp.
+"""
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+from ._backend import rdiv, sdiv
+
+
+def frame_centers(fs: float, frame_period_s: float, n_frames: int) -> np.ndarray:
+    """1-based anchor sample of each frame, floor(t_q*fs + 0.501) + 1, in
+    exact integer arithmetic on the rational grid t_q*fs = q*pnum/qden."""
+    frac = Fraction(fs * frame_period_s).limit_denominator(1000)
+    pnum, qden = frac.numerator, frac.denominator
+    q = np.arange(n_frames, dtype=np.int64)
+    return (1000 * q * pnum + 501 * qden) // (1000 * qden) + 1
+
+
+def uniform_centered_slabs(x: torch.Tensor, fs: float, frame_period_s: float,
+                           n_frames: int, max_half: int,
+                           offset: int = 0) -> torch.Tensor:
+    """(..., n_frames, 2*max_half+1) slabs: slab[..., q, j] =
+    x[..., clip(center_q - 1 - max_half + offset + j, 0, n-1)] for rows x
+    (..., n)."""
+    n = x.shape[-1]
+    centers = frame_centers(fs, frame_period_s, n_frames)
+    idx = (centers[:, None] - 1 - max_half + offset
+           + np.arange(2 * max_half + 1)[None, :])
+    idx = torch.as_tensor(np.clip(idx, 0, n - 1), device=x.device)
+    return x[..., idx]
+
+
+def adaptive_window_values(time_axis: torch.Tensor, f0: torch.Tensor,
+                           window_type: str) -> torch.Tensor:
+    """Hann or Blackman values at time_axis * f0 (cos, correctly rounded)."""
+    arg = torch.pi * time_axis * f0
+    c1 = torch.cos(arg)
+    if window_type == "hanning":
+        return 0.5 * c1 + 0.5
+    if window_type != "blackman":
+        raise ValueError(window_type)
+    return 0.08 * torch.cos(2 * arg) + 0.5 * c1 + 0.42
+
+
+def apply_adaptive_window(segment: torch.Tensor, fs: float, f0: torch.Tensor,
+                          temporal_position: torch.Tensor, half_length: float,
+                          max_half: int, window_type: str,
+                          sub_sample_shift: bool,
+                          normalize_window: bool = False):
+    """F0-adaptive windowing and weighted-mean removal of segments
+    (F, 2*max_half+1) aligned to base_index = -max_half..max_half.
+    Returns (waveform, mask, window)."""
+    dtype, dev = segment.dtype, segment.device
+    f0 = f0[:, None]
+    t = temporal_position[:, None]
+    half = torch.floor(rdiv(half_length * fs, f0) + 0.5)
+    base_index = torch.arange(-max_half, max_half + 1, dtype=dtype,
+                              device=dev)[None, :]
+    mask = torch.abs(base_index) <= half
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    segment = segment * mask
+    if sub_sample_shift:
+        frac = sdiv(t * fs - torch.floor(t * fs + 0.5), fs)
+        time_axis = sdiv(sdiv(base_index, fs), half_length) + frac
+    else:
+        time_axis = sdiv(sdiv(base_index, fs), half_length).expand(mask.shape)
+    window = torch.where(mask, adaptive_window_values(time_axis, f0, window_type),
+                         zero)
+    if normalize_window:
+        window = window / torch.sqrt(torch.sum(window ** 2, dim=1, keepdim=True))
+    sw = segment * window
+    waveform = sw - window * (torch.sum(sw, dim=1, keepdim=True)
+                              / torch.sum(window, dim=1, keepdim=True))
+    return torch.where(mask, waveform, zero), mask, window

@@ -1,0 +1,111 @@
+"""Requiem synthesis: excitation + spectral filtering (port of
+world_tpu/synth/requiem.py).  The velvet noise is read at explicit
+per-band offsets, pulses are overlap-added with ``index_add_``, and all
+frames are filtered through batched minimum-phase spectra."""
+import math
+
+import numpy as np
+import torch
+
+from .._backend import sdiv
+from ..dsp.interp import interp1_extrap
+from ..dsp.minphase import minimum_phase_spectrum, mirror_full
+from ..dsp.ola import scatter_ola, uniform_ola
+from ..dsp.windows import np_hanning_matlab
+from .classic import grid_interp
+
+
+def _interp(values, temporal_positions, time_axis, frame_period_s):
+    if frame_period_s is not None:
+        return grid_interp(values, temporal_positions, time_axis, frame_period_s)
+    return interp1_extrap(temporal_positions, values, time_axis)
+
+
+def pulse_locations(temporal_positions, f0, vuv, fs: float, time_axis,
+                    max_pulses: int, frame_period_s=None):
+    """time_base_generation (synthesisRequiem.py:104-118): 1-based pulse
+    sample indices (max_pulses,), the kept count, the interpolated vuv and
+    the raw pulse count."""
+    f0_i = _interp(f0, temporal_positions, time_axis, frame_period_s)
+    vuv_i = _interp(vuv, temporal_positions, time_axis, frame_period_s) > 0.5
+    zero = torch.zeros((), dtype=f0_i.dtype, device=f0_i.device)
+    f0_i = torch.where(vuv_i, f0_i, zero)
+    f0_i = torch.where(f0_i == 0, torch.full_like(f0_i, 500.0), f0_i)
+    total_phase = torch.cumsum(sdiv(2 * math.pi * f0_i, fs), dim=0)
+    wrap = torch.remainder(total_phase, 2 * math.pi)
+    mask = torch.abs(torch.diff(wrap)) > math.pi
+    at = mask.nonzero()[:max_pulses, 0]
+    raw_count = mask.sum()
+    count = torch.clamp(raw_count, max=max_pulses)
+    locs = torch.zeros(max_pulses, dtype=time_axis.dtype, device=time_axis.device)
+    locs[:at.shape[0]] = time_axis[at]
+    pli = torch.floor(locs * fs + 0.5).to(torch.int64) + 1
+    return pli, count, vuv_i, raw_count
+
+
+def excitation_core(temporal_positions, f0, vuv, band_ap_db, pulse_seed,
+                    noise_seed, noise_offsets, fs: int, y_length: int,
+                    max_pulses: int, frame_period_s=None):
+    """Excitation signal (y_length,) and the pulse-table overflow flag.
+    band_ap_db (bands, frames); pulse_seed (fft, bands); noise_seed
+    (noise_len, bands); noise_offsets (bands,) int."""
+    dtype, dev = pulse_seed.dtype, pulse_seed.device
+    fft_size = pulse_seed.shape[0]
+    time_axis = (sdiv(torch.arange(y_length, dtype=dtype, device=dev), fs)
+                 + temporal_positions[0])
+    pli, count, vuv_i, raw_count = pulse_locations(
+        temporal_positions, f0, vuv, float(fs), time_axis, max_pulses,
+        frame_period_s)
+
+    # band aperiodicity on the sample grid (linear in 10^(dB/10))
+    ap_lin = 10.0 ** sdiv(band_ap_db, 10.0)
+    interp_ap = _interp(ap_lin, temporal_positions, time_axis, frame_period_s)
+
+    # aperiodic part: per-band looped velvet noise read from its offset
+    noise_len = noise_seed.shape[0]
+    off = torch.remainder(noise_offsets.to(torch.int64), noise_len)
+    idx = (off[:, None] + torch.arange(y_length, device=dev)[None, :]) % noise_len
+    noise = torch.gather(noise_seed.T, 1, idx)
+    aperiodic = (noise * interp_ap).sum(dim=0)
+
+    # periodic part: (pulses, bands) weights @ (bands, fft) pulse seeds
+    pulse_ids = torch.arange(max_pulses, device=dev)
+    valid = pulse_ids < count
+    at_pulse = torch.clamp(pli - 1, 0, y_length - 1)
+    ap_at_pulse = interp_ap[:, at_pulse]                        # (bands, P)
+    voiced = vuv_i[at_pulse] & (ap_at_pulse[0] <= 0.999) & valid
+    nxt = torch.clamp(torch.minimum(pulse_ids + 1, count - 1), 0, max_pulses - 1)
+    noise_size = torch.sqrt(torch.clamp((pli[nxt] - pli).to(dtype), min=1.0))
+    weights = (1.0 - ap_at_pulse.T) * torch.where(
+        voiced, noise_size, torch.zeros((), dtype=dtype, device=dev))[:, None]
+    responses = weights @ pulse_seed.T                          # (P, fft)
+    starts = torch.where(valid, pli - fft_size // 2,
+                         torch.full_like(pli, y_length + fft_size + 2))
+    periodic = scatter_ola(responses, starts, y_length)
+    return periodic + aperiodic, raw_count > max_pulses
+
+
+def waveform_core(excitation, spectrogram, fs: int, fft_size: int, fps: int):
+    """get_waveform (synthesisRequiem.py:74-101) for all frames at once;
+    spectrogram (bins, frames)."""
+    dtype, dev = excitation.dtype, excitation.device
+    n_frames = spectrogram.shape[1]
+    y_len = excitation.shape[0]
+    win_len = fps * 2 - 1
+    half = fps - 1
+    win = torch.as_tensor(np_hanning_matlab(win_len), dtype=dtype, device=dev)
+    frames = torch.arange(2, n_frames - 1, device=dev)
+    origins = (frames - 1) * fps - half                          # 1-based
+    seg_idx = torch.clamp(origins[:, None] + torch.arange(win_len, device=dev),
+                          max=y_len) - 1
+    tmp = excitation[seg_idx] * win[None, :]
+    spec = spectrogram.T[1:n_frames - 2]                         # frame i uses column i-1
+    mp = minimum_phase_spectrum(mirror_full(spec))
+    resp = torch.fft.ifft(mp * torch.fft.fft(tmp, fft_size)).real
+    return uniform_ola(resp, fps - half - 1, fps, y_len)
+
+
+def default_max_pulses(temporal_positions: np.ndarray, f0: np.ndarray) -> int:
+    est = int(np.ceil((temporal_positions[-1] - temporal_positions[0])
+                      * max(500.0, float(np.max(f0)) * 1.2))) + 8
+    return int(2 ** np.ceil(np.log2(est)))
