@@ -15,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-# K1 geometries: 8 kHz analysis (stride 8/1 samples per 1 ms frame) and the
-# 22.05 kHz input's 7350 Hz analysis (stride 147/20)
-GEOMETRIES = (8000.0, 7350.0)
+# K1 geometries as (actual_fs, stride in samples per frame): Harvest's 8 kHz
+# analysis at 1 ms frames (stride 8/1), the 22.05 kHz input's 7350 Hz
+# analysis (stride 147/20) and DIO's 4 kHz analysis at 5 ms frames
+# (stride 20/1)
+GEOMETRIES = ((8000.0, 8.0), (7350.0, 7.35), (4000.0, 20.0))
+GEOMETRY_IDS = ("8000.0", "7350.0", "4000.0")
 
 
 def _event_rows(fs, seed=1, n=3000):
@@ -42,38 +45,38 @@ def _assert_f0_close(got, want, rtol):
                                rtol=rtol, atol=rtol)
 
 
-@pytest.mark.parametrize("fs", GEOMETRIES)
-def test_k1_plain_matches_xla_twin(fs):
+@pytest.mark.parametrize("fs,stride", GEOMETRIES, ids=GEOMETRY_IDS)
+def test_k1_plain_matches_xla_twin(fs, stride):
     import jax.numpy as jnp
 
     from world_tpu.f0.events import batched_interval_interp as jax_k1
     from world_tpu_torch.f0.events import batched_interval_interp
 
     x = _event_rows(fs)
-    tq = np.arange(400) / 1000.0
-    want_f0, want_m = jax_k1(jnp.asarray(x), fs, jnp.asarray(tq), fs * 0.001)
+    tq = np.arange(int(x.shape[1] / stride) + 25) * (stride / fs)   # past the end
+    want_f0, want_m = jax_k1(jnp.asarray(x), fs, jnp.asarray(tq), stride)
     got_f0, got_m = batched_interval_interp(torch.tensor(x), fs,
-                                            torch.tensor(tq), fs * 0.001)
+                                            torch.tensor(tq), stride)
     np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
     _assert_f0_close(got_f0.numpy(), want_f0, rtol=1e-10)
 
 
-@pytest.mark.parametrize("fs", GEOMETRIES)
-def test_k1_plain_matches_pallas_interpret(fs):
+@pytest.mark.parametrize("fs,stride", GEOMETRIES, ids=GEOMETRY_IDS)
+def test_k1_plain_matches_pallas_interpret(fs, stride):
     import jax.numpy as jnp
 
     from world_tpu.ops.edge_interp import _interval_interp_pallas
     from world_tpu_torch.ops.edge_interp import interval_interp
 
     x = _event_rows(fs, seed=2)
-    Q = 400
-    tq = np.arange(Q) / 1000.0
-    frac = Fraction(fs * 0.001).limit_denominator(1000)
+    Q = int(x.shape[1] / stride) + 25
+    tq = np.arange(Q) * (stride / fs)
+    frac = Fraction(stride).limit_denominator(1000)
     want_f0, want_m = _interval_interp_pallas(
         jnp.asarray(x), jnp.asarray(tq), fs, frac.numerator, frac.denominator,
         Q, blk=8, interpret=True)
     got_f0, got_m = interval_interp(torch.tensor(x), fs, torch.tensor(tq),
-                                    fs * 0.001)
+                                    stride)
     np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
     _assert_f0_close(got_f0.numpy(), want_f0, rtol=1e-10)
 
@@ -157,18 +160,19 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("fs", GEOMETRIES)
-def test_k1_cuda_matches_plain(cuda, fs, dtype):
+@pytest.mark.parametrize("fs,stride", GEOMETRIES, ids=GEOMETRY_IDS)
+def test_k1_cuda_matches_plain(cuda, fs, stride, dtype):
     """Same operations in the same order: bitwise equal."""
     from world_tpu_torch.f0.events import batched_interval_interp
     from world_tpu_torch.ops.edge_interp import counter, event_engine_cuda
 
     x = torch.tensor(_event_rows(fs, n=20000), dtype=dtype, device=cuda)
-    tq = torch.as_tensor(np.arange(2500) / 1000.0, dtype=dtype, device=cuda)
+    tq = torch.as_tensor(np.arange(int(20000 / stride)) * (stride / fs),
+                         dtype=dtype, device=cuda)
     before = counter.launches
-    got_f0, got_m = event_engine_cuda(x, fs, tq, fs * 0.001)
+    got_f0, got_m = event_engine_cuda(x, fs, tq, stride)
     assert counter.launches == before + 1
-    want_f0, want_m = batched_interval_interp(x, fs, tq, fs * 0.001)
+    want_f0, want_m = batched_interval_interp(x, fs, tq, stride)
     assert torch.equal(got_m, want_m)
     assert torch.equal(torch.nan_to_num(got_f0), torch.nan_to_num(want_f0))
 

@@ -88,7 +88,8 @@ def test_module_with_jax_tables_matches_jax(jax_out):
     the JAX round trip computes."""
     from world_tpu_torch import HarvestRequiem
 
-    module = HarvestRequiem(FS, N, frame_period=FP, dtype=torch.float64, **CAPS)
+    module = HarvestRequiem(FS, N, frame_period=FP, dtype=torch.float64,
+                            device="cpu", **CAPS)
     module.from_numpy_state(jax_state(FS))
     out = module(torch.tensor(_tiny_signal()))
     for key in OUTPUTS:
@@ -129,8 +130,8 @@ def test_requiem_with_explicit_seed_and_offsets(jax_out):
 
     from world_tpu.synth.requiem import synthesis_requiem
     from world_tpu.synth.seeds import get_seeds_signals as jax_seeds
-    from world_tpu_torch.synth.requiem import (default_max_pulses,
-                                               excitation_core, waveform_core)
+    from world_tpu_torch.synth.classic import default_max_pulses
+    from world_tpu_torch.synth.requiem import excitation_core, waveform_core
     from world_tpu_torch.synth.seeds import get_seeds_signals
 
     tp, f0, vuv, band_ap = _synthesis_inputs(jax_out)
@@ -189,7 +190,7 @@ def test_x16_golden_bars_float64():
     from world_tpu_torch import World
 
     g = np.load(GOLDEN / "harvest_16k.npz")
-    w = World(dtype=torch.float64)
+    w = World(device="cpu", dtype=torch.float64)
     dat = w.encode(int(g["fs"]), np.asarray(g["x16"]), f0_method="harvest",
                    is_requiem=True)
     vuv = dat["vuv"] > 0
@@ -209,13 +210,40 @@ def test_x16_golden_bars_float64():
     assert np.all(np.isfinite(y)) and 0 < np.abs(y).max() <= 1.0
 
 
+def _roadmap_queue1_items():
+    """{item number: its title line} of ROADMAP.md's Queue 1."""
+    import re
+
+    text = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
+    queue = text.split("### Queue 1")[1].split("### Queue 2")[0]
+    return {int(m.group(1)): m.group(2)
+            for m in re.finditer(r"^(\d+)\. (.*)$", queue, re.M)}
+
+
 def test_unported_paths_name_their_roadmap_item():
+    """Every path the port does not have yet raises NotImplementedError
+    naming an open ROADMAP Queue 1 item whose title matches the message."""
+    import re
+
     from world_tpu_torch import World
 
-    w = World()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w.encode(16000, np.zeros(1600), f0_method="dio")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w.encode(16000, np.zeros(1600), is_requiem=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w.decode({"is_requiem": False})
+    items = _roadmap_queue1_items()
+    w = World(device="cpu")
+    x = np.zeros(1600)
+    calls = [lambda: w.encode(16000, x, f0_method="swipe"),
+             lambda: w.get_f0(16000, x, f0_method="swipe"),
+             lambda: w.set_pitch({}, 0.1, 100.0),
+             lambda: w.scale_pitch({}, 1.5),
+             lambda: w.warp_spectrum({}, 1.1),
+             lambda: w.save({}, "unused.npz"),
+             lambda: w.load("unused.npz"),
+             lambda: w.encode(16000, x, fft_size=2048)]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+            call()
+        m = re.search(r"item (\d+) \(([^)]*)\)", str(err.value))
+        assert m, str(err.value)
+        title = items[int(m.group(1))]
+        word = max(re.findall(r"[A-Za-z]+", m.group(2)), key=len)
+        assert not title.startswith("~~"), (str(err.value), title)
+        assert word.lower() in title.lower(), (str(err.value), title)

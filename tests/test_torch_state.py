@@ -1,12 +1,14 @@
 """The port's static tables against the JAX package's, and the port's
 independence from JAX.
 
-The round trip has no learned weights; its state is its static tables.
-``jax_state`` collects them from the JAX package as numpy arrays, in the
-layout of HarvestRequiem's buffers; the module built by the port must hold
-the same values (exactly, except the refinement DFT table, whose JAX basis
-angles n*(-2*pi*k/S) round differently from -2*pi*m/S: 1e-12).
+The round trips have no learned weights; their state is their static
+tables.  ``jax_state`` and ``jax_dio_state`` collect them from the JAX
+package as numpy arrays, in the layout of HarvestRequiem's and DioClassic's
+buffers; the modules built by the port must hold the same values (exactly,
+except the DFT tables, whose JAX angles round differently from the port's
+host-built -2*pi*m/S: 1e-12).
 """
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -59,11 +61,50 @@ def jax_state(fs: int) -> dict:
             "noise_seed": np.asarray(seeds["noise"])}
 
 
+def jax_dio_state(fs: int) -> dict:
+    """DioClassic's tables for ``fs``, built by the JAX package: DIO's band
+    bank and read offsets (target_fs 4000), its decimator's truncated
+    impulse response, and StoneMask's DFT angles -2*pi*m/S for the largest
+    fft_size S (world_tpu/f0/stonemask.py::_dft_bins)."""
+    import jax.numpy as jnp
+
+    from world_tpu.dsp.iir import _DECIMATE_COEFFS, _trunc_impulse
+    from world_tpu.f0.dio import _band_bank
+
+    bfl = 71.0 * 2.0 ** ((np.arange(math.ceil(np.log2(800.0 / 71.0) * 2)) + 1)
+                         / 2)
+    bank, offsets = _band_bank(bfl, 4000.0)
+    a, (b0, b1) = _DECIMATE_COEFFS[int(fs / 4000)]
+    decim = _trunc_impulse((b0, b1, b1, b0), (1.0, -a[0], -a[1], -a[2]))
+    max_half = int(math.ceil(3 * fs / 71.0 / 2))
+    S = int(2 ** (math.ceil(math.log2(2 * max_half + 1)) + 1))
+    theta = (-2.0 * jnp.pi) * (jnp.arange(S, dtype=jnp.float64) / S)
+    return {"dio_bank": bank, "dio_offsets": offsets, "dio_decimator_ir": decim,
+            "stonemask_cos": np.asarray(jnp.cos(theta)),
+            "stonemask_sin": np.asarray(jnp.sin(theta))}
+
+
+@pytest.mark.parametrize("fs", FS_CASES)
+def test_dio_tables_equal_jax(fs):
+    from world_tpu_torch import DioClassic
+
+    module = DioClassic(fs, fs, dtype=torch.float64, device="cpu")
+    state = jax_dio_state(fs)
+    assert set(state) == {name for name, _ in module.named_buffers()}
+    for name, want in state.items():
+        got = getattr(module, name).numpy()
+        assert got.shape == want.shape, name
+        if name.startswith("stonemask_"):
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=name)
+
+
 @pytest.mark.parametrize("fs", FS_CASES)
 def test_tables_equal_jax(fs):
     from world_tpu_torch import HarvestRequiem
 
-    module = HarvestRequiem(fs, fs, dtype=torch.float64)
+    module = HarvestRequiem(fs, fs, dtype=torch.float64, device="cpu")
     state = jax_state(fs)
     assert set(state) == {name for name, _ in module.named_buffers()}
     for name, want in state.items():
@@ -78,7 +119,7 @@ def test_tables_equal_jax(fs):
 def test_from_numpy_state_loads_and_checks_shapes():
     from world_tpu_torch import HarvestRequiem
 
-    module = HarvestRequiem(12000, 3072, dtype=torch.float32)
+    module = HarvestRequiem(12000, 3072, dtype=torch.float32, device="cpu")
     state = jax_state(12000)
     module.from_numpy_state(state)
     assert torch.equal(module.noise_seed,
@@ -94,6 +135,20 @@ def test_package_imports_no_jax():
             " max_candidates=8, max_sections=16)\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
             " if m.startswith('jax'))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+def test_classic_path_imports_no_jax():
+    code = ("import sys, numpy as np, torch\n"
+            "from world_tpu_torch import World\n"
+            "w = World(device='cpu')\n"
+            "x = np.random.RandomState(0).randn(6000)\n"
+            "w.decode(w.encode(12000, x, f0_method='dio'))\n"
+            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
+            " if m.startswith('jax'))\n"
+            "assert 'world_tpu' not in sys.modules\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

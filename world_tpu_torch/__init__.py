@@ -6,6 +6,8 @@ and builds nothing; the CUDA kernels build on first use.
 """
 from . import _backend  # noqa: F401  (precision policy)
 from .api import World
-from .parallel.batch import HarvestRequiem, encode_decode_one
+from .parallel.batch import (DioClassic, HarvestRequiem, encode_classic_one,
+                             encode_decode_classic_one, encode_decode_one)
 
-__all__ = ["World", "HarvestRequiem", "encode_decode_one"]
+__all__ = ["World", "HarvestRequiem", "DioClassic", "encode_decode_one",
+           "encode_classic_one", "encode_decode_classic_one"]

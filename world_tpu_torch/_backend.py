@@ -6,9 +6,9 @@ matrix pass quantizing the signal), so it is switched off for matmuls and
 convolutions, and float32 matmuls run at "highest" precision.  The policy is
 applied once, when the package is imported.
 
-Kernels: ``csrc/*.cu`` is compiled with ``nvcc`` on first use into the
-git-ignored ``_build/`` directory as one shared library with a plain C
-interface, and loaded with ``ctypes``.  The build needs nothing outside the
+Kernels: each ``csrc/*.cu`` is compiled with ``nvcc`` on first use, all
+in parallel, into the git-ignored ``_build/`` directory and linked as one
+shared library with a plain C interface, loaded with ``ctypes``.  The build needs nothing outside the
 package.  No compiler is looked for and nothing is built on import.
 """
 import ctypes
@@ -35,7 +35,7 @@ BUILD_DIR = PKG_DIR / "_build"
 # fused (the refinement's two-product) call fma() explicitly.
 # No --use_fast_math: the refinement windows need correctly rounded cos.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false"]
+              "-Xcompiler", "-fPIC", "-fmad=false"]
 
 
 class LaunchCounter:
@@ -44,6 +44,23 @@ class LaunchCounter:
 
     def __init__(self):
         self.launches = 0
+
+
+# float64's machine epsilon: the reference's guards add or floor at it, and
+# the port keeps it in every working type (float32's own eps, 1.2e-7, lies
+# above much of a speech spectrum).
+F64_EPS = 2.220446049250313e-16
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the GPU when it is None.  Without a GPU that raises:
+    a run on the CPU is asked for by name, never fallen back to."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: world_tpu_torch runs on the GPU "
+                           "by default; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -110,15 +127,32 @@ def kernel_library():
     lib_path = BUILD_DIR / f"libworld_kernels_{digest.hexdigest()[:16]}.so"
     seconds = 0.0
     if not lib_path.exists():
+        # one nvcc per source, all started together, then one link
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        objs, procs = [], []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        runs = []
+        for proc in procs:
+            out, err = proc.communicate()
+            runs.append((proc.args, proc.returncode, out, err))
+        if all(rc == 0 for _, rc, _, _ in runs):
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True, text=True)
+            runs.append((link.args, link.returncode, link.stdout, link.stderr))
         seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n"
-                               f"{res.stderr}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        for args, rc, out, err in runs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(args)}\n"
+                                   f"{out}\n{err}")
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double

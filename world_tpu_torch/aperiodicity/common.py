@@ -1,5 +1,6 @@
-"""D4C machinery that D4C-Requiem uses (world_tpu/aperiodicity/common.py),
-batched over frames: every function takes (R, ...) rows of frames."""
+"""D4C machinery shared by classic D4C and D4C-Requiem
+(world_tpu/aperiodicity/common.py), batched over frames: every function
+takes (R, ...) rows of frames."""
 import math
 
 import numpy as np
@@ -19,6 +20,10 @@ def frame_slabs(x: torch.Tensor, fs: float, frame_period_ms: float,
     slab = uniform_centered_slabs(x, float(fs), frame_period_ms / 1000.0,
                                   n_frames, max_half)
     return slab.reshape(-1, slab.shape[-1])
+
+
+def d4c_fft_size(fs: int) -> int:
+    return int(2 ** np.ceil(np.log2(4 * fs / 47 + 1)))
 
 
 def love_train_fft_size(fs: int) -> int:
@@ -174,3 +179,22 @@ def coarse_aperiodicity(group_delay_half, fs: float, fft_size: int,
 def band_window(fs: int, fft_size: int, frequency_interval: float) -> np.ndarray:
     wl = int(math.floor(frequency_interval / (fs / fft_size)) * 2 + 1)
     return np_nuttall(wl)
+
+
+def coarse_ap_frames(x: torch.Tensor, fs: int, f0: torch.Tensor,
+                     t_pos: torch.Tensor, frequency_interval: float,
+                     fft_size: int, n_ap: int, window: np.ndarray,
+                     max_half: int, frame_period_ms: float) -> torch.Tensor:
+    """estimate_one_slice (d4c.py:114-128) for every frame of rows x (B, n):
+    the band aperiodicity (B*F, n_ap) in dB from the group delay, for f0 and
+    t_pos (B*F,) on the uniform frame grid."""
+    n_frames = f0.shape[0] // x.shape[0]
+    margin = int(np.ceil(fs / (4 * 47.0))) + 3
+    slab = frame_slabs(x, fs, frame_period_ms, n_frames, max_half + margin)
+    centroid = static_centroid_half(slab, margin, fs, f0, t_pos, max_half,
+                                    fft_size)
+    seg = slab[:, margin:slab.shape[1] - margin]
+    spsh = smoothed_power_spectrum_half(seg, fs, f0, t_pos, max_half, fft_size)
+    gd = static_group_delay_half(centroid, spsh, fs, f0, fft_size)
+    return coarse_aperiodicity(gd, float(fs), fft_size, frequency_interval,
+                               n_ap, window)

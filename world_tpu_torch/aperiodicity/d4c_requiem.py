@@ -3,10 +3,8 @@ import numpy as np
 import torch
 
 from .._backend import sdiv
-from .common import (band_window, coarse_aperiodicity, frame_slabs,
-                     love_train_fft_size, love_train_vuv,
-                     smoothed_power_spectrum_half, static_centroid_half,
-                     static_group_delay_half)
+from .common import (band_window, coarse_ap_frames, frame_slabs,
+                     love_train_fft_size, love_train_vuv)
 
 
 def requiem_fft_size(fs: int) -> int:
@@ -38,16 +36,8 @@ def d4c_requiem_core(x: torch.Tensor, fs: int, f0_seq: torch.Tensor,
     vuv_lt = love_train_vuv(seg_lt, fs, f0, t, threshold, max_half_lt, fft_lt)
 
     current_f0 = torch.clamp(f0, min=f0_low_limit)
-    margin = int(np.ceil(fs / (4 * 47.0))) + 3
-    slab = frame_slabs(x, fs, frame_period_ms, n_frames, max_half + margin)
-    centroid = static_centroid_half(slab, margin, fs, current_f0, t, max_half,
-                                    fft_size)
-    seg = slab[:, margin:slab.shape[1] - margin]
-    spsh = smoothed_power_spectrum_half(seg, fs, current_f0, t, max_half,
-                                        fft_size)
-    gd = static_group_delay_half(centroid, spsh, fs, current_f0, fft_size)
-    coarse = coarse_aperiodicity(gd, float(fs), fft_size, frequency_interval,
-                                 n_ap, window)
+    coarse = coarse_ap_frames(x, fs, current_f0, t, frequency_interval,
+                              fft_size, n_ap, window, max_half, frame_period_ms)
     mid = -torch.clamp(coarse - sdiv((current_f0[:, None] - 100.0) * 2.0, 100.0),
                        min=0.0)
     top = torch.full((mid.shape[0], 1), -60.0, dtype=dtype, device=x.device)

@@ -1,17 +1,21 @@
 """Public facade: a ``World`` with world_tpu.World's dict contract (numpy
-in, numpy out) for the ported path, ``encode(..., f0_method="harvest",
-is_requiem=True)`` and Requiem ``decode``.  Everything else raises
-NotImplementedError naming the ROADMAP item that brings it."""
+in, numpy out).  Analysis is parallel/batch.py's (Harvest or DIO +
+StoneMask, then CheapTrick, then classic D4C or D4C-Requiem) on a batch of
+one; synthesis is classic or Requiem.
+Everything else raises NotImplementedError naming the ROADMAP item that
+brings it."""
 import logging
 import warnings
 
 import numpy as np
 import torch
 
-from ._backend import torch_dtype
-from .f0.harvest import default_max_candidates, default_max_sections, warn_capacity
-from .parallel.batch import analyze, synthesize
-from .synth.requiem import default_max_pulses
+from ._backend import resolve_device, torch_dtype
+from .f0.harvest import default_max_sections, warn_capacity
+from .frames import uniform_frame_period_ms
+from .parallel.batch import (analyze_contour, f0_contour, spectral_envelope,
+                             synthesize)
+from .synth.classic import default_max_pulses, synthesis
 from .synth.seeds import get_seeds_signals
 
 logger = logging.getLogger(__name__)
@@ -22,68 +26,131 @@ def _not_ported(what: str, item: str):
                               f"Queue 1, {item}")
 
 
-def _uniform_frame_period_ms(tp: np.ndarray):
-    """Frame period in ms if tp is the uniform grid arange * fp / 1000."""
-    if tp.ndim != 1 or tp.shape[0] < 3:
-        return None
-    fp_ms = float(tp[1] - tp[0]) * 1000.0
-    if fp_ms <= 0:
-        return None
-    grid = np.arange(tp.shape[0]) * fp_ms / 1000.0
-    return fp_ms if np.allclose(tp, grid, rtol=0, atol=1e-9) else None
+_FACADE = "item 16 (the rest of the World facade, and the codecs)"
 
 
 class World:
-    """WORLD vocoder on PyTorch: the Harvest + CheapTrick + D4C-Requiem
-    analysis and Requiem synthesis."""
+    """WORLD vocoder on PyTorch.  Runs on the GPU unless ``device`` names
+    another; without a GPU, ``device="cpu"`` must be asked for."""
 
     def __init__(self, device=None, dtype=torch.float64):
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         self.dtype = torch_dtype(dtype)
 
     def _tensor(self, a):
         return torch.tensor(np.asarray(a), dtype=self.dtype, device=self.device)
 
+    @staticmethod
+    def _host(t):
+        return t.detach().cpu().numpy()
+
+    # ------------------------------------------------------------------ F0
+    def _f0_contour(self, fs, xt, f0_method, f0_floor, f0_ceil,
+                    channels_in_octave, target_fs, frame_period,
+                    allowed_range) -> dict:
+        """:func:`f0_contour` of rows xt (1, n), warning when Harvest's
+        static tables saturate."""
+        src = f0_contour(xt, fs, frame_period, f0_method, float(f0_floor),
+                         float(f0_ceil), int(channels_in_octave), int(target_fs),
+                         float(allowed_range))
+        if f0_method == "harvest":
+            warn_capacity(bool(src["_refine_overflow"][0]),
+                          bool(src["_section_overflow"][0]),
+                          default_max_sections(xt.shape[1], fs))
+        return src
+
+    def get_f0(self, fs, x, f0_method="harvest", f0_floor=71, f0_ceil=800,
+               channels_in_octave=2, target_fs=4000, frame_period=5):
+        """(temporal_positions, f0, vuv) as numpy arrays."""
+        src = self._f0_contour(int(fs), self._tensor(x)[None], f0_method,
+                               f0_floor, f0_ceil, channels_in_octave, target_fs,
+                               frame_period, 0.1)
+        return (self._host(src["temporal_positions"]), self._host(src["f0"][0]),
+                self._host(src["vuv"][0]))
+
+    # ------------------------------------------------------------- analysis
+    def get_spectrum(self, fs, x, f0_method="harvest", f0_floor=71, f0_ceil=800,
+                     channels_in_octave=2, target_fs=4000, frame_period=5,
+                     fft_size=None):
+        """{f0, temporal_positions, fs, ps spectrogram, spectrogram}."""
+        if fft_size is not None:
+            _not_ported("an explicit fft_size", _FACADE)
+        fs = int(fs)
+        xt = self._tensor(x)[None]
+        src = self._f0_contour(fs, xt, f0_method, f0_floor, f0_ceil,
+                               channels_in_octave, target_fs, frame_period, 0.1)
+        env, ps_spec, _ = spectral_envelope(xt, fs, src, frame_period)
+        return {"f0": self._host(src["f0"][0]),
+                "temporal_positions": self._host(src["temporal_positions"]),
+                "fs": fs,
+                "ps spectrogram": self._host(ps_spec[0].T),
+                "spectrogram": self._host(env[0].T)}
+
     def encode(self, fs, x, f0_method="harvest", f0_floor=71, f0_ceil=800,
                channels_in_octave=2, target_fs=4000, frame_period=5,
                allowed_range=0.1, fft_size=None, is_requiem=False):
-        """Speech -> {f0, vuv, spectrogram, aperiodicity, ...} (main.py:106-152)."""
-        del channels_in_octave, target_fs, allowed_range   # DIO's parameters
-        if f0_method != "harvest":
-            _not_ported(f"f0_method={f0_method!r}",
-                        "item 11 (DIO, StoneMask) / item 12 (SWIPE')")
-        if not is_requiem:
-            _not_ported("classic D4C (is_requiem=False)", "item 11 (D4C)")
+        """Speech -> {f0, vuv, spectrogram, aperiodicity, ...} (main.py:106-152):
+        :func:`f0_contour`, then :func:`analyze_contour`."""
         if fft_size is not None:
-            _not_ported("an explicit fft_size", "item 13 (World facade)")
+            _not_ported("an explicit fft_size", _FACADE)
         fs = int(fs)
         xt = self._tensor(x)[None]
-        max_sections = default_max_sections(xt.shape[1], fs)
-        an = analyze(xt, fs, frame_period,
-                     default_max_candidates(f0_floor, f0_ceil), max_sections,
-                     float(f0_floor), float(f0_ceil))
-        warn_capacity(bool(an["_refine_overflow"][0]),
-                      bool(an["_section_overflow"][0]), max_sections)
-        host = lambda t: t.detach().cpu().numpy()   # noqa: E731
+        src = self._f0_contour(fs, xt, f0_method, f0_floor, f0_ceil,
+                               channels_in_octave, target_fs, frame_period,
+                               allowed_range)
+        an = analyze_contour(xt, fs, src, frame_period, is_requiem)
         return {
-            "temporal_positions": host(an["temporal_positions"]),
-            "vuv": host(an["vuv"][0]),
+            "temporal_positions": self._host(an["temporal_positions"]),
+            "vuv": self._host(an["vuv"][0]),
             "fs": fs,
-            "f0": host(an["f0"][0]),
-            "aperiodicity": host(an["band_aperiodicity"][0].T),
-            "ps spectrogram": host(an["ps_spectrogram"][0].T),
-            "spectrogram": host(an["spectrogram"][0].T),
-            "is_requiem": True,
+            "f0": self._host(an["f0"][0]),
+            "aperiodicity": self._host(an["aperiodicity"][0].T),
+            "ps spectrogram": self._host(an["ps_spectrogram"][0].T),
+            "spectrogram": self._host(an["spectrogram"][0].T),
+            "is_requiem": bool(is_requiem),
         }
 
+    def encode_w_gvn_f0(self, *args, **kwargs):
+        _not_ported("World.encode_w_gvn_f0", _FACADE)
+
+    # ---------------------------------------------------------- modification
+    def scale_pitch(self, *args, **kwargs):
+        _not_ported("World.scale_pitch", _FACADE)
+
+    def set_pitch(self, *args, **kwargs):
+        _not_ported("World.set_pitch", _FACADE)
+
+    def scale_duration(self, *args, **kwargs):
+        _not_ported("World.scale_duration", _FACADE)
+
+    def modify_duration(self, *args, **kwargs):
+        _not_ported("World.modify_duration", _FACADE)
+
+    def warp_spectrum(self, *args, **kwargs):
+        _not_ported("World.warp_spectrum", _FACADE)
+
+    # -------------------------------------------------------------- synthesis
     def decode(self, dat, key=None, seed=0, noise_offsets=None):
-        """WORLD components -> waveform (main.py:198-214), Requiem synthesis.
-        ``seed`` selects the excitation seed bank and ``noise_offsets`` (one
-        int per band) the velvet-noise read cursors."""
-        if not dat.get("is_requiem"):
-            _not_ported("classic synthesis (is_requiem=False)",
-                        "item 12 (classic synthesis)")
-        del key                                     # classic synthesis's noise
+        """WORLD components -> waveform (main.py:198-214).
+
+        Classic synthesis draws its noise from ``key``, a ``torch.Generator``
+        on the World's device (seeded 0 when None).  Requiem synthesis takes
+        ``seed``, its excitation seed bank, and ``noise_offsets``, one
+        velvet-noise read cursor per band."""
+        if dat.get("is_requiem"):
+            y = self._requiem(dat, seed, noise_offsets)
+        else:
+            y = synthesis(dat, dat, generator=key, dtype=self.dtype,
+                          device=self.device)
+        y = self._host(y)
+        m = np.max(np.abs(y))
+        if m > 1.0:
+            logger.info("rescaling waveform")
+            y = y / m
+        dat["out"] = y
+        return dat
+
+    def _requiem(self, dat, seed, noise_offsets):
         fs = int(dat["fs"])
         tp = np.asarray(dat["temporal_positions"], dtype=np.float64)
         f0 = np.asarray(dat["f0"], dtype=np.float64)
@@ -95,7 +162,7 @@ class World:
         offsets = torch.as_tensor(np.asarray(noise_offsets, np.int64),
                                   device=self.device)
         y_length = len(np.arange(tp[0], tp[-1] + 1 / fs, 1.0 / fs))
-        fp_ms = _uniform_frame_period_ms(tp)
+        fp_ms = uniform_frame_period_ms(tp)
         max_pulses = default_max_pulses(tp, f0)
         y, overflow = synthesize(
             self._tensor(tp), self._tensor(f0), self._tensor(dat["vuv"]),
@@ -105,65 +172,40 @@ class World:
         if bool(overflow):
             warnings.warn(f"synthesis_requiem: pulse count exceeded max_pulses="
                           f"{max_pulses}; trailing pulses were dropped",
-                          RuntimeWarning, stacklevel=2)
-        y = y.detach().cpu().numpy()
-        m = np.max(np.abs(y))
-        if m > 1.0:
-            logger.info("rescaling waveform")
-            y = y / m
-        dat["out"] = y
-        return dat
+                          RuntimeWarning, stacklevel=3)
+        return y
 
-    def get_f0(self, *args, **kwargs):
-        _not_ported("World.get_f0", "item 13 (World facade)")
-
-    def get_spectrum(self, *args, **kwargs):
-        _not_ported("World.get_spectrum", "item 13 (World facade)")
-
-    def encode_w_gvn_f0(self, *args, **kwargs):
-        _not_ported("World.encode_w_gvn_f0", "item 13 (World facade)")
-
-    def scale_pitch(self, *args, **kwargs):
-        _not_ported("World.scale_pitch", "item 13 (World facade)")
-
-    def scale_duration(self, *args, **kwargs):
-        _not_ported("World.scale_duration", "item 13 (World facade)")
-
-    def modify_duration(self, *args, **kwargs):
-        _not_ported("World.modify_duration", "item 13 (World facade)")
-
-    def warp_spectrum(self, *args, **kwargs):
-        _not_ported("World.warp_spectrum", "item 13 (World facade)")
-
+    # ------------------------------------------------------- persistence
     def save(self, *args, **kwargs):
-        _not_ported("World.save", "item 13 (World facade)")
+        _not_ported("World.save", _FACADE)
 
     def load(self, *args, **kwargs):
-        _not_ported("World.load", "item 13 (World facade)")
+        _not_ported("World.load", _FACADE)
 
     def draw(self, *args, **kwargs):
-        _not_ported("World.draw", "item 13 (World facade)")
+        _not_ported("World.draw", _FACADE)
 
+    # ------------------------------------------------------------- codecs
     def hz2mel(self, *args, **kwargs):
-        _not_ported("World.hz2mel", "item 13 (codecs)")
+        _not_ported("World.hz2mel", _FACADE)
 
     def mel2hz(self, *args, **kwargs):
-        _not_ported("World.mel2hz", "item 13 (codecs)")
+        _not_ported("World.mel2hz", _FACADE)
 
     def get_filterbanks(self, *args, **kwargs):
-        _not_ported("World.get_filterbanks", "item 13 (codecs)")
+        _not_ported("World.get_filterbanks", _FACADE)
 
     def encode_lfbank(self, *args, **kwargs):
-        _not_ported("World.encode_lfbank", "item 13 (codecs)")
+        _not_ported("World.encode_lfbank", _FACADE)
 
     def encode_mcep(self, *args, **kwargs):
-        _not_ported("World.encode_mcep", "item 13 (codecs)")
+        _not_ported("World.encode_mcep", _FACADE)
 
     def decode_mcep(self, *args, **kwargs):
-        _not_ported("World.decode_mcep", "item 13 (codecs)")
+        _not_ported("World.decode_mcep", _FACADE)
 
     def get_context(self, *args, **kwargs):
-        _not_ported("World.get_context", "item 13 (codecs)")
+        _not_ported("World.get_context", _FACADE)
 
     def encode_vae(self, *args, **kwargs):
-        _not_ported("World.encode_vae", "item 13 (codecs)")
+        _not_ported("World.encode_vae", _FACADE)

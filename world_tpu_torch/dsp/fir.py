@@ -32,3 +32,14 @@ def fir_causal(x: torch.Tensor, h: torch.Tensor,
     T = h.shape[0]
     xp = torch.cat([pre.expand(x.shape[0], T - 1), x], dim=-1)
     return _conv_valid(xp, h.unsqueeze(0))[:, 0]
+
+
+def band_filtered(y: torch.Tensor, bank: torch.Tensor,
+                  offsets: torch.Tensor) -> torch.Tensor:
+    """(B, n_bands, ny) outputs of the FIR bank on rows y (B, ny), band b
+    read from sample offsets[b] of its full convolution."""
+    B, y_len = y.shape
+    n_bands = bank.shape[0]
+    conv = fir_bank_full(y, bank)                         # (B, n_bands, y_len+L-1)
+    idx = offsets[:, None] + torch.arange(y_len, device=y.device)[None, :]
+    return torch.gather(conv, 2, idx.expand(B, n_bands, y_len))

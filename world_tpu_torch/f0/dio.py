@@ -1,0 +1,345 @@
+"""DIO F0 estimation (port of world_tpu/f0/dio.py).
+
+Every stage takes a leading batch axis of utterances.  The band low-pass
+filters are one FIR bank (the reference multiplies three spectra at the
+full signal length, which equals one linear convolution with host-combined
+taps), the four event types of every band go to K1 as rows, and the
+contour fixer runs batched.  Its two sequential passes, FixStep3 and
+FixStep4, extend every voiced section at once: the Python loop runs over
+extension steps, not over frames.
+"""
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .._backend import F64_EPS
+from ..dsp.fir import band_filtered
+from ..dsp.iir import decimate_world, world_decimator_impulse
+from ..dsp.rounding import round_half_even_decimals
+from ..dsp.windows import np_hanning_matlab, np_nuttall
+from .events import four_event_stats
+
+
+# ---------------------------------------------------------------------------
+# static tables
+# ---------------------------------------------------------------------------
+
+def boundary_f0_list(f0_floor: float, f0_ceil: float,
+                     channels_in_octave: int) -> np.ndarray:
+    n = math.ceil(np.log2(f0_ceil / f0_floor) * channels_in_octave)
+    return f0_floor * 2.0 ** ((np.arange(n) + 1) / channels_in_octave)
+
+
+def low_cut_taps(actual_fs: float):
+    """The low-cut FIR of get_spectrum (dio.py:80-85) and its centre."""
+    cutoff = int(actual_fs / 50 + 0.5)
+    w = np_hanning_matlab(2 * cutoff + 1)
+    taps = -w / w.sum()
+    taps[cutoff] += 1.0
+    return taps, cutoff
+
+
+def band_bank(boundary_f0s: np.ndarray, actual_fs: float):
+    """(low-cut * Nuttall low-pass) FIR bank (n_bands, L), left-aligned, and
+    each band's read offset argmax(low-pass) + 1 + cutoff (n_bands,)."""
+    lcf, cutoff = low_cut_taps(actual_fs)
+    lens = [int(actual_fs / bf / 2 + 0.5) * 4 for bf in boundary_f0s]
+    combined = [np.convolve(lcf, np_nuttall(n)) for n in lens]
+    bank = np.zeros((len(lens), max(len(c) for c in combined)))
+    offsets = np.zeros(len(lens), dtype=np.int64)
+    for i, (c, n) in enumerate(zip(combined, lens)):
+        bank[i, :len(c)] = c
+        offsets[i] = int(np.argmax(np_nuttall(n))) + 1 + cutoff
+    return bank, offsets
+
+
+def dio_tables(fs: int, f0_floor: float, f0_ceil: float,
+               channels_in_octave: int, target_fs: int, dtype: torch.dtype,
+               device) -> dict:
+    """DIO's static tables, built on the host in float64: the band bank and
+    its offsets and the decimation filter's truncated impulse response."""
+    bank, offsets = band_bank(boundary_f0_list(f0_floor, f0_ceil,
+                                               channels_in_octave),
+                              float(target_fs))
+    as_t = lambda a, dt: torch.tensor(np.asarray(a), dtype=dt, device=device)  # noqa: E731
+    return {"dio_bank": as_t(bank, dtype),
+            "dio_offsets": as_t(offsets, torch.int64),
+            "dio_decimator_ir": as_t(world_decimator_impulse(int(fs / target_fs)),
+                                     dtype)}
+
+
+# ---------------------------------------------------------------------------
+# candidates
+# ---------------------------------------------------------------------------
+
+def candidates_and_stability(y: torch.Tensor, actual_fs: float, f0_floor: float,
+                             f0_ceil: float, boundary_f0s: np.ndarray,
+                             temporal_positions: torch.Tensor,
+                             frame_period: float, bank: torch.Tensor,
+                             offsets: torch.Tensor):
+    """Per-band f0 candidates and their stability, each (B, n_bands, F), for
+    decimated rows y (B, ny)."""
+    B, y_len = y.shape
+    n_bands = bank.shape[0]
+    filtered = band_filtered(y, bank, offsets).reshape(B * n_bands, y_len)
+    stride = actual_fs * frame_period / 1000.0
+    f0c, dev, _ = four_event_stats(filtered, actual_fs, temporal_positions,
+                                   stride)
+    f0c = f0c.reshape(B, n_bands, -1)
+    dev = dev.reshape(B, n_bands, -1)
+    bf = torch.as_tensor(boundary_f0s, dtype=y.dtype, device=y.device)[:, None]
+    bad = (f0c > bf) | (f0c < bf / 2) | (f0c > f0_ceil) | (f0c < f0_floor)
+    f0c = torch.where(bad, torch.zeros_like(f0c), f0c)
+    dev = torch.where(f0c == 0, torch.full_like(dev, 100000.0), dev)
+    stability = torch.exp(-(dev / torch.clamp(f0c, min=0.0000001)))
+    return f0c, stability
+
+
+# ---------------------------------------------------------------------------
+# contour fixing (dio.py:216-326)
+# ---------------------------------------------------------------------------
+
+def select_best_f0(current_f0, past_f0, candidates, allowed_range: float):
+    """select_best_f0 (dio.py:297-310) for K chains: the candidate nearest
+    the linear prediction, 0 when its relative error exceeds allowed_range.
+    current_f0, past_f0 (K,); candidates (C, K)."""
+    reference = (current_f0 * 3 - past_f0) / 2
+    errors = torch.abs(reference[None, :] - candidates)
+    best = torch.gather(candidates, 0, torch.argmin(errors, dim=0)[None, :])[0]
+    ok = torch.abs(1 - best / (reference + F64_EPS)) <= allowed_range
+    return torch.where(ok, best, torch.zeros_like(best))
+
+
+def fix_step1(f0_cands: torch.Tensor, voice_range_minimum: int,
+              allowed_range: float):
+    """Zero rapid changes of the best candidate, after zeroing its first and
+    last voice_range_minimum frames.  The reference zeroes those edges of
+    candidate row 0 in place (dio.py:237-247), so the candidates later
+    passes see are returned too.  f0_cands (B, C, n)."""
+    n = f0_cands.shape[-1]
+    idx = torch.arange(n, device=f0_cands.device)
+    edge = (idx < voice_range_minimum) | (idx >= n - voice_range_minimum)
+    f0_base = torch.where(edge, torch.zeros_like(f0_cands[:, 0]), f0_cands[:, 0])
+    r = round_half_even_decimals(f0_base, 6)
+    r_prev = torch.cat([r[:, :1], r[:, :-1]], dim=-1)
+    rapid = torch.abs((r - r_prev) / (0.000001 + r)) > allowed_range
+    apply = idx >= voice_range_minimum - 1
+    f0_step1 = torch.where(apply & rapid, torch.zeros_like(f0_base), f0_base)
+    cands_mut = f0_cands.clone()
+    cands_mut[:, 0] = f0_base
+    return f0_step1, cands_mut
+
+
+def fix_step2(f0_step1: torch.Tensor, voice_range_minimum: int):
+    """Zero every frame whose +-(vrm-1)/2 neighbourhood holds a zero
+    (dio.py:252-259); f0_step1 (B, n)."""
+    n = f0_step1.shape[-1]
+    hw = (voice_range_minimum - 1) // 2
+    z = (f0_step1 == 0).to(torch.int64)
+    c = F.pad(torch.cumsum(z, dim=-1), (1, 0))
+    i = torch.arange(n, device=f0_step1.device)
+    lo = (i - hw).clamp(0, n)
+    hi = (i + hw + 1).clamp(0, n)
+    any_zero = (c[:, hi] - c[:, lo]) > 0
+    inner = (i >= hw) & (i < n - hw)
+    return torch.where(inner & any_zero, torch.zeros_like(f0_step1), f0_step1)
+
+
+def _section_edges(f0: torch.Tensor):
+    """Voiced-section starts and ends (B, n) of f0 (B, n), and each frame's
+    next start strictly after it and previous end strictly before it
+    (n + 10 and -1 where there is none)."""
+    n = f0.shape[-1]
+    v = f0 != 0
+    i = torch.arange(n, device=f0.device).expand_as(v)
+    is_start = v & ~F.pad(v[:, :-1], (1, 0))
+    is_end = v & ~F.pad(v[:, 1:], (0, 1))
+    big = n + 10
+    starts = torch.where(is_start, i, torch.full_like(i, big))
+    next_start = torch.flip(torch.cummin(torch.flip(starts, (-1,)), dim=-1).values,
+                            (-1,))
+    next_after = F.pad(next_start[:, 1:], (0, 1), value=big)
+    ends = torch.where(is_end, i, torch.full_like(i, -1))
+    prev_end = torch.cummax(ends, dim=-1).values
+    prev_before = F.pad(prev_end[:, :-1], (1, 0), value=-1)
+    return is_start, is_end, next_after, prev_before
+
+
+def extend_sections(base: torch.Tensor, cands: torch.Tensor,
+                    origin: torch.Tensor, last: torch.Tensor,
+                    allowed_range: float) -> torch.Tensor:
+    """The forward extension scan of FixStep3 (dio.py:264-277) for every
+    section at once.
+
+    base (B, n) is the contour; cands (B, C, n); origin (B, n) marks each
+    section's last frame e, and last (B, n) holds, at e, the last frame its
+    chain may write.  The chain from e picks select_best_f0 at e+1, e+2, ...
+    from the two values before it, writes each pick, and stops after a
+    zero pick or past its last frame.  The scan in the JAX package carries
+    one state through every frame; a chain starts where a section ends, from
+    the contour as the earlier chain left it.  The picks of the chains are
+    computed together, one extension step per loop iteration; when a section
+    is so short (<= 3 frames) that the earlier chain wrote the two values a
+    chain starts from, the chains are recomputed from the new start values
+    until nothing changes, which gives the scan's result exactly."""
+    B, n = base.shape
+    dev, dtype = base.device, base.dtype
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    b_idx, e_idx = origin.nonzero(as_tuple=True)           # in scan order
+    K = e_idx.shape[0]
+    if K == 0:
+        return base
+    stop = last[b_idx, e_idx]
+    # a later section's end takes the scan over: stop there
+    nxt_same = torch.cat([b_idx[1:] == b_idx[:-1],
+                          torch.zeros(1, dtype=torch.bool, device=dev)])
+    nxt_e = torch.cat([e_idx[1:], e_idx[-1:]])
+    stop = torch.where(nxt_same, torch.minimum(stop, nxt_e), stop)
+    n_steps = int((stop - e_idx).max())
+    short = bool((nxt_same & (stop >= nxt_e - 1)).any())
+    cols = b_idx[None, :].expand(cands.shape[1], K)
+    crow = torch.arange(cands.shape[1], device=dev)[:, None].expand(-1, K)
+
+    def chains(out):
+        prev1 = out[b_idx, e_idx]
+        prev2 = torch.where(e_idx >= 1, out[b_idx, (e_idx - 1).clamp(min=0)], zero)
+        active = torch.ones(K, dtype=torch.bool, device=dev)
+        pos_l, val_l, act_l = [], [], []
+        for k in range(1, n_steps + 1):
+            pos = e_idx + k
+            active = active & (pos <= stop)
+            if not bool(active.any()):
+                break
+            cand = cands[cols, crow, pos.clamp(max=n - 1)[None, :].expand_as(cols)]
+            val = select_best_f0(prev1, prev2, cand, allowed_range)
+            pos_l.append(pos)
+            val_l.append(val)
+            act_l.append(active)
+            active = active & (val != 0)
+            prev2, prev1 = prev1, val
+        res = base.clone()
+        if pos_l:
+            pos, val, act = (torch.stack(pos_l), torch.stack(val_l),
+                             torch.stack(act_l))
+            k_i, s_i = act.nonzero(as_tuple=True)
+            res[b_idx[s_i], pos[k_i, s_i]] = val[k_i, s_i]
+        return res
+
+    out = chains(base)
+    while short:
+        again = chains(out)
+        if torch.equal(again, out):
+            break
+        out = again
+    return out
+
+
+def fix_step3(f0_step2, cands, allowed_range: float):
+    """Extend each voiced section forward (dio.py:264-277) up to one frame
+    past the next section's start, or to the last frame."""
+    n = f0_step2.shape[-1]
+    _, is_end, next_after, _ = _section_edges(f0_step2)
+    limit = torch.where(next_after >= n + 10, torch.full_like(next_after, n - 1),
+                        next_after + 1)
+    return extend_sections(f0_step2, cands, is_end, limit, allowed_range)
+
+
+def fix_step4(f0_step3, f0_step2, cands, allowed_range: float):
+    """Extend each voiced section of f0_step2 backward (dio.py:281-293)
+    over f0_step3, down to one frame before the previous section's end, or
+    to frame 0: FixStep3's scan on the reversed contour."""
+    n = f0_step3.shape[-1]
+    is_start, _, _, prev_before = _section_edges(f0_step2)
+    limit = torch.where(prev_before < 0, torch.ones_like(prev_before), prev_before)
+    flip = lambda t: torch.flip(t, (-1,))                   # noqa: E731
+    out = extend_sections(flip(f0_step3), flip(cands), flip(is_start),
+                          flip(n - limit), allowed_range)
+    return flip(out)
+
+
+def fix_f0_contour(f0_candidates: torch.Tensor, frame_period: float,
+                   f0_floor: float, allowed_range: float):
+    """(f0, vuv, (f0_step1, f0_step2, f0_step3, mutated candidates)) for
+    sorted candidates (B, C, n)."""
+    voice_range_minimum = int(1 / (frame_period / 1000) / f0_floor + 0.5) * 2 + 1
+    f0_step1, cands_mut = fix_step1(f0_candidates, voice_range_minimum,
+                                    allowed_range)
+    f0_step2 = fix_step2(f0_step1, voice_range_minimum)
+    f0_step3 = fix_step3(f0_step2, cands_mut, allowed_range)
+    f0_step4 = fix_step4(f0_step3, f0_step2, cands_mut, allowed_range)
+    vuv = (f0_step4 != 0).to(f0_step4.dtype)
+    return f0_step4, vuv, (f0_step1, f0_step2, f0_step3, cands_mut)
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def frame_positions(signal_length: int, fs: int, frame_period: float) -> np.ndarray:
+    """DIO's frame grid, arange(num_samples) * frame_period / 1000 (host
+    float64, dio.py:29)."""
+    num_samples = int(1000 * signal_length / fs / frame_period + 1)
+    return np.arange(num_samples) * frame_period / 1000
+
+
+def dio_stages(y: torch.Tensor, actual_fs: float, f0_floor: float,
+               f0_ceil: float, channels_in_octave: int, frame_period: float,
+               allowed_range: float, n_frames: int, bank: torch.Tensor = None,
+               offsets: torch.Tensor = None) -> dict:
+    """DIO after the decimation, for decimated rows y (B, ny) at actual_fs:
+    candidates, their stability-sorted order and the fixed contour.  Every
+    intermediate is returned, under the JAX package's names."""
+    dtype, dev = y.dtype, y.device
+    bfl = boundary_f0_list(f0_floor, f0_ceil, channels_in_octave)
+    if bank is None:
+        np_bank, np_off = band_bank(bfl, actual_fs)
+        bank = torch.as_tensor(np_bank, dtype=dtype, device=dev)
+        offsets = torch.as_tensor(np_off, device=dev)
+    tp = torch.as_tensor(np.arange(n_frames) * frame_period / 1000, dtype=dtype,
+                         device=dev)
+    raw_f0, raw_stab = candidates_and_stability(
+        y, actual_fs, f0_floor, f0_ceil, bfl, tp, frame_period, bank, offsets)
+    order = torch.argsort(-raw_stab, dim=1, stable=True)
+    f0_candidates = torch.gather(raw_f0, 1, order)
+    f0_scores = torch.gather(raw_stab, 1, order)
+    f0, vuv, (step1, step2, step3, cands_mut) = fix_f0_contour(
+        f0_candidates, frame_period, f0_floor, allowed_range)
+    return {"f0": f0, "vuv": vuv, "temporal_positions": tp,
+            "f0_candidates": f0_candidates, "raw_f0_candidates": raw_f0,
+            "_f0_scores": f0_scores, "_raw_stability": raw_stab,
+            "_f0_step1": step1, "_f0_step2": step2, "_f0_step3": step3,
+            "_f0_candidates_mutated": cands_mut}
+
+
+def dio_core(x: torch.Tensor, fs: int, f0_floor: float = 71.0,
+             f0_ceil: float = 800.0, channels_in_octave: int = 2,
+             target_fs: int = 4000, frame_period: float = 5.0,
+             allowed_range: float = 0.1, tables: dict = None) -> dict:
+    """DIO on rows x (B, n).  The decimated rate is taken to be target_fs,
+    as in the reference.  ``tables`` is :func:`dio_tables`' dict (built
+    when None)."""
+    if tables is None:
+        tables = dio_tables(fs, f0_floor, f0_ceil, channels_in_octave,
+                            target_fs, x.dtype, x.device)
+    y = decimate_world(x, int(fs / target_fs), h=tables["dio_decimator_ir"])
+    n_frames = frame_positions(x.shape[1], fs, frame_period).shape[0]
+    return dio_stages(y, float(target_fs), f0_floor, f0_ceil, channels_in_octave,
+                      frame_period, allowed_range, n_frames,
+                      tables["dio_bank"], tables["dio_offsets"])
+
+
+def dio(x: torch.Tensor, fs: int, f0_floor: float = 71, f0_ceil: float = 800,
+        channels_in_octave: int = 2, target_fs: int = 4000,
+        frame_period: float = 5, allowed_range: float = 0.1) -> dict:
+    """DIO F0 estimation of one utterance x (n,) or a batch (B, n).  Outputs
+    keep the input's batch shape."""
+    single = x.dim() == 1
+    out = dio_core(x[None] if single else x, int(fs), float(f0_floor),
+                   float(f0_ceil), int(channels_in_octave), int(target_fs),
+                   float(frame_period), float(allowed_range))
+    if single:
+        out = {k: (v if k == "temporal_positions" else v[0])
+               for k, v in out.items()}
+    return out

@@ -11,7 +11,7 @@ from fractions import Fraction
 
 import torch
 
-from .._backend import scalar
+from .._backend import scalar, sdiv
 
 N_PREV = 4
 N_NEXT = 5
@@ -125,13 +125,11 @@ def event_rows(filtered: torch.Tensor) -> torch.Tensor:
     return torch.cat([filtered, -filtered, d_pad, -d_pad], dim=0).contiguous()
 
 
-def four_event_interp(filtered: torch.Tensor, fs: float, t_frames: torch.Tensor,
+def _four_event_parts(filtered: torch.Tensor, fs: float, t_frames: torch.Tensor,
                       stride_samples: float):
-    """The harvest 4-event-type candidate mean for a batch of bands.
-
-    filtered: (B, n) band-filtered rows.  Returns (mean_f0 (B, Q),
-    usable (B,)).  The deviation the JAX twin also returns is DIO's, and
-    comes with the DIO port."""
+    """K1 over the four event types of (B, n) rows: the four (B, Q)
+    interpolated f0s, their mean and the (B,) usable flag (every type has
+    at least 3 intervals)."""
     from ..ops.edge_interp import interval_interp
 
     B = filtered.shape[0]
@@ -141,4 +139,30 @@ def four_event_interp(filtered: torch.Tensor, fs: float, t_frames: torch.Tensor,
     counts = torch.stack([m[i * B:(i + 1) * B] for i in range(4)])
     usable = (counts >= 3).all(dim=0)
     mean_f0 = (((parts[0] + parts[1]) + parts[2]) + parts[3]) / 4.0
+    return parts, mean_f0, usable
+
+
+def four_event_interp(filtered: torch.Tensor, fs: float, t_frames: torch.Tensor,
+                      stride_samples: float):
+    """Harvest's 4-event-type candidate mean for a batch of bands.
+
+    filtered: (B, n) band-filtered rows.  Returns (mean_f0 (B, Q),
+    usable (B,)), the mean zeroed on unusable rows."""
+    _, mean_f0, usable = _four_event_parts(filtered, fs, t_frames,
+                                           stride_samples)
     return torch.where(usable[:, None], mean_f0, torch.zeros_like(mean_f0)), usable
+
+
+def four_event_stats(filtered: torch.Tensor, fs: float, t_frames: torch.Tensor,
+                     stride_samples: float):
+    """DIO's 4-event-type candidates (get_f0_candidates, dio.py:156-185):
+    (mean_f0, deviation) (B, Q) and usable (B,).  The deviation is the
+    sample standard deviation (ddof=1) of the four f0s; unusable rows read
+    mean 0 and deviation 1000."""
+    parts, mean_f0, usable = _four_event_parts(filtered, fs, t_frames,
+                                               stride_samples)
+    sq = [(p - mean_f0) ** 2 for p in parts]
+    dev = torch.sqrt(sdiv(((sq[0] + sq[1]) + sq[2]) + sq[3], 3.0))
+    keep = usable[:, None]
+    return (torch.where(keep, mean_f0, torch.zeros_like(mean_f0)),
+            torch.where(keep, dev, torch.full_like(dev, 1000.0)), usable)

@@ -20,8 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._backend import rdiv
-from ..dsp.fir import fir_bank_full
+from .._backend import F64_EPS, rdiv
+from ..dsp.fir import band_filtered
 from ..dsp.iir import decimate_matlab, decimator_impulse
 from ..dsp.rounding import matlab_round_half
 from ..dsp.scanops import compact_rows
@@ -30,7 +30,6 @@ from ..frames import uniform_centered_slabs
 from ..ops.refine_dft import dft_table, refine_full
 from .events import four_event_interp
 
-EPS = 2.220446049250313e-16
 C2_SLOTS = 48           # refinement slots per frame after compaction
 
 
@@ -141,16 +140,6 @@ def downsample(x: torch.Tensor, fs: int, target_fs: int = 8000,
         actual_fs = fs / ratio
         y = y0[:, offset // ratio:-(offset // ratio)]
     return y - y.mean(dim=1, keepdim=True), actual_fs
-
-
-def band_filtered(y: torch.Tensor, bank: torch.Tensor,
-                  bias: torch.Tensor) -> torch.Tensor:
-    """(B, n_bands, ny) band-pass outputs, each read at its band's offset."""
-    B, y_len = y.shape
-    n_bands = bank.shape[0]
-    conv = fir_bank_full(y, bank)                         # (B, n_bands, y_len+L-1)
-    idx = bias[:, None] + torch.arange(y_len, device=y.device)[None, :]
-    return torch.gather(conv, 2, idx.expand(B, n_bands, y_len))
 
 
 def raw_band_candidates(y: torch.Tensor, actual_fs: float, bank: torch.Tensor,
@@ -313,8 +302,8 @@ def fix_step1(f0_base: torch.Tensor, allowed_range: float = 0.008):
     p1 = F.pad(f0_base[..., :-1], (1, 0))
     p2 = F.pad(f0_base[..., :-2], (2, 0))
     ref = p1 * 2 - p2
-    rapid = ((torch.abs((f0_base - ref) / (ref + EPS)) > allowed_range)
-             & (torch.abs((f0_base - p1) / (p1 + EPS)) > allowed_range))
+    rapid = ((torch.abs((f0_base - ref) / (ref + F64_EPS)) > allowed_range)
+             & (torch.abs((f0_base - p1) / (p1 + F64_EPS)) > allowed_range))
     i = torch.arange(n, device=f0_base.device)
     out = torch.where((i >= 2) & (f0_base != 0) & rapid,
                       torch.zeros_like(f0_base), f0_base)

@@ -22,6 +22,28 @@ def frame_centers(fs: float, frame_period_s: float, n_frames: int) -> np.ndarray
     return (1000 * q * pnum + 501 * qden) // (1000 * qden) + 1
 
 
+def uniform_frame_period_ms(temporal_positions: np.ndarray):
+    """Frame period in ms if temporal_positions is the uniform grid
+    arange * fp / 1000, else None."""
+    tp = np.asarray(temporal_positions)
+    if tp.ndim != 1 or tp.shape[0] < 3:
+        return None
+    fp_ms = float(tp[1] - tp[0]) * 1000.0
+    if fp_ms <= 0:
+        return None
+    grid = np.arange(tp.shape[0]) * fp_ms / 1000.0
+    return fp_ms if np.allclose(tp, grid, rtol=0, atol=1e-9) else None
+
+
+def gather_trunc_1based(x: torch.Tensor, index_1based: torch.Tensor) -> torch.Tensor:
+    """x[b, int(min(n, max(1, idx[b, ...]))) - 1] for rows x (B, n) and
+    float indices (B, ...): clamp, then truncate (the reference's
+    astype(int) of a half-offset float index)."""
+    B, n = x.shape
+    safe = torch.clamp(index_1based, 1, n).to(torch.int64) - 1
+    return torch.gather(x, 1, safe.reshape(B, -1)).reshape(safe.shape)
+
+
 def uniform_centered_slabs(x: torch.Tensor, fs: float, frame_period_s: float,
                            n_frames: int, max_half: int,
                            offset: int = 0) -> torch.Tensor:

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .._backend import LaunchCounter, check_kernel_input, launch, rdiv, sdiv
+from . import prod_diff
 
 
 counter = LaunchCounter()
@@ -30,14 +31,6 @@ def dft_table(S: int, dtype: torch.dtype, device) -> tuple:
     theta = (-2.0 * np.pi) * np.arange(S, dtype=np.float64) / S
     return (torch.as_tensor(np.cos(theta), dtype=dtype, device=device),
             torch.as_tensor(np.sin(theta), dtype=dtype, device=device))
-
-
-def _prod_diff(a, b, c, d):
-    """a*b - c*d; float32 inputs are evaluated in float64 (the compensated
-    numerator of world_tpu/ops/__init__.py::prod_diff)."""
-    if a.dtype == torch.float32:
-        return (a.double() * b.double() - c.double() * d.double()).float()
-    return a * b - c * d
 
 
 def _refine_pairs(seg, phase, f0, actual_fs, max_half, S, f0_floor, f0_ceil,
@@ -77,7 +70,7 @@ def _refine_pairs(seg, phase, f0, actual_fs, max_half, S, f0_floor, f0_ceil,
     im_d = (xd[:, None, :] * sb).sum(-1)
 
     tiny = torch.finfo(dtype).tiny
-    numerator = _prod_diff(re_s, im_d, im_s, re_d)
+    numerator = prod_diff(re_s, im_d, im_s, re_d)
     power = re_s * re_s + im_s * im_s
     inst = (bins / fft_size[:, None]
             + sdiv(numerator / torch.clamp(power, min=tiny) / 2, pi)) * actual_fs

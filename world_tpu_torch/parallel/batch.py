@@ -1,14 +1,27 @@
-"""The Harvest -> CheapTrick -> D4C-Requiem -> Requiem round-trip
-(port of world_tpu/parallel/batch.py::_encode_decode_one) with an explicit
-leading batch axis of equal-length utterances."""
+"""The round trips of world_tpu/parallel/batch.py, with an explicit leading
+batch axis of equal-length utterances:
+
+  * Harvest -> CheapTrick -> D4C-Requiem -> Requiem synthesis
+    (``_encode_decode_one``);
+  * DIO -> StoneMask -> CheapTrick -> D4C -> classic synthesis
+    (``_encode_classic_one``, ``_encode_decode_classic_one``).
+"""
 import numpy as np
 import torch
 from torch import nn
 
+from .._backend import resolve_device
+from ..aperiodicity import d4c as D4C
+from ..aperiodicity.common import d4c_fft_size
 from ..aperiodicity.d4c_requiem import d4c_requiem_core, n_bands_ap, requiem_fft_size
+from ..f0.dio import dio_core, dio_tables, frame_positions
 from ..f0.harvest import (default_max_candidates, default_max_sections,
                           harvest_core, harvest_tables)
+from ..f0.stonemask import max_half_window, stonemask_core, table_size
+from ..ops.refine_dft import dft_table
 from ..spectral.cheaptrick import cheaptrick_core, default_fft_size
+from ..synth.classic import (default_max_pulses, max_noise_length,
+                             standard_normal, synthesis_core)
 from ..synth.requiem import excitation_core, waveform_core
 from ..synth.seeds import get_seeds_signals
 
@@ -20,31 +33,96 @@ def output_length(signal_length: int, fs: int, frame_period: int) -> int:
     return int(np.floor((n_frames - 1) * frame_period / 1000 * fs)) + 1
 
 
-def analyze(x: torch.Tensor, fs: int, frame_period: float, max_candidates: int,
-            max_sections: int, f0_floor: float = F0_FLOOR,
-            f0_ceil: float = F0_CEIL, tables: dict = None) -> dict:
-    """Harvest -> CheapTrick -> D4C-Requiem for rows x (B, n).
+def stonemask_refine(x: torch.Tensor, fs: int, src: dict,
+                     f0_floor: float = F0_FLOOR, tables: dict = None) -> dict:
+    """DIO's contour src refined by StoneMask.  ``tables``:
+    :func:`classic_tables`' dict (the DFT table is built when None)."""
+    table = None if tables is None else (tables["stonemask_cos"],
+                                         tables["stonemask_sin"])
+    f0 = stonemask_core(x, fs, src["temporal_positions"], src["f0"],
+                        max_half_window(fs, f0_floor), table)
+    return {"f0": f0, "vuv": src["vuv"],
+            "temporal_positions": src["temporal_positions"]}
 
-    Returns f0 (B, F) zeroed where unvoiced, vuv (B, F), temporal_positions
-    (F,), spectrogram (B, F, bins), ps_spectrogram (B, F, fft),
-    band_aperiodicity (B, F, n_ap+2) and Harvest's capacity flags (B,)."""
-    hv = harvest_core(x, fs, f0_floor, f0_ceil, float(frame_period),
-                      max_candidates, max_sections, tables=tables)
-    f0, vuv = hv["f0"], hv["vuv"]
-    # CheapTrick analyses unvoiced frames at 500 Hz; D4C sees them as 0
+
+def f0_contour(x: torch.Tensor, fs: int, frame_period: float,
+               f0_method: str = "harvest", f0_floor: float = F0_FLOOR,
+               f0_ceil: float = F0_CEIL, channels_in_octave: int = 2,
+               target_fs: int = 4000, allowed_range: float = 0.1,
+               max_candidates: int = None, max_sections: int = None,
+               tables: dict = None) -> dict:
+    """f0 and vuv (B, F) and temporal_positions (F,) of rows x (B, n): by
+    Harvest, which adds its capacity flags _refine_overflow and
+    _section_overflow (B,), or by DIO refined by StoneMask.  ``tables``
+    holds the method's static tables (built when None)."""
+    fp_ms = float(frame_period)
+    if f0_method == "dio":
+        src = dio_core(x, fs, f0_floor, f0_ceil, channels_in_octave, target_fs,
+                       fp_ms, allowed_range, tables=tables)
+        return stonemask_refine(x, fs, src, f0_floor, tables)
+    if f0_method == "harvest":
+        if max_candidates is None:
+            max_candidates = default_max_candidates(f0_floor, f0_ceil)
+        if max_sections is None:
+            max_sections = default_max_sections(x.shape[1], fs)
+        return harvest_core(x, fs, f0_floor, f0_ceil, fp_ms, max_candidates,
+                            max_sections, tables=tables)
+    if f0_method == "swipe":
+        raise NotImplementedError("f0_method='swipe' is not ported yet: "
+                                  "ROADMAP.md, Queue 1, item 15 (SWIPE')")
+    raise ValueError(f"unknown f0_method {f0_method!r}")
+
+
+def spectral_envelope(x: torch.Tensor, fs: int, src: dict,
+                      frame_period: float):
+    """CheapTrick of rows x (B, n) on the contour src, unvoiced frames
+    analysed at 500 Hz.  Returns the envelope and the power spectrum
+    (B, F, bins) and the f0 D4C takes (B, F): CheapTrick's effective f0,
+    zeroed where unvoiced."""
+    f0, vuv = src["f0"], src["vuv"]
     f0_ct = torch.where(vuv == 0, torch.full_like(f0, 500.0), f0)
     env, ps_spec, f0_eff = cheaptrick_core(x, fs, f0_ct, default_fft_size(fs),
                                            -0.15, float(frame_period))
-    f0_d4c = torch.where(vuv == 0, torch.zeros_like(f0_eff), f0_eff)
-    band_ap = d4c_requiem_core(x, fs, f0_d4c, hv["temporal_positions"],
-                               requiem_fft_size(fs), 0.85, 3000.0,
-                               n_bands_ap(fs), float(frame_period))
-    return {"f0": f0_d4c, "vuv": vuv,
-            "temporal_positions": hv["temporal_positions"],
-            "spectrogram": env, "ps_spectrogram": ps_spec,
-            "band_aperiodicity": band_ap,
-            "_refine_overflow": hv["_refine_overflow"],
-            "_section_overflow": hv["_section_overflow"]}
+    return env, ps_spec, torch.where(vuv == 0, torch.zeros_like(f0_eff), f0_eff)
+
+
+def d4c_aperiodicity(x: torch.Tensor, fs: int, f0_d4c: torch.Tensor,
+                 temporal_positions: torch.Tensor, frame_period: float,
+                 is_requiem: bool) -> torch.Tensor:
+    """D4C-Requiem's band aperiodicity in dB (B, F, n_ap+2), or classic
+    D4C's full-resolution aperiodicity as linear amplitude (B, F, bins)."""
+    fp_ms = float(frame_period)
+    if is_requiem:
+        return d4c_requiem_core(x, fs, f0_d4c, temporal_positions,
+                                requiem_fft_size(fs), 0.85, 3000.0,
+                                n_bands_ap(fs), fp_ms)
+    return D4C.d4c_core(x, fs, f0_d4c, temporal_positions, d4c_fft_size(fs),
+                        default_fft_size(fs), 0.85, D4C.frequency_interval(fs),
+                        D4C.n_bands(fs), fp_ms)[0]
+
+
+def analyze_contour(x: torch.Tensor, fs: int, src: dict, frame_period: float,
+                    is_requiem: bool) -> dict:
+    """CheapTrick, then D4C-Requiem or classic D4C, of rows x (B, n) on the
+    contour src of :func:`f0_contour`.
+
+    Returns src with f0 zeroed where unvoiced, spectrogram and
+    ps_spectrogram (B, F, bins) and aperiodicity (:func:`d4c_aperiodicity`)."""
+    env, ps_spec, f0_d4c = spectral_envelope(x, fs, src, frame_period)
+    ap = d4c_aperiodicity(x, fs, f0_d4c, src["temporal_positions"],
+                          frame_period, is_requiem)
+    return dict(src, f0=f0_d4c, spectrogram=env, ps_spectrogram=ps_spec,
+                aperiodicity=ap)
+
+
+def analyze(x: torch.Tensor, fs: int, frame_period: float,
+            f0_method: str = "harvest", is_requiem: bool = True,
+            tables: dict = None, **f0_options) -> dict:
+    """The analysis of rows x (B, n): :func:`f0_contour` (``f0_options``
+    go to it), then :func:`analyze_contour`."""
+    src = f0_contour(x, fs, frame_period, f0_method, tables=tables,
+                     **f0_options)
+    return analyze_contour(x, fs, src, frame_period, is_requiem)
 
 
 def synthesize(temporal_positions, f0, vuv, band_ap_db, spectrogram,
@@ -68,8 +146,8 @@ def encode_decode_one(x: torch.Tensor, pulse_seed: torch.Tensor,
     spectrogram (B, F, bins), band_aperiodicity (B, F, n_ap+2), y
     (B, y_length) and the per-row capacity flag _overflow (B,)."""
     B, sig_len = x.shape
-    an = analyze(x, fs, frame_period, max_candidates, max_sections,
-                 tables=tables)
+    an = analyze(x, fs, frame_period, "harvest", True, tables=tables,
+                 max_candidates=max_candidates, max_sections=max_sections)
     if noise_offsets is None:
         noise_offsets = torch.zeros(pulse_seed.shape[1], dtype=torch.int64,
                                     device=x.device)
@@ -78,18 +156,148 @@ def encode_decode_one(x: torch.Tensor, pulse_seed: torch.Tensor,
     ys, pulse_overflow = [], []
     for b in range(B):
         y, over = synthesize(an["temporal_positions"], an["f0"][b], an["vuv"][b],
-                             an["band_aperiodicity"][b].T, an["spectrogram"][b].T,
+                             an["aperiodicity"][b].T, an["spectrogram"][b].T,
                              pulse_seed, noise_seed, noise_offsets, fs, y_length,
                              max_pulses, fps, float(frame_period) / 1000.0)
         ys.append(y)
         pulse_overflow.append(over)
     return {"f0": an["f0"], "vuv": an["vuv"], "spectrogram": an["spectrogram"],
-            "band_aperiodicity": an["band_aperiodicity"], "y": torch.stack(ys),
+            "band_aperiodicity": an["aperiodicity"], "y": torch.stack(ys),
             "_overflow": (an["_refine_overflow"] | an["_section_overflow"]
                           | torch.stack(pulse_overflow))}
 
 
-class HarvestRequiem(nn.Module):
+def encode_classic_one(x: torch.Tensor, fs: int, frame_period: int,
+                       tables: dict = None) -> dict:
+    """DIO -> StoneMask -> CheapTrick -> D4C for rows x (B, n) (the
+    reference's main.py:126-130 + 138-146).  Returns f0, vuv (B, F),
+    temporal_positions (F,), spectrogram and aperiodicity (B, bins, F).
+    ``tables``: :func:`classic_tables`' dict (built when None)."""
+    if tables is None:
+        tables = classic_tables(fs, x.dtype, x.device)
+    an = analyze(x, fs, frame_period, "dio", False, tables=tables)
+    return {"f0": an["f0"], "vuv": an["vuv"],
+            "temporal_positions": an["temporal_positions"],
+            "spectrogram": an["spectrogram"].transpose(1, 2),
+            "aperiodicity": an["aperiodicity"].transpose(1, 2)}
+
+
+def classic_caps(sig_len: int, fs: int, frame_period: int):
+    """(y_length, max_pulses, max_noise) of the classic round trip, bounded
+    by the f0 ceiling rather than the data (DIO keeps no candidate above
+    it): the shape of its noise draw."""
+    n_frames = frame_positions(sig_len, fs, frame_period).shape[0]
+    tp_last = (n_frames - 1) * frame_period / 1000.0
+    y_length = len(np.arange(0.0, tp_last + 1.0 / fs, 1.0 / fs))
+    max_pulses = default_max_pulses(np.array([0.0, tp_last]), np.array([F0_CEIL]))
+    return y_length, max_pulses, max_noise_length(fs)
+
+
+def synthesize_classic(dat: dict, noise: torch.Tensor, fs: int, sig_len: int,
+                       frame_period: int):
+    """Classic pulse/noise synthesis (synthesis.py:21-82) of each row of
+    :func:`encode_classic_one`'s dat, row b from the standard-normal draw
+    noise[b] of shape :func:`classic_caps`.  Returns y (B, y_length) and
+    the pulse overflow flags (B,)."""
+    y_length, max_pulses, max_noise = classic_caps(sig_len, fs, frame_period)
+    fft_size = default_fft_size(fs)
+    ys, overflow = [], []
+    for b in range(dat["f0"].shape[0]):
+        y, over = synthesis_core(
+            dat["f0"][b], dat["vuv"][b], dat["temporal_positions"],
+            dat["spectrogram"][b], dat["aperiodicity"][b], noise[b], fs,
+            y_length, fft_size, max_pulses, max_noise, "gaussian", "standard",
+            float(frame_period) / 1000.0)
+        ys.append(y)
+        overflow.append(over)
+    return torch.stack(ys), torch.tensor(overflow, device=noise.device)
+
+
+def encode_decode_classic_one(x: torch.Tensor, fs: int, frame_period: int,
+                              noise: torch.Tensor = None,
+                              generator: torch.Generator = None,
+                              tables: dict = None) -> dict:
+    """The classic round trip for rows x (B, n): :func:`encode_classic_one`,
+    then :func:`synthesize_classic`.
+
+    ``noise`` is the standard-normal draw (B, max_pulses, max_noise) of
+    :func:`classic_caps`; when None it is drawn from ``generator`` (seeded
+    0 on x's device when None).  Returns the encode outputs, y
+    (B, y_length) and the per-row pulse overflow flag _overflow (B,)."""
+    B, sig_len = x.shape
+    dat = encode_classic_one(x, fs, frame_period, tables)
+    if noise is None:
+        _, max_pulses, max_noise = classic_caps(sig_len, fs, frame_period)
+        noise = standard_normal((B, max_pulses, max_noise), generator, x.dtype,
+                                x.device)
+    y, overflow = synthesize_classic(dat, noise, fs, sig_len, frame_period)
+    return dict(dat, y=y, _overflow=overflow)
+
+
+def classic_tables(fs: int, dtype: torch.dtype, device) -> dict:
+    """The classic round trip's static tables: DIO's band bank, its offsets
+    and its decimator's impulse response, and StoneMask's DFT table."""
+    tables = dio_tables(fs, F0_FLOOR, F0_CEIL, 2, 4000, dtype, device)
+    cos_tab, sin_tab = dft_table(table_size(max_half_window(fs, F0_FLOOR)),
+                                 dtype, device)
+    tables.update(stonemask_cos=cos_tab, stonemask_sin=sin_tab)
+    return tables
+
+
+class _TableModule(nn.Module):
+    """A round trip as a module whose buffers are its static tables."""
+
+    def _register_tables(self, tables: dict):
+        for name, t in tables.items():
+            self.register_buffer(name, t.clone())
+
+    def from_numpy_state(self, state: dict):
+        """Load tables given as numpy arrays (e.g. the JAX package's) into
+        the buffers of the same names; shapes must match."""
+        for name, arr in state.items():
+            buf = getattr(self, name)
+            src = torch.tensor(np.asarray(arr), dtype=buf.dtype)
+            if src.shape != buf.shape:
+                raise ValueError(f"{name}: shape {tuple(src.shape)} != "
+                                 f"{tuple(buf.shape)}")
+            buf.copy_(src)
+        return self
+
+    def _batch(self, x: torch.Tensor) -> torch.Tensor:
+        xb = x[None] if x.dim() == 1 else x
+        if xb.shape[1] != self.n_samples:
+            raise ValueError(f"expected {self.n_samples} samples, got "
+                             f"{xb.shape[1]}")
+        return xb
+
+
+class DioClassic(_TableModule):
+    """The classic round trip (DIO -> StoneMask -> CheapTrick -> D4C ->
+    classic synthesis) as a module whose buffers are its static tables: the
+    DIO band bank and offsets, the decimator's impulse response and the
+    StoneMask DFT table.
+
+    ``forward(x, noise=None, generator=None)`` takes (B, n_samples) or
+    (n_samples,) signals of the length the module was built for."""
+
+    def __init__(self, fs: int, n_samples: int, frame_period: int = 5,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.fs = int(fs)
+        self.n_samples = int(n_samples)
+        self.frame_period = int(frame_period)
+        self._register_tables(classic_tables(self.fs, dtype,
+                                             resolve_device(device)))
+
+    def forward(self, x: torch.Tensor, noise: torch.Tensor = None,
+                generator: torch.Generator = None) -> dict:
+        return encode_decode_classic_one(self._batch(x), self.fs,
+                                         self.frame_period, noise=noise,
+                                         generator=generator,
+                                         tables=dict(self.named_buffers()))
+
+
+class HarvestRequiem(_TableModule):
     """The round-trip as a module whose buffers are its static tables: the
     band FIR bank and offsets, the decimator impulse response, the
     refinement DFT table, the smoothing kernel and the Requiem seed banks.
@@ -112,35 +320,20 @@ class HarvestRequiem(nn.Module):
                                else default_max_candidates(F0_FLOOR, F0_CEIL))
         self.max_sections = (max_sections if max_sections is not None
                              else default_max_sections(n_samples, fs))
+        device = resolve_device(device)
         tables = harvest_tables(self.fs, F0_FLOOR, F0_CEIL, dtype, device)
         seeds = get_seeds_signals(self.fs, seed=seed)
         tables["pulse_seed"] = torch.tensor(seeds["pulse"], dtype=dtype,
-                                               device=device)
+                                            device=device)
         tables["noise_seed"] = torch.tensor(seeds["noise"], dtype=dtype,
-                                               device=device)
-        for name, t in tables.items():
-            self.register_buffer(name, t.clone())
+                                            device=device)
+        self._register_tables(tables)
 
     _HARVEST_KEYS = ("band_bank", "band_bias", "decimator_ir", "refine_cos",
                      "refine_sin", "smooth_kernel")
 
-    def from_numpy_state(self, state: dict) -> "HarvestRequiem":
-        """Load tables given as numpy arrays (e.g. the JAX package's) into
-        the buffers of the same names; shapes must match."""
-        for name, arr in state.items():
-            buf = getattr(self, name)
-            src = torch.tensor(np.asarray(arr), dtype=buf.dtype)
-            if src.shape != buf.shape:
-                raise ValueError(f"{name}: shape {tuple(src.shape)} != "
-                                 f"{tuple(buf.shape)}")
-            buf.copy_(src)
-        return self
-
     def forward(self, x: torch.Tensor, noise_offsets: torch.Tensor = None) -> dict:
-        xb = x[None] if x.dim() == 1 else x
-        if xb.shape[1] != self.n_samples:
-            raise ValueError(f"expected {self.n_samples} samples, got "
-                             f"{xb.shape[1]}")
+        xb = self._batch(x)
         tables = {k: getattr(self, k) for k in self._HARVEST_KEYS}
         return encode_decode_one(xb, self.pulse_seed, self.noise_seed, self.fs,
                                  self.frame_period, self.max_pulses,

@@ -6,14 +6,11 @@ import math
 import numpy as np
 import torch
 
-from .._backend import rdiv, sdiv
+from .._backend import F64_EPS, rdiv, sdiv
 from ..aperiodicity.common import frame_slabs, rect_smooth_half
 from ..dsp.dcfill import dc_fill_add
 from ..dsp.minphase import mirror_full
 from ..frames import apply_adaptive_window
-
-
-_F64_EPS = 2.220446049250313e-16
 
 
 def default_fft_size(fs: int) -> int:
@@ -44,7 +41,7 @@ def _linear_smoothing(power_full, f0, fs, fft_size: int):
     # dips below zero.
     eps = torch.finfo(power_full.dtype).eps
     floor = torch.mean(power_full, dim=-1, keepdim=True) * eps * eps
-    return torch.maximum(smoothed + _F64_EPS, floor)
+    return torch.maximum(smoothed + F64_EPS, floor)
 
 
 def _smoothing_with_recovery(smoothed_full, f0, fs, fft_size: int, q1: float):

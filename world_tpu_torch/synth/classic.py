@@ -1,8 +1,28 @@
-"""From world_tpu/synth/classic.py, what Requiem synthesis uses.  Classic
-pulse/noise synthesis itself is not ported yet (see ROADMAP)."""
+"""Classic WORLD synthesis (port of world_tpu/synth/classic.py): a pulse
+train and filtered noise, overlap-added.
+
+Pulse times come from the wrapped phase of the interpolated f0; every
+pulse's periodic response (minimum-phase spectrum with a fractional time
+shift) and aperiodic response (noise convolved with a minimum-phase
+response) are computed for all pulses at once, then overlap-added with
+``index_add_``.  The noise is an explicit argument, a standard-normal draw
+of shape (max_pulses, max_noise), so that a run is reproducible: callers
+draw it from a ``torch.Generator`` of their own.
+"""
+import math
+import warnings
+
+import numpy as np
 import torch
 
-from .._backend import sdiv
+from .._backend import F64_EPS, resolve_device, sdiv
+from ..dsp.interp import interp1_extrap
+from ..dsp.minphase import minimum_phase_spectrum, mirror_full
+from ..dsp.ola import scatter_ola
+from ..dsp.windows import np_hanning_matlab
+from ..frames import uniform_frame_period_ms
+
+DEFAULT_F0 = 500.0
 
 
 def grid_interp(values: torch.Tensor, temporal_positions: torch.Tensor,
@@ -16,3 +36,199 @@ def grid_interp(values: torch.Tensor, temporal_positions: torch.Tensor,
     y0 = values[..., j]
     y1 = values[..., j + 1]
     return y0 + (y1 - y0) * frac
+
+
+def _interp(values, temporal_positions, queries, frame_period_s):
+    if frame_period_s is not None:
+        return grid_interp(values, temporal_positions, queries, frame_period_s)
+    return interp1_extrap(temporal_positions, values, queries)
+
+
+def time_base(temporal_positions, f0, vuv, fs: float, time_axis,
+              max_pulses: int, wrap_threshold: float = math.pi,
+              frame_period_s=None):
+    """Pulse times from the wrapped phase (synthesis.py:120-140).
+
+    Returns the pulse locations (P,) in seconds and their 1-based sample
+    indices (P,), the fractional time shifts (P,), the interpolated vuv
+    (y_length,) and the raw pulse count, for the P = min(count, max_pulses)
+    pulses kept.  ``wrap_threshold`` pi/2 is synthesis_a's detection."""
+    f0_i = _interp(f0, temporal_positions, time_axis, frame_period_s)
+    vuv_i = _interp(vuv, temporal_positions, time_axis, frame_period_s) > 0.5
+    zero = torch.zeros((), dtype=f0_i.dtype, device=f0_i.device)
+    f0_i = torch.where(vuv_i, f0_i, zero)
+    f0_i = torch.where(f0_i == 0, torch.full_like(f0_i, DEFAULT_F0), f0_i)
+    # The phase is summed in float64 whatever the working type: over seconds
+    # it reaches thousands of radians, where float32 keeps ~5e-4 rad.
+    # Float64 runs are unchanged.
+    total_phase = torch.cumsum(sdiv(2 * math.pi * f0_i.to(torch.float64), fs),
+                               dim=0)
+    wrap = torch.remainder(total_phase, 2 * math.pi)
+    mask = torch.abs(torch.diff(wrap)) > wrap_threshold
+    n = mask.shape[0]
+    at = mask.nonzero()[:, 0]
+    raw_count = at.shape[0]
+    at = at[:max_pulses]
+    locs = time_axis[at]
+    pli = torch.floor(locs * fs + 0.5).to(torch.int64) + 1
+    y1 = wrap[pli - 1] - 2.0 * math.pi
+    y2 = wrap[torch.clamp(pli, max=n)]
+    shift = sdiv(-y1 / (y2 - y1), fs).to(f0_i.dtype)
+    return locs, pli, shift, vuv_i, raw_count
+
+
+def synthesis_core(f0, vuv, temporal_positions, spectrogram, aperiodicity,
+                   noise, fs: int, y_length: int, fft_size: int,
+                   max_pulses: int, max_noise: int, noise_mode: str = "gaussian",
+                   variant: str = "standard", frame_period_s=None):
+    """Classic synthesis of one utterance (synthesis.py:21-116).
+
+    spectrogram and aperiodicity are (bins, frames); noise is the
+    standard-normal draw (max_pulses, max_noise), whose rows feed the pulses
+    in order.  ``noise_mode="constant"`` uses 0.1 in its place, as the
+    golden waveform does, and takes noise None.  ``variant="a"`` is
+    synthesis_a: pulses at pi/2 phase wraps, no fractional shift, no
+    aperiodicity gate.  Returns (y (y_length,), pulse overflow)."""
+    dtype, dev = spectrogram.dtype, spectrogram.device
+    if noise_mode == "gaussian" and (noise is None or tuple(noise.shape)
+                                     != (max_pulses, max_noise)):
+        raise ValueError(f"gaussian noise_mode needs a ({max_pulses}, "
+                         f"{max_noise}) standard-normal draw")
+    if noise_mode not in ("gaussian", "constant"):
+        raise ValueError(f"noise_mode {noise_mode!r}")
+    time_axis = (sdiv(torch.arange(y_length, dtype=dtype, device=dev), fs)
+                 + temporal_positions[0])
+    wrap_threshold = math.pi if variant == "standard" else math.pi / 2
+    locs, pli, shifts, vuv_i, raw_count = time_base(
+        temporal_positions, f0, vuv, float(fs), time_axis, max_pulses,
+        wrap_threshold, frame_period_s)
+    P = pli.shape[0]
+    overflow = raw_count > max_pulses
+    if P == 0:
+        return torch.zeros(y_length, dtype=dtype, device=dev), overflow
+    if variant == "a":
+        shifts = torch.zeros_like(shifts)
+
+    n_frames = temporal_positions.shape[0]
+    frame_ids = torch.arange(1, n_frames + 1, dtype=dtype, device=dev)
+    tpi = torch.clamp(_interp(frame_ids, temporal_positions, locs, frame_period_s),
+                      1.0, float(n_frames))
+    S = spectrogram.T                                        # (frames, bins)
+    AP = (aperiodicity ** 2).T
+    PER = torch.clamp(1.0 - AP, min=0.001)
+
+    nxt = torch.clamp(torch.arange(1, P + 1, device=dev), max=P - 1)
+    noise_sizes = pli[nxt] - pli
+
+    # 2-frame spectral lerp, all pulses at once
+    floor_i = torch.floor(tpi).to(torch.int64) - 1
+    ceil_i = torch.ceil(tpi).to(torch.int64) - 1
+    t1 = temporal_positions[floor_i]
+    t2 = temporal_positions[ceil_i]
+    xq = torch.maximum(t1, torch.minimum(t2, locs))
+    same = t1 == t2
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    b = torch.where(same, zero, (xq - t1) / torch.where(same, torch.ones_like(t1),
+                                                      t2 - t1))
+    a = (1.0 - b)[:, None]
+    b = b[:, None]
+    spec = a * S[floor_i] + b * S[ceil_i]
+    per = a * PER[floor_i] + b * PER[ceil_i]
+    aps = a * AP[floor_i] + b * AP[ceil_i]
+    voiced = vuv_i[pli - 1]
+    if variant == "standard":
+        voiced = voiced & (aps[:, 0] <= 0.999)
+
+    # periodic responses (synthesis.py:100-116)
+    half_n = fft_size // 2 + 1
+    mp = minimum_phase_spectrum(mirror_full(torch.clamp(spec * per, min=F64_EPS)))
+    coefficient = 2.0 * math.pi * fs / fft_size
+    half_k = torch.arange(half_n, dtype=dtype, device=dev)
+    theta = -(coefficient * shifts)[:, None] * half_k[None, :]
+    half = mp[:, :half_n] * torch.polar(torch.ones_like(theta), theta)
+    full = torch.cat([half, torch.flip(half[:, 1:-1], (-1,)).conj()], dim=1)
+    response = torch.fft.fftshift(torch.fft.ifft(full).real, dim=-1)
+    dc_base = np_hanning_matlab(fft_size)
+    dc_base = torch.as_tensor(dc_base / dc_base.sum(), dtype=dtype, device=dev)
+    dc_remover = dc_base[None, :] * (-response.sum(dim=1, keepdim=True))
+    periodic = ((response + dc_remover)
+                * torch.sqrt(torch.clamp(noise_sizes.to(dtype), min=1.0))[:, None])
+    periodic = torch.where(voiced[:, None], periodic, zero)
+
+    # aperiodic responses (synthesis.py:86-96)
+    ap_spec = torch.clamp(torch.where(voiced[:, None], spec * aps, spec), min=F64_EPS)
+    ap_response = torch.fft.fftshift(
+        torch.fft.ifft(minimum_phase_spectrum(mirror_full(ap_spec))).real, dim=-1)
+    n_noise = torch.clamp(torch.clamp(noise_sizes, max=max_noise), min=3)
+    noise_mask = torch.arange(max_noise, device=dev)[None, :] < n_noise[:, None]
+    if noise_mode == "constant":
+        draw = torch.full((P, max_noise), 0.1, dtype=dtype, device=dev)
+    else:
+        draw = noise[:P].to(dtype)
+    draw = torch.where(noise_mask, draw, zero)
+    draw = torch.where(noise_mask, draw - draw.sum(dim=1, keepdim=True)
+                       / n_noise[:, None].to(dtype), zero)
+    conv_n = 2 * fft_size
+    ap_out = torch.fft.irfft(torch.fft.rfft(draw, conv_n)
+                             * torch.fft.rfft(ap_response, conv_n),
+                             conv_n)[:, :fft_size]
+    return (scatter_ola(periodic + ap_out, pli - fft_size // 2, y_length),
+            overflow)
+
+
+def default_max_pulses(temporal_positions: np.ndarray, f0: np.ndarray) -> int:
+    est = int(np.ceil((temporal_positions[-1] - temporal_positions[0])
+                      * max(500.0, float(np.max(f0)) * 1.2))) + 8
+    return int(2 ** np.ceil(np.log2(est)))
+
+
+def max_noise_length(fs: int) -> int:
+    return int(fs / 40) + 4
+
+
+def synthesis(source_object: dict, filter_object: dict, noise: torch.Tensor = None,
+              generator: torch.Generator = None, noise_mode: str = "gaussian",
+              max_pulses: int = None, variant: str = "standard",
+              dtype=torch.float64, device=None) -> torch.Tensor:
+    """Waveform of a source/filter dict pair (API of
+    world_tpu.synth.classic.synthesis) on ``device`` (the GPU unless the
+    CPU is asked for).  The noise draw is ``noise``, or drawn from
+    ``generator`` (seeded 0 on the device when None)."""
+    dev = resolve_device(device)
+    as_t = lambda a: torch.tensor(np.asarray(a, dtype=np.float64),   # noqa: E731
+                                  dtype=dtype, device=dev)
+    f0 = np.asarray(source_object["f0"], dtype=np.float64)
+    tp = np.asarray(source_object["temporal_positions"], dtype=np.float64)
+    spectrogram = as_t(filter_object["spectrogram"])
+    fs = int(filter_object["fs"])
+    y_length = len(np.arange(tp[0], tp[-1] + 1 / fs, 1.0 / fs))
+    fft_size = (spectrogram.shape[0] - 1) * 2
+    if max_pulses is None:
+        max_pulses = default_max_pulses(tp, f0)
+    max_noise = max_noise_length(fs)
+    if noise is None and noise_mode == "gaussian":
+        noise = standard_normal((max_pulses, max_noise), generator, dtype, dev)
+    fp_ms = uniform_frame_period_ms(tp)
+    y, overflow = synthesis_core(
+        as_t(f0), as_t(source_object["vuv"]), as_t(tp), spectrogram,
+        as_t(source_object["aperiodicity"]), noise, fs, y_length, fft_size,
+        max_pulses, max_noise, noise_mode, variant,
+        None if fp_ms is None else fp_ms / 1000.0)
+    if overflow:
+        warnings.warn(f"synthesis: pulse count exceeded max_pulses={max_pulses}; "
+                      f"trailing pulses were dropped — raise max_pulses",
+                      RuntimeWarning, stacklevel=2)
+    return y
+
+
+def synthesis_a(source_object, filter_object, **kwargs) -> torch.Tensor:
+    """The historical synthesis variant (synthesis_a.py:21-101)."""
+    return synthesis(source_object, filter_object, variant="a", **kwargs)
+
+
+def standard_normal(shape, generator: torch.Generator, dtype, device) -> torch.Tensor:
+    """A standard-normal draw from ``generator``, or from a generator
+    seeded 0 on ``device`` when None; never from the global RNG."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return torch.randn(shape, generator=generator, dtype=dtype, device=device)

@@ -4,7 +4,6 @@ per-band offsets, pulses are overlap-added with ``index_add_``, and all
 frames are filtered through batched minimum-phase spectra."""
 import math
 
-import numpy as np
 import torch
 
 from .._backend import sdiv
@@ -103,9 +102,3 @@ def waveform_core(excitation, spectrogram, fs: int, fft_size: int, fps: int):
     mp = minimum_phase_spectrum(mirror_full(spec))
     resp = torch.fft.ifft(mp * torch.fft.fft(tmp, fft_size)).real
     return uniform_ola(resp, fps - half - 1, fps, y_len)
-
-
-def default_max_pulses(temporal_positions: np.ndarray, f0: np.ndarray) -> int:
-    est = int(np.ceil((temporal_positions[-1] - temporal_positions[0])
-                      * max(500.0, float(np.max(f0)) * 1.2))) + 8
-    return int(2 ** np.ceil(np.log2(est)))
