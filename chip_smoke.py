@@ -6,19 +6,25 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (each raises on failure; any failure exits non-zero):
-  1. build the CUDA kernels from world_tpu_torch/csrc and print the card;
+  1. build the CUDA kernels from world_tpu_torch/csrc, print the card and
+     each kernel's registers, shared memory and spills as ptxas reports
+     them;
   2. K1 (event engine) against its plain PyTorch version on the card, in
      float32 and float64: at Harvest's main-path shape, at the 22.05 kHz
      geometry, and at DIO's geometry on the real DIO event rows of the
      16 kHz golden utterance and of dio.npz's decimated signal;
-  3. K2 (refinement) against its plain version, float32 and float64;
+  3. K2 (refinement) against its plain version, float32 and float64, on
+     the main path's operands and on real frames with adversarial slot
+     layouts (all 48 slots live at 71 Hz, only the last slot live, none
+     live, all at 800 Hz, 48 distinct long windows, a random half live);
   4. the Harvest -> CheapTrick -> D4C-Requiem -> Requiem round trip in
      float32 on the 16 kHz golden utterance through World.encode/decode,
      held to the golden bars; both kernels must have launched;
   5. a batch of 4 utterances through encode_decode_one: row 0 must take the
      single-stream run's decisions;
   6. timings with CUDA events: xRT of both round trips, each kernel against
-     its plain version at each geometry, K1's passes apart (torch.profiler),
+     its plain version at each geometry and at batch 4, K1's passes apart
+     and its launches per call (torch.profiler),
      where the classic round trip's time goes (the stage functions of
      world_tpu_torch.parallel.batch) and the device's idle share;
   7. DIO's stages after the decimation in float32 on dio.npz's decimated
@@ -71,11 +77,12 @@ DIO_F32_RAW_RTOL, DIO_RAW_ATOL = 1e-3, 1e-4
 # device memory at 3.35 TB/s, float32 outside the tensor cores at 67 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Operations counted per unit of work.  K1: the crossing test and position
-# of each input sample (4), and for each (row, frame) two binary searches
-# over the row's crossings and interval_select's arithmetic (64).  K2: for
-# each sample of a slot's own window, the two window cosines and their
-# blend, the two windowed samples and 24 multiply-adds (60).
+# Operations counted per unit of work, fixed when the kernels were first
+# timed, so that their times compare across designs.  K1: the crossing test
+# and position of each input sample (4), and for each (row, frame) the
+# search for its edges and interval_select's arithmetic (64).  K2: for each
+# sample of a slot's own window, the two window cosines and their blend, the
+# two windowed samples and 24 multiply-adds (60).
 K1_OPS_PER_SAMPLE, K1_OPS_PER_FRAME = 4, 64
 K2_OPS_PER_WINDOW_SAMPLE = 60
 
@@ -102,6 +109,22 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Mean host microseconds to enqueue one call of fn (no synchronize
+    inside the timed loop): where it exceeds the device time, the host sets
+    the pace of back-to-back calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -139,18 +162,19 @@ def k2_bound(ops):
 
 
 def main_path_operands(x16: np.ndarray, fs: int, dtype):
-    """The operands each kernel gets on the Harvest path for the golden
-    utterance: K1's (608, n) event rows and K2's seg, phase, f0."""
+    """The operands each kernel gets on the Harvest path for utterances x16,
+    (n,) or (B, n): K1's (608 B, n) event rows and K2's seg, phase (B F, W)
+    and f0 (48, B F)."""
     import torch
     from world_tpu_torch.f0 import harvest as H
     from world_tpu_torch.f0.events import event_rows
 
     dev = torch.device("cuda")
-    x = torch.tensor(x16, dtype=dtype, device=dev)[None]
+    x = torch.tensor(np.atleast_2d(x16), dtype=dtype, device=dev)
     tables = H.harvest_tables(fs, 71.0, 800.0, dtype, dev)
     y, afs = H.downsample(x, fs, 8000, h=tables["decimator_ir"])
     filtered = H.band_filtered(y, tables["band_bank"], tables["band_bias"])
-    rows = event_rows(filtered[0])
+    rows = event_rows(filtered.reshape(-1, filtered.shape[-1]))
     n_frames = int(1000 * x.shape[1] / fs + 1)
     tq = torch.as_tensor(np.arange(n_frames) / 1000, dtype=dtype, device=dev)
     bfl = H.boundary_f0_list(71.0, 800.0)
@@ -167,6 +191,36 @@ def main_path_operands(x16: np.ndarray, fs: int, dtype):
     return {"rows": rows, "tq": tq, "afs": afs, "stride": afs * 0.001,
             "seg": seg, "phase": phase, "f0": f0, "max_half": max_half, "S": S,
             "table": table}
+
+
+def adversarial_k2_operands(ops, n_frames: int = 600):
+    """K2's operands on the main path's first real frames, with the slot
+    layouts a frame can take: frame f takes layout f % 6 of all 48 slots
+    live at 71 Hz (the full 341-sample window), only the last slot live, no
+    slot live, all at 800 Hz, 48 distinct long windows (71-90 Hz, more than
+    one pool of windows), and a random half of the slots live at 71-800 Hz."""
+    import torch
+
+    rng = np.random.RandomState(3)
+    C = ops["f0"].shape[0]
+    F = min(n_frames, ops["seg"].shape[0])
+    f0 = np.full((C, F), 1e-12)
+    for f in range(F):
+        kind = f % 6
+        if kind == 0:
+            f0[:, f] = 71.0
+        elif kind == 1:
+            f0[-1, f] = 100.0 + f % 200
+        elif kind == 3:
+            f0[:, f] = 800.0
+        elif kind == 4:
+            f0[:, f] = rng.permutation(np.linspace(71.0, 90.0, C))
+        elif kind == 5:
+            live = rng.rand(C) < 0.5
+            f0[live, f] = rng.uniform(71.0, 800.0, int(live.sum()))
+    seg = ops["seg"]
+    return dict(ops, seg=seg[:F].contiguous(), phase=ops["phase"][:F].contiguous(),
+                f0=torch.tensor(f0, dtype=seg.dtype, device=seg.device))
 
 
 def dio_event_operands(signal: np.ndarray, fs: int, n_frames: int, dtype):
@@ -316,11 +370,13 @@ def classic_bars(dat, ref):
             "ap_max_db": float(np.max(np.abs(20 * np.log10(ap / rap))))}
 
 
+K1_PASSES = ("scan_crossings", "select_intervals")
+
+
 def k1_pass_times(cases, iters: int = 20) -> dict:
-    """Mean device microseconds of each pass of K1 (compact_crossings,
-    select_intervals, interval_counts), apart, from torch.profiler over
-    ``iters`` launches of each case; None where the profiler saw no device
-    time."""
+    """Mean device microseconds of each pass of K1 (K1_PASSES), apart, and
+    the device kernels per call, from torch.profiler over ``iters`` calls of
+    each case; None where the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from world_tpu_torch.ops.edge_interp import event_engine_cuda
@@ -337,12 +393,12 @@ def k1_pass_times(cases, iters: int = 20) -> dict:
             torch.cuda.synchronize()
         times = {}
         for ev in prof.key_averages():
-            for name in ("compact_crossings", "select_intervals", "interval_counts"):
+            for name in K1_PASSES:
                 if name in ev.key:
                     times[name] = times.get(name, 0.0) + _device_us(ev) / iters
-        out[label] = {name: times.get(name) or None
-                      for name in ("compact_crossings", "select_intervals",
-                                   "interval_counts")}
+        out[label] = {name: times.get(name) or None for name in K1_PASSES}
+        n_events = device_totals(prof)[1]
+        out[label]["device_kernels_per_call"] = n_events / iters if n_events else None
     return out
 
 
@@ -436,7 +492,7 @@ def main(phases=ALL_PHASES) -> int:
     from world_tpu_torch import DioClassic, HarvestRequiem, World
     from world_tpu_torch.parallel.batch import classic_caps
     from world_tpu_torch.synth.classic import standard_normal
-    from world_tpu_torch._backend import kernel_library
+    from world_tpu_torch._backend import kernel_library, kernel_resources
     from world_tpu_torch.f0.events import batched_interval_interp
     from world_tpu_torch.ops import edge_interp, refine_dft
 
@@ -480,6 +536,11 @@ def main(phases=ALL_PHASES) -> int:
     _, build_s = kernel_library()
     print(f"phase 1 build: nvcc {build_s:.2f} s, load {time.perf_counter() - t0:.2f} s "
           f"[{card}]")
+    for k in kernel_resources():
+        print(f"phase 1 ptxas {k['name']}: {k['registers']} registers, "
+              f"{k['smem_bytes']} bytes static smem, {k['stack_bytes']} bytes "
+              f"stack, spill stores "
+              f"{k['spill_stores']} bytes, spill loads {k['spill_loads']} bytes")
 
     ops32 = dio32 = None
     if 2 in phases or 3 in phases or 6 in phases:
@@ -514,6 +575,7 @@ def main(phases=ALL_PHASES) -> int:
             err = check_k2(ops, f"{dt} main path")
             if dt == "float32":
                 kernels["refine_dft"]["max_abs_err"] = err
+            check_k2(adversarial_k2_operands(ops), f"{dt} adversarial slot layouts")
         print("phase 3 K2: ok")
 
     if 4 in phases:
@@ -669,6 +731,16 @@ def main(phases=ALL_PHASES) -> int:
             raise AssertionError("phase 9: golden synthesis bars not met")
 
     if 6 in phases:
+        # K1's passes apart, first: the profiler is used again below
+        passes = k1_pass_times([("harvest_8k", ops32), ("dio_x16", dio32)])
+        kernels["event_engine"]["pass_us"] = passes
+        for geo, t in passes.items():
+            print(f"phase 6 event_engine passes at {geo} (torch.profiler) [{card}]: "
+                  + ", ".join(f"{k} {'not measured' if t[k] is None else f'{t[k]:.2f} us'}"
+                              for k in K1_PASSES)
+                  + f"; device kernels per call {t['device_kernels_per_call']}")
+            if (t["device_kernels_per_call"] or 0) > 2:
+                raise AssertionError(f"K1 at {geo}: more than two launches per call")
         t_single = cuda_ms(lambda: model(xs_t[:1]), iters=3)
         t_batch = cuda_ms(lambda: model(xs_t), iters=3)
         print(f"phase 6 Harvest/Requiem round trip float32 (4.644 s utterance) "
@@ -712,41 +784,45 @@ def main(phases=ALL_PHASES) -> int:
                   f"no device events recorded; device time not measured")
 
         o = ops32
-        cases = [
-            ("event_engine", "harvest_8k", (o["rows"], o["afs"], o["tq"], o["stride"]),
-             k1_bound(o["rows"], o["tq"])),
-            ("event_engine", "dio_x16", (dio32["rows"], dio32["afs"], dio32["tq"],
-                                         dio32["stride"]),
-             k1_bound(dio32["rows"], dio32["tq"])),
-            ("refine_dft", "harvest_8k", (o["seg"], o["phase"], o["f0"], o["afs"],
-                                          o["max_half"], o["S"], 71.0, 800.0,
-                                          o["table"]), k2_bound(o)),
-        ]
+        b4 = main_path_operands(xs, fs, torch.float32)
+
+        def k1_case(geo, ops, plain_iters=5):
+            return ("event_engine", geo, (ops["rows"], ops["afs"], ops["tq"],
+                                          ops["stride"]),
+                    k1_bound(ops["rows"], ops["tq"]), plain_iters)
+
+        def k2_case(geo, ops, plain_iters=5):
+            return ("refine_dft", geo, (ops["seg"], ops["phase"], ops["f0"],
+                                        ops["afs"], ops["max_half"], ops["S"],
+                                        71.0, 800.0, ops["table"]),
+                    k2_bound(ops), plain_iters)
+
+        cases = [k1_case("harvest_8k", o), k1_case("dio_x16", dio32),
+                 k1_case("harvest_8k_batch4", b4, 2),
+                 k2_case("harvest_8k", o), k2_case("harvest_8k_batch4", b4, 2)]
         fns = {"event_engine": (edge_interp.event_engine_cuda,
                                 batched_interval_interp),
                "refine_dft": (refine_dft.refine_cuda, refine_dft.refine_plain)}
-        for name, geo, args, (b_ms, b_by) in cases:
+        for name, geo, args, (b_ms, b_by), plain_iters in cases:
             kern, plain = fns[name]
             # plain, kernel, kernel, plain: report the mean of each pair
-            p1 = cuda_ms(lambda: plain(*args), iters=5)
+            p1 = cuda_ms(lambda: plain(*args), iters=plain_iters)
             k1 = cuda_ms(lambda: kern(*args), iters=20)
             k2 = cuda_ms(lambda: kern(*args), iters=20)
-            p2 = cuda_ms(lambda: plain(*args), iters=5)
+            p2 = cuda_ms(lambda: plain(*args), iters=plain_iters)
+            h_us = host_us(lambda: kern(*args))
             entry = kernels[name]["geometries"].setdefault(geo, {})
             entry.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
-                         bound_by=b_by)
+                         bound_by=b_by, host_us=h_us)
             if geo == "harvest_8k":
                 kernels[name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                                      bound_ms=b_ms, bound_by=b_by)
             print(f"phase 6 {name} float32 at {geo} [{card}]: kernel "
                   f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by})")
-        passes = k1_pass_times([("harvest_8k", o), ("dio_x16", dio32)])
-        kernels["event_engine"]["pass_us"] = passes
-        for geo, t in passes.items():
-            print(f"phase 6 event_engine passes at {geo} (torch.profiler) [{card}]: "
-                  + ", ".join(f"{k} {'not measured' if v is None else f'{v:.2f} us'}"
-                              for k, v in t.items()))
+                  f"{b_ms:.4f} ms ({b_by}), share of bound "
+                  f"{b_ms / ((k1 + k2) / 2):.3f}; the wrapper's host time "
+                  f"{h_us:.1f} us a call")
+        del b4
         edge_interp.counter.launches, refine_dft.counter.launches = saved
 
     print(json.dumps({"kernels": list(kernels.values())}))

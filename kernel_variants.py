@@ -1,0 +1,215 @@
+#!/usr/bin/env python3
+"""Where the time of the port's two CUDA kernels goes, by variants.
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 kernel_variants.py
+
+Without a device profiler that reads counters, this script builds variants
+of each kernel source with one part removed or changed (text substitutions
+of world_tpu_torch/csrc/*.cu), loads each as a library of its own and times
+it with CUDA events on the Harvest main path's float32 operands (K1 also at
+DIO's geometry), in turns.  A variant that removes work computes garbage:
+only its time means anything, and the difference from the full kernel is
+what the removed part costs.  It then times the host's share of one call of
+K1's wrapper and of its parts.  It asserts nothing about speed.
+"""
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+CSRC = ROOT / "world_tpu_torch" / "csrc"
+
+# K2 (refine_dft.cu): (name, what it shows, substitutions)
+_SLOTS = "        for (int i = worker; i < n_live; i += 4 * kWarps) {"
+_WINDOWS = "        for (int w = warp; w < n_win; w += kWarps) {"
+_LOOP = ("#pragma unroll 2\n          for (int j = jlo + gl; j <= jhi; j += 8) {")
+_COS = ("  const T c2 = M<T>::cos(T(2) * common);\n"
+        "  const T c4 = M<T>::cos(T(4) * common);")
+K2_VARIANTS = (
+    ("full", "the kernel as built", ()),
+    ("no_accumulate", "without the slots' sample loop",
+     ((_LOOP, _LOOP.replace("j <= jhi", "j < -1")),)),
+    ("no_cos", "the windows without their two cosines",
+     ((_COS, "  const T c2 = common;\n  const T c4 = common * common;"),)),
+    ("no_windows", "without the window phase",
+     ((_WINDOWS, _WINDOWS.replace("w < n_win", "w < -1")),)),
+    ("no_slots", "without the slot phase",
+     ((_SLOTS, _SLOTS.replace("i < n_live", "i < -1")),)),
+    ("bookkeeping_only", "without windows and slots: loads and bookkeeping",
+     ((_SLOTS, _SLOTS.replace("i < n_live", "i < -1")),
+      (_WINDOWS, _WINDOWS.replace("w < n_win", "w < -1")))),
+    ("shortest_first", "windows and slots ordered by half from the smallest",
+     (("        const bool before = h2 > my_half;",
+       "        const bool before = h2 < my_half;"),)),
+    ("8_warps", "blocks of 8 warps instead of 4",
+     (("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),)),
+)
+
+# K1 (event_engine.cu)
+_FRAMES = "  for (int i = 0; i < kFramesPerThread; ++i) {\n    const int q = q0 + tid + i * kThreads;\n    if (q >= q1) break;\n    const long long g"
+K1_VARIANTS = (
+    ("full", "the kernel as built", ()),
+    ("pass1_loads_only", "pass 1 stops after its loads",
+     (("  int total;\n  const int off = block_scan<kScanThreads / 32>",
+       "  if (bits == 0x5Au && after == T(-12345)) pos[tid] = v[0];\n  return;\n"
+       "  int total;\n  const int off = block_scan<kScanThreads / 32>"),)),
+    ("pass2_no_frames", "pass 2 without its per-frame selection",
+     ((_FRAMES, _FRAMES.replace("if (q >= q1) break;", "if (q >= q0) break;")),)),
+    ("span_4096", "pass-2 blocks of ~4,096 samples of frames",
+     (("constexpr int kSpanSamples = 8192;", "constexpr int kSpanSamples = 4096;"),)),
+)
+
+
+def _substitute(src: str, pairs) -> str:
+    for old, new in pairs:
+        if old not in src:
+            raise ValueError(f"variant text not found in the source: {old[:60]!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def build_variants(build_dir: Path):
+    """Compile every variant, all nvcc processes at once; returns
+    {(kernel, name): library path}."""
+    from world_tpu_torch._backend import NVCC_FLAGS, _nvcc
+
+    build_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for kernel, variants in (("refine_dft", K2_VARIANTS), ("event_engine", K1_VARIANTS)):
+        src = (CSRC / f"{kernel}.cu").read_text()
+        for name, _, subs in variants:
+            cu = build_dir / f"{kernel}_{name}.cu"
+            cu.write_text(_substitute(src, subs))
+            so = cu.with_suffix(".so")
+            jobs[(kernel, name)] = (so, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for key, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        out[key] = so
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from world_tpu_torch._backend import BUILD_DIR
+    from world_tpu_torch.ops import edge_interp as E
+
+    card = chip_smoke.card_line()
+    libs = build_variants(BUILD_DIR / "variants")
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    fns = {}
+    for (kernel, name), so in libs.items():
+        lib = ctypes.CDLL(str(so))
+        fn = getattr(lib, f"world_{kernel}_f32")
+        fn.argtypes = ([P, P, P, I, I, I, I, I, P, P, D, D, D, P, P]
+                       if kernel == "refine_dft" else
+                       [P, I, I, P, I, I, I, D, I, I, P, P, P, P, P, P])
+        fn.restype = I
+        fns[(kernel, name)] = fn
+
+    g = np.load(chip_smoke.GOLDEN)
+    x16, fs = np.asarray(g["x16"]), int(g["fs"])
+    o = chip_smoke.main_path_operands(x16, fs, torch.float32)
+    d = chip_smoke.dio_event_operands(x16, fs, int(1000 * x16.shape[0] / fs / 5 + 1),
+                                      torch.float32)
+
+    # how many of K2's windows a frame's live slots share: one window per
+    # distinct (frame, half)
+    live = o["f0"] > 1e-6
+    half = torch.ceil(3 * o["afs"] / torch.where(live, o["f0"], 1.0) / 2)
+    half = torch.where(live, half, torch.zeros_like(half)).T       # (F, C2)
+    first = torch.ones_like(live.T)
+    for c in range(1, half.shape[1]):
+        first[:, c] = (half[:, :c] != half[:, c:c + 1]).all(dim=1)
+    windows = live.T & first
+    length = 2 * torch.clamp(half, max=o["max_half"]) + 1
+    print(f"K2 operands: {int(live.sum())} live slots in {live.shape[1]} frames, "
+          f"{int(windows.sum())} distinct (frame, half) windows; "
+          f"{int((length * live.T).sum())} slot-window samples, "
+          f"{int((length * windows).sum())} window samples")
+
+    def stream():
+        return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+    C, F = o["f0"].shape
+    k2_out = torch.empty((C, F, 2), device="cuda")
+
+    def k2_call(fn):
+        err = fn(o["seg"].data_ptr(), o["phase"].data_ptr(), o["f0"].data_ptr(), C, F,
+                 o["seg"].shape[1], o["max_half"], o["S"], o["table"][0].data_ptr(),
+                 o["table"][1].data_ptr(), o["afs"], 71.0, 800.0, k2_out.data_ptr(),
+                 stream())
+        if err:
+            raise RuntimeError(f"K2 variant failed to launch: cudaError {err}")
+
+    def k1_args(ops):
+        rows, tq = ops["rows"], ops["tq"]
+        S, n = rows.shape
+        Q = tq.shape[0]
+        pnum, qden = E.stride_fraction(ops["stride"])
+        lay = E.event_scratch_layout(S, n, Q, 4)
+        keep = (torch.empty(lay["bytes"], dtype=torch.uint8, device="cuda"),
+                torch.empty((S, Q), device="cuda"),
+                torch.empty(S, dtype=torch.int32, device="cuda"))
+        b = keep[0].data_ptr()
+        return keep, (rows.data_ptr(), S, n, tq.data_ptr(), Q, pnum, qden, ops["afs"],
+                      E.EVENT_TILE, E.crossing_capacity(n), b + lay["pos"],
+                      b + lay["rank"], b + lay["tile_count"], keep[1].data_ptr(),
+                      keep[2].data_ptr())
+
+    # one scratch per geometry, shared by the variants in turn (a variant
+    # that skips part of pass 1 leaves pass 2 the full kernel's results)
+    (_, k1_harvest), (_, k1_dio) = k1_args(o), k1_args(d)
+
+    def k1_call(fn, args):
+        err = fn(*args, stream())
+        if err:
+            raise RuntimeError(f"K1 variant failed to launch: cudaError {err}")
+
+    print(f"kernel_variants [{card}]: float32, the Harvest main path's operands; "
+          f"mean of 30 launches, CUDA events, two rounds in turns")
+    for rnd in range(2):
+        for name, what, _ in K2_VARIANTS:
+            fn = fns[("refine_dft", name)]
+            us = chip_smoke.cuda_ms(lambda: k2_call(fn), iters=30) * 1e3
+            print(f"variant refine_dft {name} round {rnd}: {us:.1f} us ({what})")
+        for name, what, _ in K1_VARIANTS:
+            fn = fns[("event_engine", name)]
+            h = chip_smoke.cuda_ms(lambda: k1_call(fn, k1_harvest), iters=30) * 1e3
+            dd = chip_smoke.cuda_ms(lambda: k1_call(fn, k1_dio), iters=30) * 1e3
+            print(f"variant event_engine {name} round {rnd}: Harvest {h:.1f} us, "
+                  f"DIO {dd:.1f} us ({what})")
+
+    # the host's share of one K1 call at DIO's geometry, and of its parts
+    args = (d["rows"], d["afs"], d["tq"], d["stride"])
+    parts = (
+        ("event_engine_cuda, the whole wrapper", lambda: E.event_engine_cuda(*args)),
+        ("one torch.empty on the card", lambda: torch.empty(1000, device="cuda")),
+        ("torch.cuda.current_stream().cuda_stream",
+         lambda: torch.cuda.current_stream().cuda_stream),
+        ("the raw current-stream handle launch() takes", lambda: torch._C.
+         _cuda_getCurrentRawStream(torch.cuda.current_device())),
+        ("the raw stream handle and the ctypes call: two launches",
+         lambda: k1_call(fns[("event_engine", "full")], k1_dio)),
+    )
+    for what, fn in parts:
+        print(f"host {what}: {chip_smoke.host_us(fn):.2f} us a call [{card}]")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

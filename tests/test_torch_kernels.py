@@ -147,6 +147,43 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
     assert (edge_interp.counter.launches, refine_dft.counter.launches) == before
 
 
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 4095, 4096, 4097, 8193, 12288, 37152])
+def test_crossing_capacity_holds_alternating_rows(n):
+    """An alternating-sign row crosses at every other sample, the most a row
+    can: the plain count reaches ceil((n-1)/2) and never exceeds the
+    kernel's per-row capacity, and each tile's crossings fit its segment."""
+    from world_tpu_torch.f0.events import crossings, edge_table
+    from world_tpu_torch.ops.edge_interp import EVENT_TILE, crossing_capacity
+
+    rng = np.random.RandomState(n)
+    alt = (-1.0) ** np.arange(n) * (1 + rng.rand(n))
+    x = torch.tensor(np.stack([alt, -alt, rng.randn(n)]))
+    _, cnt = edge_table(x, 4, 8.0)
+    assert int(cnt[0]) == -(-(n - 1) // 2)
+    assert int(cnt.max()) <= crossing_capacity(n)
+    mask, _ = crossings(x)
+    for t0 in range(0, n, EVENT_TILE):
+        per_tile = mask[:, t0:t0 + EVENT_TILE].sum(dim=1)
+        assert int(per_tile.max()) <= EVENT_TILE // 2
+        assert t0 // 2 + int(per_tile.max()) <= crossing_capacity(n)
+
+
+@pytest.mark.parametrize("rows,n,Q,itemsize", [(608, 37152, 4645, 4),
+                                               (28, 18579, 929, 8),
+                                               (1, 2, 1, 4)])
+def test_event_scratch_layout_is_disjoint_and_aligned(rows, n, Q, itemsize):
+    from world_tpu_torch.ops.edge_interp import (EVENT_TILE, crossing_capacity,
+                                                 event_scratch_layout)
+
+    lay = event_scratch_layout(rows, n, Q, itemsize)
+    assert lay["n_tiles"] == -(-n // EVENT_TILE)
+    spans = [(lay["pos"], rows * crossing_capacity(n) * itemsize),
+             (lay["rank"], rows * Q * 4),
+             (lay["tile_count"], rows * lay["n_tiles"] * 4)]
+    for (a, size), (b, _) in zip(spans, spans[1:] + [(lay["bytes"], 0)]):
+        assert a % 256 == 0 and a + size <= b
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels (need the card)
 # ---------------------------------------------------------------------------
@@ -216,3 +253,126 @@ def test_kernels_refuse_bad_input(cuda):
     with pytest.raises(ValueError):
         refine_cuda(seg, seg, torch.zeros((2, 10), device=cuda), 8000.0, 21,
                     64, 71.0, 800.0)
+
+
+def _k1_edge_rows(n, seed=4):
+    """Rows at K1's edges: alternating signs (a crossing at every other
+    sample), one crossing deep in the row, no crossing, a noise row."""
+    rng = np.random.RandomState(seed)
+    alt = (-1.0) ** np.arange(n) * (1 + rng.rand(n))
+    one = np.ones(n)
+    one[(3 * n) // 4:] = -1.0
+    return np.stack([alt, -alt, one, np.ones(n), rng.randn(n)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("length", ["one_tile_plus_one", "three_tiles_odd"])
+def test_k1_cuda_matches_plain_at_edges(cuda, length, dtype):
+    """Alternating rows (n/2 crossings), one crossing, none; a row one tile
+    plus one sample long; frames past the row's end.  Bitwise equal."""
+    from world_tpu_torch.f0.events import batched_interval_interp
+    from world_tpu_torch.ops.edge_interp import EVENT_TILE, event_engine_cuda
+
+    n = {"one_tile_plus_one": EVENT_TILE + 1,
+         "three_tiles_odd": 3 * EVENT_TILE - 1001}[length]
+    x = torch.tensor(_k1_edge_rows(n), dtype=dtype, device=cuda)
+    tq = torch.as_tensor(np.arange(n // 8 + 30) / 1000, dtype=dtype, device=cuda)
+    got_f0, got_m = event_engine_cuda(x, 8000.0, tq, 8.0)
+    want_f0, want_m = batched_interval_interp(x, 8000.0, tq, 8.0)
+    assert int(want_m[0]) == -(-(n - 1) // 2) - 1
+    assert torch.equal(got_m, want_m)
+    assert torch.equal(torch.nan_to_num(got_f0), torch.nan_to_num(want_f0))
+
+
+def _harvest_small_refine_operands(device, dtype):
+    """K2's real main-path operands on harvest_small.npz (1 s at 16 kHz),
+    built through the port's front end and refinement_inputs."""
+    from pathlib import Path
+
+    from world_tpu_torch.dsp.scanops import compact_rows
+    from world_tpu_torch.f0 import harvest as H
+
+    g = np.load(Path(__file__).parent / "golden" / "harvest_small.npz")
+    fs = int(g["fs"])
+    x = torch.tensor(np.asarray(g["x"]), dtype=dtype, device=device)[None]
+    tables = H.harvest_tables(fs, 71.0, 800.0, dtype, device)
+    y, afs = H.downsample(x, fs, 8000, h=tables["decimator_ir"])
+    n_frames = int(1000 * x.shape[1] / fs + 1)
+    tq = torch.as_tensor(np.arange(n_frames) / 1000, dtype=dtype, device=device)
+    raw = H.raw_band_candidates(y, afs, tables["band_bank"], tables["band_bias"],
+                                H.boundary_f0_list(71.0, 800.0), tq, 71.0, 800.0)
+    cands, _ = H.detect_candidates(raw, H.default_max_candidates())
+    cands = H.overlap_candidates(cands).transpose(-1, -2)
+    compact, _ = compact_rows(cands, cands != 0, H.C2_SLOTS)
+    max_half, S = H.refinement_geometry(afs, 71.0)
+    seg, phase, f0 = H.refinement_inputs(y, afs, tq, compact.transpose(-1, -2),
+                                         max_half)
+    return seg, phase, f0, afs, max_half, S
+
+
+# K2's slot layouts: each frame of the case takes the layout
+K2_LAYOUTS = ("main_path", "all_48_at_71Hz", "only_last_slot", "all_empty",
+              "all_at_800Hz", "distinct_long_windows")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", K2_LAYOUTS)
+def test_k2_cuda_slot_layouts(cuda, layout, dtype):
+    """K2 on harvest_small's real frames: the main path's own candidates,
+    and frames whose 48 slots are all live at 71 Hz (the full 341-sample
+    window), hold only the last slot, hold none, are all at 800 Hz, or hold
+    48 distinct long windows (more than one pool).  Bars as above."""
+    from world_tpu_torch.ops.refine_dft import refine_cuda, refine_plain
+
+    seg, phase, f0, afs, mh, S = _harvest_small_refine_operands(cuda, dtype)
+    assert f0.shape[0] == 48 and seg.shape[1] == 341
+    C, F = f0.shape
+    if layout != "main_path":
+        rng = np.random.RandomState(5)
+        fill = {"all_48_at_71Hz": lambda: np.full(C, 71.0),
+                "only_last_slot": lambda: np.r_[np.full(C - 1, 1e-12), 180.0],
+                "all_empty": lambda: np.full(C, 1e-12),
+                "all_at_800Hz": lambda: np.full(C, 800.0),
+                "distinct_long_windows": lambda: rng.permutation(
+                    np.linspace(71.0, 90.0, C))}[layout]
+        f0 = torch.tensor(np.stack([fill() for _ in range(F)], axis=1),
+                          dtype=dtype, device=cuda)
+    got = refine_cuda(seg, phase, f0, afs, mh, S, 71.0, 800.0)
+    want = refine_plain(seg, phase, f0, afs, mh, S, 71.0, 800.0)
+    if layout == "all_empty":
+        assert not got[0].any() and not got[1].any()
+    if dtype == torch.float64:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-12)
+        return
+    both = (got[0] > 0) & (want[0] > 0)
+    if both.any():
+        rel = ((got[0] - want[0]).abs() / want[0].clamp(min=1e-30))[both]
+        assert float(rel.max()) <= 1e-4
+    flips = int(((got[0] > 0) != (want[0] > 0)).sum())
+    assert flips <= 1e-3 * max(int((f0 > 1e-6).sum()), 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_cuda_more_candidates_than_a_block(cuda, dtype):
+    """300 candidate slots a frame: the kernel takes them in groups of one
+    block's threads.  Bars as above."""
+    from world_tpu_torch.ops.refine_dft import refine_cuda, refine_plain
+
+    seg, phase, f0, afs, mh = _refine_operands(6, C=300, B=40, W=341,
+                                               actual_fs=8000.0)
+    f0[np.random.RandomState(7).rand(*f0.shape) < 0.3] = 1e-12
+    args = [torch.tensor(a, dtype=dtype, device=cuda) for a in (seg, phase, f0)]
+    got = refine_cuda(*args, afs, mh, 1024, 71.0, 800.0)
+    want = refine_plain(*args, afs, mh, 1024, 71.0, 800.0)
+    if dtype == torch.float64:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-12)
+        return
+    both = (got[0] > 0) & (want[0] > 0)
+    rel = ((got[0] - want[0]).abs() / want[0].clamp(min=1e-30))[both]
+    assert float(rel.max()) <= 1e-4
+    assert int(((got[0] > 0) != (want[0] > 0)).sum()) <= 1e-3 * got[0].numel()

@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -36,6 +37,9 @@ BUILD_DIR = PKG_DIR / "_build"
 # No --use_fast_math: the refinement windows need correctly rounded cos.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false"]
+# compile only: ptxas prints each kernel's registers, shared memory and
+# spills, kept beside the library (kernel_resources)
+PTXAS_REPORT = "-Xptxas=-v"
 
 
 class LaunchCounter:
@@ -112,19 +116,25 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
 
 
+def _library_path() -> Path:
+    """The library's path in the build directory, named by a digest of the
+    sources and the flags."""
+    digest = hashlib.sha256()
+    for p in _sources():
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS + [PTXAS_REPORT]).encode())
+    return BUILD_DIR / f"libworld_kernels_{digest.hexdigest()[:16]}.so"
+
+
 @functools.lru_cache(maxsize=1)
 def kernel_library():
     """Build (once per source content) and load the kernel library.
 
     Returns ``(lib, build_seconds)``; build_seconds is 0.0 when an up-to-date
     library was already on disk."""
-    digest = hashlib.sha256()
-    for p in _sources():
-        digest.update(p.name.encode())
-        digest.update(p.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
     BUILD_DIR.mkdir(exist_ok=True)
-    lib_path = BUILD_DIR / f"libworld_kernels_{digest.hexdigest()[:16]}.so"
+    lib_path = _library_path()
     seconds = 0.0
     if not lib_path.exists():
         # one nvcc per source, all started together, then one link
@@ -136,7 +146,7 @@ def kernel_library():
             obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
             objs.append(obj)
             procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                [nvcc, *NVCC_FLAGS, PTXAS_REPORT, "-c", "-o", str(obj), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         runs = []
         for proc in procs:
@@ -153,13 +163,17 @@ def kernel_library():
             if rc != 0:
                 raise RuntimeError(f"nvcc failed ({rc}): {' '.join(args)}\n"
                                    f"{out}\n{err}")
+        # ptxas -v of each source: registers, shared memory and spills
+        lib_path.with_suffix(".ptxas.txt").write_text(
+            "".join(out + err for _, _, out, err in runs[:len(objs)]))
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"world_event_engine_{suffix}")
-        # x, rows, n, tq, Q, pnum, qden, fs, scratch_idx, count, out_f0, out_m, stream
-        fn.argtypes = [P, I, I, P, I, I, I, D, P, P, P, P, P]
+        # x, rows, n, tq, Q, pnum, qden, fs, tile, cap, pos, rank, tile_count,
+        # out_f0, out_m, stream
+        fn.argtypes = [P, I, I, P, I, I, I, D, I, I, P, P, P, P, P, P]
         fn.restype = I
         fn = getattr(lib, f"world_refine_dft_{suffix}")
         # seg, phase, f0, C, F, W, max_half, S, cos_tab, sin_tab, fs,
@@ -169,12 +183,45 @@ def kernel_library():
     return lib, seconds
 
 
+def kernel_resources() -> list:
+    """What ptxas reported for each kernel of the built library: one dict
+    per entry function with its mangled ``name``, ``registers``,
+    ``smem_bytes`` (static; dynamic shared memory is sized at launch),
+    ``stack_bytes`` (local memory), ``spill_stores`` and ``spill_loads``
+    (bytes)."""
+    kernel_library()
+    report = _library_path().with_suffix(".ptxas.txt").read_text()
+    out, props = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            props = {"name": m.group(1), "registers": None, "smem_bytes": 0,
+                     "stack_bytes": 0, "spill_stores": 0, "spill_loads": 0}
+            out.append(props)
+            continue
+        if props is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            (props["stack_bytes"], props["spill_stores"],
+             props["spill_loads"]) = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            props["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            props["smem_bytes"] = int(s.group(1)) if s else 0
+    return out
+
+
 def launch(name: str, dtype: torch.dtype, *args):
     """Call ``world_<name>_<f32|f64>`` on the current CUDA stream and raise on
     a launch error (the C function returns ``cudaGetLastError()``)."""
     lib, _ = kernel_library()
     suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
-    stream = torch.cuda.current_stream().cuda_stream
+    # the current stream's handle, without building a torch.cuda.Stream
+    # (that costs several microseconds a call, as much as a small kernel)
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     err = getattr(lib, f"world_{name}_{suffix}")(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel world_{name}_{suffix} failed to "
