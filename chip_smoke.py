@@ -37,7 +37,22 @@ Phases (each raises on failure; any failure exits non-zero):
      synthesis.npz's waveform;
  10. a batch of 4 utterances through the DioClassic module with one
      explicit noise draw from a generator on the card: row 0 must take the
-     single-stream run's decisions; K1 must have launched and K2 not.
+     single-stream run's decisions; K1 must have launched and K2 not;
+ 11. path A, SWIPE': float32 against the port's float64 run on the card at
+     tests/test_swipe.py's bars, then World.encode(f0_method="swipe") ->
+     decode; neither kernel may launch;
+ 12. path B, voice conversion and prosody: Harvest and DIO analyses (the
+     default and with fft_size=2048, float32 against float64 on the card,
+     both kernels held against their plain versions at that geometry), the
+     MCEP and filterbank codecs, the VAE MLP pair through encode_vae against
+     a numpy forward pass, scale_pitch, modify_duration and warp_spectrum,
+     then decode on the warped frame grid (classic and Requiem),
+     encode_w_gvn_f0 on the golden contour, save -> load;
+ 13. path C, ragged serving: six utterances of 0.9-4.644 s through
+     batch_encode_decode_ragged in five length buckets; each row against a
+     one-utterance call at the same padded length; both kernels launch once
+     per bucket and are held against their plain versions at every
+     bucket's geometry.
 The last line is {"ok": true, "device": {...}}.  There is no CPU fallback.
 """
 import json
@@ -51,7 +66,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 GOLDEN_DIR = ROOT / "tests" / "golden"
 GOLDEN = GOLDEN_DIR / "harvest_16k.npz"
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
 
 # K1: kernel and plain version evaluate the same IEEE operations in the same
 # order, so the interpolated f0 may differ only by rounding of equal
@@ -85,6 +100,17 @@ F32_OPS_PER_S = 67e12
 # two windowed samples and 24 multiply-adds (60).
 K1_OPS_PER_SAMPLE, K1_OPS_PER_FRAME = 4, 64
 K2_OPS_PER_WINDOW_SAMPLE = 60
+
+F0_FLOOR, F0_CEIL = 71.0, 800.0
+# path B's explicit fft_size: at 16 kHz it lowers Harvest's floor to
+# 3 * 16000 / 2048 = 23.4 Hz: 216 bands (864 event rows), W 1025, S 4096
+FFT_SIZE_B = 2048
+# path C's utterances (seconds, cut from the golden utterance) and bucket
+RAGGED_SECONDS = (0.9, 1.7, 2.4, 2.6, 3.5, 4.644)
+RAGGED_QUANTUM_S = 1.0
+# the VAE MLP pair of the reference's voice conversion: 39-256-256-256-12
+VAE_SIZES = (39, 256, 256, 256, 12)
+VAE_ACTS = ("relu", "relu", "relu", "linear")
 
 
 def card_line() -> str:
@@ -161,36 +187,42 @@ def k2_bound(ops):
                  K2_OPS_PER_WINDOW_SAMPLE * window_samples)
 
 
-def main_path_operands(x16: np.ndarray, fs: int, dtype):
+def main_path_operands(x16: np.ndarray, fs: int, dtype, f0_floor: float = F0_FLOOR):
     """The operands each kernel gets on the Harvest path for utterances x16,
-    (n,) or (B, n): K1's (608 B, n) event rows and K2's seg, phase (B F, W)
-    and f0 (48, B F)."""
+    (n,) or (B, n): K1's (4 bands B, n) event rows and K2's seg, phase
+    (B F, W) and f0 (48, B F); 608 rows and W 341 at the default floor."""
     import torch
     from world_tpu_torch.f0 import harvest as H
     from world_tpu_torch.f0.events import event_rows
 
     dev = torch.device("cuda")
     x = torch.tensor(np.atleast_2d(x16), dtype=dtype, device=dev)
-    tables = H.harvest_tables(fs, 71.0, 800.0, dtype, dev)
+    tables = H.harvest_tables(fs, f0_floor, F0_CEIL, dtype, dev)
     y, afs = H.downsample(x, fs, 8000, h=tables["decimator_ir"])
     filtered = H.band_filtered(y, tables["band_bank"], tables["band_bias"])
     rows = event_rows(filtered.reshape(-1, filtered.shape[-1]))
     n_frames = int(1000 * x.shape[1] / fs + 1)
     tq = torch.as_tensor(np.arange(n_frames) / 1000, dtype=dtype, device=dev)
-    bfl = H.boundary_f0_list(71.0, 800.0)
+    bfl = H.boundary_f0_list(f0_floor, F0_CEIL)
     raw = H.raw_band_candidates(y, afs, tables["band_bank"],
-                                tables["band_bias"], bfl, tq, 71.0, 800.0)
-    cands0, _ = H.detect_candidates(raw, H.default_max_candidates())
+                                tables["band_bias"], bfl, tq, f0_floor, F0_CEIL)
+    cands0, _ = H.detect_candidates(raw, H.default_max_candidates(f0_floor,
+                                                                  F0_CEIL))
     cands1 = H.overlap_candidates(cands0)
     compact, _ = H.compact_rows(cands1.transpose(-1, -2), cands1.transpose(-1, -2) != 0,
                                 H.C2_SLOTS)
-    max_half, S = H.refinement_geometry(afs, 71.0)
+    max_half, S = H.refinement_geometry(afs, f0_floor)
     seg, phase, f0 = H.refinement_inputs(y, afs, tq, compact.transpose(-1, -2),
                                          max_half)
     table = (tables["refine_cos"], tables["refine_sin"])
     return {"rows": rows, "tq": tq, "afs": afs, "stride": afs * 0.001,
             "seg": seg, "phase": phase, "f0": f0, "max_half": max_half, "S": S,
-            "table": table}
+            "table": table, "f0_floor": f0_floor}
+
+
+def k2_args(ops):
+    return (ops["seg"], ops["phase"], ops["f0"], ops["afs"], ops["max_half"],
+            ops["S"], ops["f0_floor"], F0_CEIL, ops["table"])
 
 
 def adversarial_k2_operands(ops, n_frames: int = 600):
@@ -223,10 +255,13 @@ def adversarial_k2_operands(ops, n_frames: int = 600):
                 f0=torch.tensor(f0, dtype=seg.dtype, device=seg.device))
 
 
-def dio_event_operands(signal: np.ndarray, fs: int, n_frames: int, dtype):
-    """K1's operands on the DIO path: the (28, n) event rows of the 7 band
+def dio_event_operands(signal: np.ndarray, fs: int, n_frames: int, dtype,
+                       f0_floor: float = F0_FLOOR):
+    """K1's operands on the DIO path: the (4 bands, n) event rows of the band
     signals of the decimated input at 4 kHz, and the 5 ms frame grid
-    (stride 20/1).  A 4 kHz signal is taken as already decimated."""
+    (stride 20/1): 7 bands, 28 rows at the default floor, 11 bands, 44 rows
+    at the 23.4 Hz floor of fft_size 2048.  A 4 kHz signal is taken as
+    already decimated."""
     import torch
     from world_tpu_torch.dsp.fir import band_filtered
     from world_tpu_torch.dsp.iir import decimate_world
@@ -235,7 +270,7 @@ def dio_event_operands(signal: np.ndarray, fs: int, n_frames: int, dtype):
 
     dev = torch.device("cuda")
     x = torch.tensor(signal, dtype=dtype, device=dev)[None]
-    tables = dio_tables(fs, 71.0, 800.0, 2, 4000, dtype, dev)
+    tables = dio_tables(fs, f0_floor, F0_CEIL, 2, 4000, dtype, dev)
     y = x if fs == 4000 else decimate_world(x, int(fs / 4000),
                                             h=tables["dio_decimator_ir"])
     filtered = band_filtered(y, tables["dio_bank"], tables["dio_offsets"])
@@ -244,7 +279,7 @@ def dio_event_operands(signal: np.ndarray, fs: int, n_frames: int, dtype):
             "stride": 20.0}
 
 
-def check_k1(rows, fs, tq, stride, label):
+def check_k1(rows, fs, tq, stride, label, bitwise: bool = False):
     import torch
     from world_tpu_torch.f0.events import batched_interval_interp
     from world_tpu_torch.ops.edge_interp import event_engine_cuda
@@ -265,11 +300,14 @@ def check_k1(rows, fs, tq, stride, label):
     ulp = ((g - w).abs() / (eps * w.abs().clamp(min=torch.finfo(rows.dtype).tiny)))
     max_ulp = float(ulp.max()) if ulp.numel() else 0.0
     max_abs = float((g - w).abs().max()) if g.numel() else 0.0
+    equal = torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
     print(f"K1 {label}: rows {tuple(rows.shape)} Q {tq.shape[0]}: counts equal, "
           f"NaN/inf equal, max {max_ulp:.3g} ulp, max abs err {max_abs:.3g} Hz, "
-          f"bitwise {torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))}")
+          f"bitwise {equal}")
     if max_ulp > K1_ULP_BOUND:
         raise AssertionError(f"K1 {label}: {max_ulp} ulp > {K1_ULP_BOUND}")
+    if bitwise and not equal:
+        raise AssertionError(f"K1 {label}: not bitwise equal to its plain version")
     return max_abs
 
 
@@ -299,10 +337,8 @@ def check_k2(ops, label):
     import torch
     from world_tpu_torch.ops.refine_dft import refine_cuda, refine_plain
 
-    args = (ops["seg"], ops["phase"], ops["f0"], ops["afs"], ops["max_half"],
-            ops["S"], 71.0, 800.0, ops["table"])
-    got_r, got_s = refine_cuda(*args)
-    want_r, want_s = refine_plain(*args)
+    got_r, got_s = refine_cuda(*k2_args(ops))
+    want_r, want_s = refine_plain(*k2_args(ops))
     torch.cuda.synchronize()
     nonempty = int((ops["f0"] > 1e-6).sum())
     C, F = ops["f0"].shape
@@ -350,9 +386,11 @@ def golden_bars(dat, g):
 
 
 def classic_bars(dat, ref):
-    """The float32 classic analysis against the float64 one: vuv agreement,
-    voiced F0 error (median, RMSE and the RMSE of the best 99% of frames),
-    LSD and the aperiodicity's largest dB error, on frames voiced in both."""
+    """The float32 analysis against the float64 one: vuv agreement, voiced
+    F0 error (median, RMSE and the RMSE of the best 99% of frames), LSD and
+    the aperiodicity's largest dB error (classic D4C's linear amplitude as
+    20 log10 of the ratio, D4C-Requiem's band dB as the difference), on
+    frames voiced in both."""
     vuv, rvuv = dat["vuv"] > 0, ref["vuv"] > 0
     both = vuv & rvuv
     err = np.abs(dat["f0"][both].astype(np.float64) - ref["f0"][both])
@@ -361,13 +399,77 @@ def classic_bars(dat, ref):
     rspec = np.asarray(ref["spectrogram"], np.float64)[:, both]
     ap = np.asarray(dat["aperiodicity"], np.float64)[:, both]
     rap = np.asarray(ref["aperiodicity"], np.float64)[:, both]
+    ap_err = np.abs(ap - rap) if dat.get("is_requiem") else np.abs(
+        20 * np.log10(ap / rap))
     return {"vuv_agreement": float(np.mean(vuv == rvuv)),
             "f0_median_err": float(np.median(err)),
             "f0_rmse": float(np.sqrt(np.mean(err ** 2))),
             "f0_rmse_trimmed99": float(np.sqrt(np.mean(keep ** 2))),
             "lsd": float(np.sqrt(np.mean((10 * np.log10(spec + 1e-12)
                                           - 10 * np.log10(rspec + 1e-12)) ** 2))),
-            "ap_max_db": float(np.max(np.abs(20 * np.log10(ap / rap))))}
+            "ap_max_db": float(np.max(ap_err))}
+
+
+def bars_line(b) -> str:
+    return (f"vuv agreement {b['vuv_agreement']:.6f} (> 0.99), voiced F0 median "
+            f"err {b['f0_median_err']:.6g} Hz (< 0.01), RMSE {b['f0_rmse']:.6g} Hz "
+            f"(< 1), LSD {b['lsd']:.6g} dB (< 1), aperiodicity max err "
+            f"{b['ap_max_db']:.6g} dB (< 1)")
+
+
+def bars_met(b) -> bool:
+    return (b["vuv_agreement"] > 0.99 and b["f0_median_err"] < 0.01
+            and b["f0_rmse"] < 1.0 and b["lsd"] < 1.0 and b["ap_max_db"] < 1.0)
+
+
+def swipe_bars(f0, ref):
+    """tests/test_swipe.py's bars: (vuv agreement, median relative f0 error,
+    share within 1%) of f0 against ref."""
+    f0, ref = np.asarray(f0, np.float64), np.asarray(ref, np.float64)
+    n = min(f0.shape[0], ref.shape[0])
+    f0, ref = f0[:n], ref[:n]
+    both = (f0 > 0) & (ref > 0)
+    rel = np.abs(f0[both] - ref[both]) / ref[both]
+    return (float(((f0 > 0) == (ref > 0)).mean()), float(np.median(rel)),
+            float((rel < 0.01).mean()))
+
+
+def mcep_lsd(A, B) -> float:
+    """tests/test_api.py::test_mcep_roundtrip_lsd's distance of two
+    magnitude spectrograms (frames, bins)."""
+    return float(np.mean(np.sqrt(np.mean((20 * np.log10(A / B)) ** 2, axis=1))))
+
+
+def vae_weights(sizes, seed: int):
+    rng = np.random.RandomState(seed)
+    return [((rng.randn(a, b) / np.sqrt(a)).astype(np.float32),
+             (0.1 * rng.randn(b)).astype(np.float32))
+            for a, b in zip(sizes[:-1], sizes[1:])]
+
+
+def numpy_mlp(weights, acts, X):
+    """The forward pass of features/vae.py's MLP in numpy float64."""
+    h = np.asarray(X, np.float64)
+    for (w, b), act in zip(weights, acts):
+        h = h @ w.astype(np.float64) + b.astype(np.float64)
+        if act == "relu":
+            h = np.maximum(h, 0.0)
+    return h
+
+
+def ragged_utterances(x16: np.ndarray, fs: int):
+    """Path C's six utterances: the first RAGGED_SECONDS of the golden
+    utterance, each with its own seeded noise of 1e-3."""
+    rng = np.random.RandomState(13)
+    out = []
+    for sec in RAGGED_SECONDS:
+        n = min(int(round(sec * fs)), x16.shape[0])
+        out.append((x16[:n] + 1e-3 * rng.randn(n)).astype(np.float32))
+    return out
+
+
+def expected_length(tp, fs: int) -> int:
+    return len(np.arange(tp[0], tp[-1] + 1 / fs, 1.0 / fs))
 
 
 K1_PASSES = ("scan_crossings", "select_intervals")
@@ -490,7 +592,7 @@ def main(phases=ALL_PHASES) -> int:
               file=sys.stderr)
         return 1
     from world_tpu_torch import DioClassic, HarvestRequiem, World
-    from world_tpu_torch.parallel.batch import classic_caps
+    from world_tpu_torch.parallel.batch import classic_caps, floor_of_fft_size
     from world_tpu_torch.synth.classic import standard_normal
     from world_tpu_torch._backend import kernel_library, kernel_resources
     from world_tpu_torch.f0.events import batched_interval_interp
@@ -730,6 +832,236 @@ def main(phases=ALL_PHASES) -> int:
         if not (y.shape == ref_y.shape and corr > 0.999 and rel < 1e-2):
             raise AssertionError("phase 9: golden synthesis bars not met")
 
+    if 11 in phases:
+        from world_tpu_torch.f0.swipe import swipe
+
+        ref = swipe(fs, x16, plim=(F0_FLOOR, F0_CEIL), sTHR=0.3,
+                    dtype=torch.float64, device="cuda")
+        got = swipe(fs, x16, plim=(F0_FLOOR, F0_CEIL), sTHR=0.3,
+                    dtype=torch.float32, device="cuda")
+        agree, med, within = swipe_bars(got["f0"].cpu().numpy(),
+                                        ref["f0"].cpu().numpy())
+        gs = np.load(GOLDEN_DIR / "swipe.npz")
+        s_agree, s_med, s_within = swipe_bars(ref["f0"].cpu().numpy(), gs["f0"])
+        wa = World(device="cuda", dtype=torch.float32)
+        reset_counts()
+        dat = wa.encode(fs, x16, f0_method="swipe")
+        out = wa.decode(dat)
+        torch.cuda.synchronize()
+        counts = path_launches("A_swipe_classic")
+        y = np.asarray(out["out"])
+        print(f"phase 11 path A, SWIPE' float32 on x16 vs the port's float64 on "
+              f"the card: vuv agreement {agree:.6f} (> 0.97), median relative f0 "
+              f"err {med:.6g} (< 1e-4), share within 1% {within:.6f} (> 0.97); "
+              f"voiced share {float((got['f0'] > 0).float().mean()):.4f}; "
+              f"encode(f0_method='swipe') -> decode: f0 {dat['f0'].shape}, y "
+              f"{y.shape} max|y| {np.abs(y).max():.4g}; launches K1 "
+              f"{counts['event_engine']}, K2 {counts['refine_dft']}")
+        print(f"phase 11 sanity, not judged: float64 SWIPE' on x16 against "
+              f"swipe.npz (the same utterance at 22.05 kHz): vuv agreement "
+              f"{s_agree:.4f}, median relative err {s_med:.3g}, within 1% "
+              f"{s_within:.4f}")
+        if not (agree > 0.97 and med < 1e-4 and within > 0.97):
+            raise AssertionError("phase 11: SWIPE' bars not met")
+        if counts["event_engine"] or counts["refine_dft"]:
+            raise AssertionError(f"phase 11: SWIPE' must launch no kernel: {counts}")
+        if not (np.all(np.isfinite(y)) and np.abs(y).max() > 0
+                and y.shape == (expected_length(dat["temporal_positions"], fs),)
+                and np.array_equal(dat["vuv"], (got["f0"] > 0).float().cpu().numpy())):
+            raise AssertionError("phase 11: SWIPE' round trip not finite, all "
+                                 "zero, of another length or not the SWIPE' contour")
+
+    opsB32 = dioB32 = None
+    if 12 in phases or 6 in phases:
+        floorB = floor_of_fft_size(fs, FFT_SIZE_B)
+        opsB32 = main_path_operands(x16, fs, torch.float32, floorB)
+        dioB32 = dio_event_operands(x16, fs, n_frames_5ms, torch.float32, floorB)
+    if 12 in phases:
+        import copy
+        import tempfile
+
+        from world_tpu_torch.features.vae import MLP
+
+        wb = World(device="cuda", dtype=torch.float32)
+        wb64 = World(device="cuda", dtype=torch.float64)
+        # the float64 references first: they are not part of the counted run
+        refs = {m: wb64.encode(fs, x16, f0_method=m, fft_size=FFT_SIZE_B,
+                               is_requiem=(m == "harvest"))
+                for m in ("harvest", "dio")}
+        enc_w, dec_w = vae_weights(VAE_SIZES, 21), vae_weights(VAE_SIZES[::-1], 22)
+        encoder = MLP(enc_w, VAE_ACTS, device="cuda")
+        decoder = MLP(dec_w, VAE_ACTS, device="cuda")
+
+        reset_counts()
+        dat_h = wb.encode(fs, x16, f0_method="harvest", is_requiem=True)
+        dat_d = wb.encode(fs, x16, f0_method="dio", is_requiem=False)
+        spec = np.sqrt(dat_h["spectrogram"].T)               # magnitude
+        mcep = wb.encode_mcep(spec, n0=40, fs=fs, highhz=fs / 2)
+        rec = wb.decode_mcep(mcep, (spec.shape[1] - 1) * 2)
+        lfbank = wb.encode_lfbank(spec, fs=fs)
+        mc14 = wb.encode_mcep(spec, n0=14, fs=fs, highhz=fs / 2)
+        mean = mc14[:, 1:].mean(axis=0)
+        Zc, Yc = wb.encode_vae(mc14[:, 1:], mc14[:, 0], encoder, decoder, 1, 14,
+                               64, mean)
+        warped = {}
+        for name, dat in (("Requiem", dat_h), ("classic", dat_d)):
+            d = copy.deepcopy(dat)
+            d = wb.scale_pitch(d, 1.5)
+            wb.modify_duration(d, [1.0, 3.0], [1.4, -1])
+            d = wb.warp_spectrum(d, 1.1)
+            warped[name] = wb.decode(d)
+        got_fft = {m: wb.encode(fs, x16, f0_method=m, fft_size=FFT_SIZE_B,
+                                is_requiem=(m == "harvest"))
+                   for m in ("harvest", "dio")}
+        src_g = {"f0": g["f0"], "vuv": g["vuv"],
+                 "temporal_positions": g["temporal_positions"]}
+        gvn = wb.encode_w_gvn_f0(fs, x16, src_g, is_requiem=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            World.save(gvn, Path(tmp) / "analysis.npz")
+            back = World.load(Path(tmp) / "analysis.npz")
+        torch.cuda.synchronize()
+        counts = path_launches("B_conversion_prosody")
+        # encode x 2 by Harvest (K1 + K2 each), x 2 by DIO (K1 each)
+        if counts != {"event_engine": 4, "refine_dft": 2}:
+            raise AssertionError(f"phase 12: path B's launches: {counts}")
+
+        lsd = mcep_lsd(spec, rec)
+        print(f"phase 12 path B codecs float32: MCEP-40 round trip of the x16 "
+              f"envelope {spec.shape}: LSD {lsd:.4f} dB (< 8); lfbank "
+              f"{lfbank.shape} finite {bool(np.isfinite(lfbank).all())}")
+        if not (lsd < 8.0 and np.isfinite(lfbank).all()
+                and lfbank.shape == (spec.shape[0], 32)):
+            raise AssertionError("phase 12: codec bars not met")
+        Xc = mc14[:, 1:] - mean
+        ctx = np.concatenate([np.vstack([Xc[:1], Xc[:-1]]), Xc,
+                              np.vstack([Xc[1:], Xc[-1:]])], axis=1)
+        want_z = numpy_mlp(enc_w, VAE_ACTS, ctx)
+        want_y = numpy_mlp(dec_w, VAE_ACTS, want_z)[:, 13:26] + mean
+        err_z = float(np.max(np.abs(Zc - want_z)) / np.abs(want_z).max())
+        err_y = float(np.max(np.abs(Yc[:, 1:] - want_y)) / np.abs(want_y).max())
+        print(f"phase 12 path B VAE {'-'.join(map(str, VAE_SIZES))} pair through "
+              f"encode_vae(window=1, n0=14) against a numpy forward pass: latents "
+              f"{Zc.shape} max err {err_z:.3g} of scale, cepstra {Yc.shape} "
+              f"{err_y:.3g} (< 1e-4)")
+        if not (err_z < 1e-4 and err_y < 1e-4 and np.array_equal(Yc[:, 0], mc14[:, 0])):
+            raise AssertionError("phase 12: the VAE round trip disagrees")
+        for name, d in warped.items():
+            y, tp = d["out"], d["temporal_positions"]
+            print(f"phase 12 path B {name} decode after scale_pitch(1.5), "
+                  f"modify_duration([1, 3] -> [1.4, 3]) and warp_spectrum(1.1): "
+                  f"grid uniform {bool(np.allclose(np.diff(tp), tp[1] - tp[0]))}, y "
+                  f"{y.shape} max|y| {np.abs(y).max():.4g}")
+            if not (np.all(np.isfinite(y)) and np.abs(y).max() > 0
+                    and y.shape == (expected_length(tp, fs),)
+                    and not np.allclose(np.diff(tp), tp[1] - tp[0])):
+                raise AssertionError(f"phase 12: {name} decode on the warped grid")
+        for m in ("harvest", "dio"):
+            b = classic_bars(got_fft[m], refs[m])
+            print(f"phase 12 path B encode(f0_method='{m}', fft_size={FFT_SIZE_B}) "
+                  f"float32 vs float64 on the card: spectrogram "
+                  f"{got_fft[m]['spectrogram'].shape}, voiced share "
+                  f"{float(np.mean(refs[m]['vuv'])):.4f}: {bars_line(b)}")
+            if not bars_met(b):
+                raise AssertionError(f"phase 12: fft_size bars not met by {m}")
+        agree, rmse, lsd_g, ap_err = golden_bars(gvn, g)
+        same = set(back) == set(gvn) and all(
+            np.array_equal(back[k], v) if isinstance(v, np.ndarray) else back[k] == v
+            for k, v in gvn.items())
+        print(f"phase 12 path B encode_w_gvn_f0 on the golden contour: LSD "
+              f"{lsd_g:.6g} dB (< 1), band-ap max err {ap_err:.6g} dB (< 1), f0 "
+              f"RMSE {rmse:.3g} Hz; save -> load equal {same}")
+        if not (lsd_g < 1.0 and ap_err < 1.0 and rmse < 1e-3 and same):
+            raise AssertionError("phase 12: encode_w_gvn_f0 or save/load")
+        opsB64 = main_path_operands(x16, fs, torch.float64, floorB)
+        dioB64 = dio_event_operands(x16, fs, n_frames_5ms, torch.float64, floorB)
+        for dt, ops, d in (("float32", opsB32, dioB32), ("float64", opsB64, dioB64)):
+            e1 = check_k1(ops["rows"], ops["afs"], ops["tq"], ops["stride"],
+                          f"{dt} Harvest fft_size={FFT_SIZE_B} geometry",
+                          bitwise=True)
+            e2 = check_k2(ops, f"{dt} Harvest fft_size={FFT_SIZE_B} geometry")
+            e3 = check_k1(d["rows"], d["afs"], d["tq"], d["stride"],
+                          f"{dt} DIO fft_size={FFT_SIZE_B} geometry (stride 20/1)",
+                          bitwise=True)
+            if dt == "float32":
+                kernels["event_engine"]["geometries"]["dio_fft2048"] = {
+                    "rows": list(d["rows"].shape), "Q": d["tq"].shape[0],
+                    "max_abs_err": e3}
+                kernels["event_engine"]["geometries"]["harvest_fft2048"] = {
+                    "rows": list(ops["rows"].shape), "Q": ops["tq"].shape[0],
+                    "max_abs_err": e1}
+                kernels["refine_dft"]["geometries"]["harvest_fft2048"] = {
+                    "CFWS": [ops["f0"].shape[0], *ops["seg"].shape, ops["S"]],
+                    "max_abs_err": e2}
+        del opsB64, dioB64
+        print("phase 12 path B: ok")
+
+    utts = opsC32 = None
+    if 13 in phases or 6 in phases:
+        from world_tpu_torch import batch_encode_decode, batch_encode_decode_ragged
+        from world_tpu_torch.parallel.batch import bucket_lengths
+
+        utts = ragged_utterances(x16, fs)
+        buckets = bucket_lengths([u.shape[0] for u in utts], fs, RAGGED_QUANTUM_S)
+    if 13 in phases:
+        reset_counts()
+        rows = batch_encode_decode_ragged(utts, fs,
+                                          bucket_quantum_s=RAGGED_QUANTUM_S)
+        torch.cuda.synchronize()
+        counts = path_launches("C_ragged")
+        print(f"phase 13 path C ragged batch float32: lengths "
+              f"{[u.shape[0] for u in utts]} in buckets "
+              f"{ {L: len(ix) for L, ix in buckets.items()} }; launches K1 "
+              f"{counts['event_engine']}, K2 {counts['refine_dft']}")
+        if len(buckets) != 5 or counts != {"event_engine": 5, "refine_dft": 5}:
+            raise AssertionError(f"phase 13: one K1 and one K2 launch per bucket: "
+                                 f"{counts} for {len(buckets)} buckets")
+        for i, u in enumerate(utts):
+            single = batch_encode_decode_ragged(
+                [u], fs, bucket_quantum_s=RAGGED_QUANTUM_S)[0]
+            row = rows[i]
+            nf = int(1000 * u.shape[0] / fs / 5 + 1)
+            flips = int((row["vuv"] != single["vuv"]).sum())
+            df0 = float(np.abs(row["f0"] - single["f0"]).max())
+            rel = float(np.linalg.norm(row["y"] - single["y"])
+                        / max(np.linalg.norm(single["y"]), 1e-30))
+            ddb = float(np.abs(10 * np.log10(row["spectrogram"] + 1e-12)
+                               - 10 * np.log10(single["spectrogram"] + 1e-12)).max())
+            print(f"phase 13 row {i} ({u.shape[0] / fs:.3f} s, {nf} frames) vs its "
+                  f"one-utterance call: vuv flips {flips} (0), max |df0| {df0:.3g} "
+                  f"Hz (< 1e-3), waveform rel L2 {rel:.3g} (< 1e-2), envelope drift "
+                  f"{ddb:.3g} dB (< 0.05); voiced share "
+                  f"{float(row['vuv'].mean()):.3f}")
+            if not (row["f0"].shape == (nf,) and flips == 0 and df0 < 1e-3
+                    and rel < 1e-2 and ddb < 0.05
+                    and np.all(np.isfinite(row["y"])) and np.abs(row["y"]).max() > 0):
+                raise AssertionError(f"phase 13: row {i} differs from its single run")
+        for L, idxs in buckets.items():
+            xb = np.zeros((len(idxs), L), np.float32)
+            for r, i in enumerate(idxs):
+                xb[r, :utts[i].shape[0]] = utts[i]
+            ops = main_path_operands(xb, fs, torch.float32)
+            label = f"float32 bucket {L / fs:g} s x {len(idxs)}"
+            e1 = check_k1(ops["rows"], ops["afs"], ops["tq"], ops["stride"], label,
+                          bitwise=True)
+            e2 = check_k2(ops, label)
+            if L == min(buckets):
+                opsC32 = ops
+                kernels["event_engine"]["geometries"]["bucket_1s"] = {
+                    "rows": list(ops["rows"].shape), "Q": ops["tq"].shape[0],
+                    "max_abs_err": e1}
+                kernels["refine_dft"]["geometries"]["bucket_1s"] = {
+                    "CFWS": [ops["f0"].shape[0], *ops["seg"].shape, ops["S"]],
+                    "max_abs_err": e2}
+            # the zero tail analyses as unvoiced
+            out = batch_encode_decode(xb, fs)
+            for r, i in enumerate(idxs):
+                # past the band filters' ringing (100 ms)
+                tail = int(1000 * utts[i].shape[0] / fs / 5 + 1) + 20
+                if bool(out["vuv"][r, tail:].any()):
+                    raise AssertionError(f"phase 13: utterance {i}'s zero tail is "
+                                         f"voiced")
+        print("phase 13 path C: ok (zero tails unvoiced in every bucket)")
+
     if 6 in phases:
         # K1's passes apart, first: the profiler is used again below
         passes = k1_pass_times([("harvest_8k", ops32), ("dio_x16", dio32)])
@@ -783,6 +1115,83 @@ def main(phases=ALL_PHASES) -> int:
             print(f"phase 6 classic round trip under torch.profiler [{card}]: "
                   f"no device events recorded; device time not measured")
 
+        # path A: SWIPE' alone, with its tables built in the call and held
+        # by the module, then the round trip and its device time
+        from world_tpu_torch import SwipeF0
+        from world_tpu_torch.f0.swipe import swipe
+
+        x16_t = xs_t[0]
+        swipe_mod = SwipeF0(fs, x16.shape[0], sTHR=0.3, dtype=torch.float32,
+                            device="cuda")
+        t_sw = cuda_ms(lambda: swipe(fs, x16_t, sTHR=0.3), iters=5)
+        t_swm = cuda_ms(lambda: swipe_mod(x16_t), iters=5)
+        t_a = cuda_ms(lambda: w32.decode(w32.encode(fs, x16, f0_method="swipe")),
+                      iters=3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            swipe_mod(x16_t)
+            torch.cuda.synchronize()
+        sw_us, sw_events = device_totals(prof)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            w32.decode(w32.encode(fs, x16, f0_method="swipe"))
+            torch.cuda.synchronize()
+        a_us, a_events = device_totals(prof)
+        idle = (lambda us, ms: f"{1 - us / 1e3 / ms:.3f}" if us else "not measured")
+        print(f"phase 6 path A SWIPE' float32 (4.644 s utterance) [{card}]: swipe() "
+              f"{t_sw:.3f} ms = {duration / (t_sw / 1e3):.1f} xRT (tables built in "
+              f"the call), SwipeF0 module {t_swm:.3f} ms = "
+              f"{duration / (t_swm / 1e3):.1f} xRT: {sw_events} device events, "
+              f"{sw_us / 1e3:.3f} ms device time, idle share {idle(sw_us, t_swm)}; "
+              f"encode(swipe) -> decode {t_a:.2f} ms = {duration / (t_a / 1e3):.2f} "
+              f"xRT: {a_events} device events, {a_us / 1e3:.3f} ms device time, idle "
+              f"share {idle(a_us, t_a)} of the unprofiled time")
+
+        # path B: the codec chain on the Harvest analysis' envelope
+        from world_tpu_torch.features.vae import MLP
+
+        dat_b = w32.encode(fs, x16, f0_method="harvest", is_requiem=True)
+        spec_b = np.sqrt(dat_b["spectrogram"].T)
+        enc_b = MLP(vae_weights(VAE_SIZES, 21), VAE_ACTS, device="cuda")
+        dec_b = MLP(vae_weights(VAE_SIZES[::-1], 22), VAE_ACTS, device="cuda")
+
+        def codec_chain():
+            mc = w32.encode_mcep(spec_b, n0=14, fs=fs, highhz=fs / 2)
+            w32.encode_lfbank(spec_b, fs=fs)
+            _, yc = w32.encode_vae(mc[:, 1:], mc[:, 0], enc_b, dec_b, 1, 14, 64, 0.0)
+            w32.decode_mcep(yc, (spec_b.shape[1] - 1) * 2)
+
+        t_codec = cuda_ms(codec_chain, iters=5)
+        t_fft = cuda_ms(lambda: w32.encode(fs, x16, f0_method="harvest",
+                                           fft_size=FFT_SIZE_B, is_requiem=True),
+                        iters=2)
+        print(f"phase 6 path B float32 [{card}]: codec chain (encode_mcep, "
+              f"encode_lfbank, encode_vae through the MLP pair, decode_mcep; "
+              f"{spec_b.shape[0]} frames, numpy in and out) {t_codec:.3f} ms; "
+              f"encode(harvest, fft_size={FFT_SIZE_B}) {t_fft:.2f} ms = "
+              f"{duration / (t_fft / 1e3):.2f} xRT")
+
+        # path C: the ragged batch beside the same utterances one by one
+        audio_s = sum(u.shape[0] for u in utts) / fs
+
+        def ragged():
+            batch_encode_decode_ragged(utts, fs, bucket_quantum_s=RAGGED_QUANTUM_S)
+
+        def one_by_one():
+            for u in utts:
+                batch_encode_decode_ragged([u], fs,
+                                           bucket_quantum_s=RAGGED_QUANTUM_S)
+
+        # ragged, one by one, one by one, ragged: the host's pace drifts
+        r1 = cuda_ms(ragged, iters=2)
+        o1 = cuda_ms(one_by_one, iters=2)
+        o2 = cuda_ms(one_by_one, iters=2)
+        r2 = cuda_ms(ragged, iters=2)
+        t_rag, t_one = (r1 + r2) / 2, (o1 + o2) / 2
+        print(f"phase 6 path C ragged batch float32 ({len(utts)} utterances, "
+              f"{audio_s:.3f} s of audio, {len(buckets)} buckets) [{card}]: "
+              f"{r1:.2f}/{r2:.2f} ms = {audio_s / (t_rag / 1e3):.2f} xRT; one by "
+              f"one {o1:.2f}/{o2:.2f} ms = {audio_s / (t_one / 1e3):.2f} xRT; ratio "
+              f"{t_rag / t_one:.3f}")
+
         o = ops32
         b4 = main_path_operands(xs, fs, torch.float32)
 
@@ -792,14 +1201,20 @@ def main(phases=ALL_PHASES) -> int:
                     k1_bound(ops["rows"], ops["tq"]), plain_iters)
 
         def k2_case(geo, ops, plain_iters=5):
-            return ("refine_dft", geo, (ops["seg"], ops["phase"], ops["f0"],
-                                        ops["afs"], ops["max_half"], ops["S"],
-                                        71.0, 800.0, ops["table"]),
-                    k2_bound(ops), plain_iters)
+            return ("refine_dft", geo, k2_args(ops), k2_bound(ops), plain_iters)
 
+        if opsC32 is None:
+            L = min(buckets)
+            xb = np.zeros((len(buckets[L]), L), np.float32)
+            for r, i in enumerate(buckets[L]):
+                xb[r, :utts[i].shape[0]] = utts[i]
+            opsC32 = main_path_operands(xb, fs, torch.float32)
         cases = [k1_case("harvest_8k", o), k1_case("dio_x16", dio32),
                  k1_case("harvest_8k_batch4", b4, 2),
-                 k2_case("harvest_8k", o), k2_case("harvest_8k_batch4", b4, 2)]
+                 k1_case("bucket_1s", opsC32), k1_case("harvest_fft2048", opsB32, 2),
+                 k1_case("dio_fft2048", dioB32),
+                 k2_case("harvest_8k", o), k2_case("harvest_8k_batch4", b4, 2),
+                 k2_case("bucket_1s", opsC32), k2_case("harvest_fft2048", opsB32, 2)]
         fns = {"event_engine": (edge_interp.event_engine_cuda,
                                 batched_interval_interp),
                "refine_dft": (refine_dft.refine_cuda, refine_dft.refine_plain)}

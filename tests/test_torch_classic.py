@@ -334,8 +334,12 @@ def test_world_get_f0_and_get_spectrum(f0_method, cpu_world, jax_world,
                    key="spectrogram")
     else:
         assert ((f0 > 0) == (vuv > 0)).all() and vuv.sum() > 10
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cpu_world.get_spectrum(FS_SMALL, x_small, fft_size=2048)
+    # an explicit fft_size sizes the envelope; get_spectrum keeps the F0
+    # floor it was given (encode lowers it to 3 fs / fft_size)
+    wide = cpu_world.get_spectrum(FS_SMALL, x_small, f0_method=f0_method,
+                                  fft_size=2048)
+    assert wide["spectrogram"].shape == (1025, tp.shape[0])
+    np.testing.assert_array_equal(wide["f0"], spec["f0"])
 
 
 def test_world_classic_decode_draws_from_the_given_generator(cpu_world,

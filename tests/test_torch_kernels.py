@@ -285,30 +285,165 @@ def test_k1_cuda_matches_plain_at_edges(cuda, length, dtype):
     assert torch.equal(torch.nan_to_num(got_f0), torch.nan_to_num(want_f0))
 
 
-def _harvest_small_refine_operands(device, dtype):
-    """K2's real main-path operands on harvest_small.npz (1 s at 16 kHz),
-    built through the port's front end and refinement_inputs."""
+def _harvest_small_operands(device, dtype, f0_floor=71.0, pad_to=None):
+    """Both kernels' real Harvest operands on harvest_small.npz (1 s at
+    16 kHz, zero-padded to ``pad_to`` samples), built through the port's
+    front end: K1's (rows, actual_fs, tq, stride) and K2's (seg, phase, f0,
+    actual_fs, max_half, S)."""
     from pathlib import Path
 
     from world_tpu_torch.dsp.scanops import compact_rows
     from world_tpu_torch.f0 import harvest as H
+    from world_tpu_torch.f0.events import event_rows
 
     g = np.load(Path(__file__).parent / "golden" / "harvest_small.npz")
     fs = int(g["fs"])
     x = torch.tensor(np.asarray(g["x"]), dtype=dtype, device=device)[None]
-    tables = H.harvest_tables(fs, 71.0, 800.0, dtype, device)
+    if pad_to is not None:
+        x = torch.nn.functional.pad(x, (0, pad_to - x.shape[1]))
+    tables = H.harvest_tables(fs, f0_floor, 800.0, dtype, device)
     y, afs = H.downsample(x, fs, 8000, h=tables["decimator_ir"])
     n_frames = int(1000 * x.shape[1] / fs + 1)
     tq = torch.as_tensor(np.arange(n_frames) / 1000, dtype=dtype, device=device)
+    filtered = H.band_filtered(y, tables["band_bank"], tables["band_bias"])
+    rows = event_rows(filtered.reshape(-1, filtered.shape[-1]))
     raw = H.raw_band_candidates(y, afs, tables["band_bank"], tables["band_bias"],
-                                H.boundary_f0_list(71.0, 800.0), tq, 71.0, 800.0)
-    cands, _ = H.detect_candidates(raw, H.default_max_candidates())
+                                H.boundary_f0_list(f0_floor, 800.0), tq,
+                                f0_floor, 800.0)
+    cands, _ = H.detect_candidates(raw, H.default_max_candidates(f0_floor, 800.0))
     cands = H.overlap_candidates(cands).transpose(-1, -2)
     compact, _ = compact_rows(cands, cands != 0, H.C2_SLOTS)
-    max_half, S = H.refinement_geometry(afs, 71.0)
+    max_half, S = H.refinement_geometry(afs, f0_floor)
     seg, phase, f0 = H.refinement_inputs(y, afs, tq, compact.transpose(-1, -2),
                                          max_half)
-    return seg, phase, f0, afs, max_half, S
+    return (rows, afs, tq, afs * 0.001), (seg, phase, f0, afs, max_half, S)
+
+
+def _harvest_small_refine_operands(device, dtype):
+    return _harvest_small_operands(device, dtype)[1]
+
+
+# the geometries the facade and the ragged batch add: a 2 s bucket holding
+# the 1 s utterance and its zero tail, and fft_size 2048 at 16 kHz, whose
+# f0 floor of 23.4 Hz gives 864 event rows, W = 1025 and S = 4096
+NEW_GEOMETRIES = {"short_bucket": dict(pad_to=32000),
+                  "fft_size_2048": dict(f0_floor=3.0 * 16000 / 2048)}
+
+
+def test_new_geometries_have_the_stated_shapes():
+    for name, (rows, W, S) in (("short_bucket", (608, 341, 1024)),
+                               ("fft_size_2048", (864, 1025, 4096))):
+        k1, k2 = _harvest_small_operands("cpu", torch.float64, **NEW_GEOMETRIES[name])
+        assert k1[0].shape[0] == rows and k2[0].shape[1] == W and k2[5] == S
+        assert k2[2].shape[0] == 48 and int((k2[2] > 1e-6).sum()) > 100
+
+
+def test_shared_memory_sizes_follow_the_geometry(monkeypatch):
+    """Shared memory and the grid are sized from the shapes by the launchers
+    alone; where one refuses the shapes, its wrapper raises ValueError naming
+    them and counts no launch (the launch itself is stood in for here: there
+    is no card)."""
+    from world_tpu_torch import _backend
+    from world_tpu_torch.ops import edge_interp, refine_dft
+
+    def refuse(name, dtype, *args):
+        raise _backend.KernelGeometryError(f"world_{name}: cudaError 1")
+
+    for mod in (edge_interp, refine_dft):
+        monkeypatch.setattr(mod, "launch", refuse)
+        monkeypatch.setattr(mod, "check_kernel_input", lambda *a: None)
+    before = (edge_interp.counter.launches, refine_dft.counter.launches)
+    seg = torch.zeros((4, 8193), dtype=torch.float64)
+    with pytest.raises(ValueError, match=r"\(2, 4, 8193, 32768\).*shared memory"):
+        refine_dft.refine_cuda(seg, seg, torch.full((2, 4), 100.0,
+                                                    dtype=torch.float64),
+                               8000.0, 4096, 32768, 1.0, 800.0)
+    with pytest.raises(ValueError, match=r"rows 7 x samples 64, Q 8 frames"):
+        edge_interp.event_engine_cuda(torch.zeros((7, 64)), 8000.0,
+                                      torch.zeros(8), 8.0)
+    assert (edge_interp.counter.launches, refine_dft.counter.launches) == before
+    assert issubclass(_backend.KernelGeometryError, ValueError)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("geometry", sorted(NEW_GEOMETRIES))
+def test_kernels_cuda_at_new_geometries(cuda, geometry, dtype):
+    """K1 bitwise and K2 within its bars at the short bucket's and the
+    fft_size=2048 geometry."""
+    from world_tpu_torch.f0.events import batched_interval_interp
+    from world_tpu_torch.ops.edge_interp import event_engine_cuda
+    from world_tpu_torch.ops.refine_dft import refine_cuda, refine_plain
+
+    k1, k2 = _harvest_small_operands(cuda, dtype, **NEW_GEOMETRIES[geometry])
+    got_f0, got_m = event_engine_cuda(*k1)
+    want_f0, want_m = batched_interval_interp(*k1)
+    assert torch.equal(got_m, want_m)
+    assert torch.equal(torch.nan_to_num(got_f0), torch.nan_to_num(want_f0))
+    floor = NEW_GEOMETRIES[geometry].get("f0_floor", 71.0)
+    got = refine_cuda(*k2, floor, 800.0)
+    want = refine_plain(*k2, floor, 800.0)
+    if dtype == torch.float64:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-12)
+        return
+    both = (got[0] > 0) & (want[0] > 0)
+    assert int(both.sum()) > 100
+    rel = ((got[0] - want[0]).abs() / want[0].clamp(min=1e-30))[both]
+    assert float(rel.max()) <= 1e-4
+    flips = int(((got[0] > 0) != (want[0] > 0)).sum())
+    assert flips <= 1e-3 * int((k2[2] > 1e-6).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_cuda_at_the_dio_fft_size_2048_geometry(cuda, dtype):
+    """DIO's floor of 23.4 Hz (fft_size 2048 at 16 kHz) gives 11 bands, 44
+    event rows at 4 kHz on the 5 ms grid.  Bitwise equal."""
+    from pathlib import Path
+
+    from world_tpu_torch.dsp.fir import band_filtered
+    from world_tpu_torch.dsp.iir import decimate_world
+    from world_tpu_torch.f0.dio import dio_tables
+    from world_tpu_torch.f0.events import batched_interval_interp, event_rows
+    from world_tpu_torch.ops.edge_interp import event_engine_cuda
+
+    g = np.load(Path(__file__).parent / "golden" / "harvest_small.npz")
+    fs = int(g["fs"])
+    x = torch.tensor(np.asarray(g["x"]), dtype=dtype, device=cuda)[None]
+    tables = dio_tables(fs, 3.0 * fs / 2048, 800.0, 2, 4000, dtype, cuda)
+    y = decimate_world(x, fs // 4000, h=tables["dio_decimator_ir"])
+    rows = event_rows(band_filtered(y, tables["dio_bank"],
+                                    tables["dio_offsets"])[0])
+    assert rows.shape[0] == 44
+    n_frames = int(1000 * x.shape[1] / fs / 5 + 1)
+    tq = torch.as_tensor(np.arange(n_frames) * 5.0 / 1000, dtype=dtype,
+                         device=cuda)
+    got_f0, got_m = event_engine_cuda(rows, 4000.0, tq, 20.0)
+    want_f0, want_m = batched_interval_interp(rows, 4000.0, tq, 20.0)
+    assert torch.equal(got_m, want_m)
+    assert torch.equal(torch.nan_to_num(got_f0), torch.nan_to_num(want_f0))
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_a_geometry_they_cannot_hold(cuda):
+    """Too large a DFT table or too many rows raises with the shapes; the
+    plain version is not fallen back to."""
+    from world_tpu_torch.ops.edge_interp import counter as k1_counter
+    from world_tpu_torch.ops.edge_interp import event_engine_cuda
+    from world_tpu_torch.ops.refine_dft import counter as k2_counter
+    from world_tpu_torch.ops.refine_dft import refine_cuda
+
+    mh = 4096
+    seg = torch.zeros((4, 2 * mh + 1), dtype=torch.float64, device=cuda)
+    before = (k1_counter.launches, k2_counter.launches)
+    with pytest.raises(ValueError, match=r"\(2, 4, 8193, 32768\).*shared memory"):
+        refine_cuda(seg, seg, torch.full((2, 4), 100.0, dtype=torch.float64,
+                                         device=cuda), 8000.0, mh, 32768, 1.0, 800.0)
+    x = torch.zeros((70000, 64), device=cuda)
+    with pytest.raises(ValueError, match=r"rows 70000 x samples 64"):
+        event_engine_cuda(x, 8000.0, torch.zeros(8, device=cuda), 8.0)
+    assert (k1_counter.launches, k2_counter.launches) == before
 
 
 # K2's slot layouts: each frame of the case takes the layout
@@ -376,3 +511,23 @@ def test_k2_cuda_more_candidates_than_a_block(cuda, dtype):
     rel = ((got[0] - want[0]).abs() / want[0].clamp(min=1e-30))[both]
     assert float(rel.max()) <= 1e-4
     assert int(((got[0] > 0) != (want[0] > 0)).sum()) <= 1e-3 * got[0].numel()
+
+
+@pytest.mark.gpu
+def test_no_fallback_when_the_kernels_cannot_be_built(cuda, tmp_path, monkeypatch):
+    """With an empty build directory and no nvcc, the ragged batch on the
+    card raises: it never gives way to the plain versions."""
+    from world_tpu_torch import _backend, batch_encode_decode_ragged
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_backend, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_backend, "_nvcc", no_nvcc)
+    _backend.kernel_library.cache_clear()
+    try:
+        x = np.random.RandomState(0).randn(8000).astype(np.float32)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            batch_encode_decode_ragged([x], 16000, devices=cuda)
+    finally:
+        _backend.kernel_library.cache_clear()

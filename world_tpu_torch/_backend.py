@@ -214,15 +214,31 @@ def kernel_resources() -> list:
     return out
 
 
+# what a launcher returns for a geometry its kernel cannot hold: more
+# dynamic shared memory than a block may opt in to (cudaFuncSetAttribute's
+# cudaErrorInvalidValue) or a grid past its extents
+# (cudaErrorInvalidConfiguration).  The launchers size shared memory and the
+# grid from the shapes; nothing here repeats that sizing.
+_GEOMETRY_ERRORS = (1, 9)
+
+
+class KernelGeometryError(ValueError):
+    """A kernel was asked for shapes it cannot hold; nothing was launched."""
+
+
 def launch(name: str, dtype: torch.dtype, *args):
     """Call ``world_<name>_<f32|f64>`` on the current CUDA stream and raise on
-    a launch error (the C function returns ``cudaGetLastError()``)."""
+    a launch error (the C function returns the CUDA error's code):
+    :class:`KernelGeometryError` where the shapes are at fault, for the
+    wrapper to name them, RuntimeError otherwise."""
     lib, _ = kernel_library()
     suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
     # the current stream's handle, without building a torch.cuda.Stream
     # (that costs several microseconds a call, as much as a small kernel)
     stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     err = getattr(lib, f"world_{name}_{suffix}")(*args, stream)
+    if err in _GEOMETRY_ERRORS:
+        raise KernelGeometryError(f"world_{name}_{suffix}: cudaError {err}")
     if err != 0:
         raise RuntimeError(f"CUDA kernel world_{name}_{suffix} failed to "
                            f"launch: cudaError {err}")

@@ -14,11 +14,21 @@ from ..dsp.windows import np_nuttall
 from ..frames import apply_adaptive_window, uniform_centered_slabs
 
 
-def frame_slabs(x: torch.Tensor, fs: float, frame_period_ms: float,
-                n_frames: int, max_half: int) -> torch.Tensor:
-    """Per-frame slabs of rows x (B, n), flattened to (B*n_frames, 2*max_half+1)."""
-    slab = uniform_centered_slabs(x, float(fs), frame_period_ms / 1000.0,
-                                  n_frames, max_half)
+def frame_slabs(x: torch.Tensor, fs: float, frame_period_ms, n_frames: int,
+                max_half: int, temporal_positions: torch.Tensor = None) -> torch.Tensor:
+    """Per-frame slabs of rows x (B, n), flattened to (B*n_frames, 2*max_half+1).
+    On the uniform grid (``frame_period_ms`` given) the anchors come from
+    exact integer arithmetic; on any other grid (``frame_period_ms`` None)
+    from ``temporal_positions`` (n_frames,), as floor(t*fs + 0.501) + 1
+    evaluated in float64."""
+    if frame_period_ms is not None:
+        slab = uniform_centered_slabs(x, float(fs), frame_period_ms / 1000.0,
+                                      n_frames, max_half)
+    else:
+        center = torch.floor(temporal_positions.double() * float(fs) + 0.501) + 1.0
+        base = torch.arange(-max_half, max_half + 1, device=x.device)
+        idx = torch.clamp(center.to(torch.int64)[:, None] + base, 1, x.shape[-1]) - 1
+        slab = x[..., idx]
     return slab.reshape(-1, slab.shape[-1])
 
 
@@ -184,13 +194,16 @@ def band_window(fs: int, fft_size: int, frequency_interval: float) -> np.ndarray
 def coarse_ap_frames(x: torch.Tensor, fs: int, f0: torch.Tensor,
                      t_pos: torch.Tensor, frequency_interval: float,
                      fft_size: int, n_ap: int, window: np.ndarray,
-                     max_half: int, frame_period_ms: float) -> torch.Tensor:
+                     max_half: int, frame_period_ms,
+                     temporal_positions: torch.Tensor = None) -> torch.Tensor:
     """estimate_one_slice (d4c.py:114-128) for every frame of rows x (B, n):
     the band aperiodicity (B*F, n_ap) in dB from the group delay, for f0 and
-    t_pos (B*F,) on the uniform frame grid."""
+    t_pos (B*F,).  The frame grid is uniform (``frame_period_ms``) or given
+    by ``temporal_positions`` (F,) (see :func:`frame_slabs`)."""
     n_frames = f0.shape[0] // x.shape[0]
     margin = int(np.ceil(fs / (4 * 47.0))) + 3
-    slab = frame_slabs(x, fs, frame_period_ms, n_frames, max_half + margin)
+    slab = frame_slabs(x, fs, frame_period_ms, n_frames, max_half + margin,
+                       temporal_positions)
     centroid = static_centroid_half(slab, margin, fs, f0, t_pos, max_half,
                                     fft_size)
     seg = slab[:, margin:slab.shape[1] - margin]

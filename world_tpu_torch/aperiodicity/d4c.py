@@ -6,7 +6,7 @@ import numpy as np
 import torch
 
 from .._backend import sdiv
-from ..frames import uniform_frame_period_ms
+from ..frames import host, like, uniform_frame_period_ms
 from .common import (band_window, coarse_ap_frames, d4c_fft_size, frame_slabs,
                      love_train_fft_size, love_train_vuv)
 
@@ -35,8 +35,9 @@ def band_to_bin_weights(fs: int, n_ap: int, freq_interval: float,
 def d4c_core(x: torch.Tensor, fs: int, f0_seq: torch.Tensor,
              temporal_positions: torch.Tensor, fft_size: int,
              fft_size_for_spectrum: int, threshold: float,
-             freq_interval: float, n_ap: int, frame_period_ms: float):
-    """D4C for rows x (B, n) and f0 (B, F) on the uniform frame grid.
+             freq_interval: float, n_ap: int, frame_period_ms):
+    """D4C for rows x (B, n) and f0 (B, F), on the uniform frame grid of
+    ``frame_period_ms`` or, when that is None, at ``temporal_positions``.
 
     Returns the aperiodicity (B, F, fft_size_for_spectrum//2 + 1) as linear
     amplitude, the coarse band aperiodicity (B, F, n_ap) in dB and the
@@ -51,12 +52,14 @@ def d4c_core(x: torch.Tensor, fs: int, f0_seq: torch.Tensor,
     f0 = f0_seq.reshape(-1)
     t = temporal_positions.to(dtype).repeat(B)
 
-    seg_lt = frame_slabs(x, fs, frame_period_ms, n_frames, max_half_lt)
+    seg_lt = frame_slabs(x, fs, frame_period_ms, n_frames, max_half_lt,
+                         temporal_positions)
     vuv_lt = love_train_vuv(seg_lt, fs, f0, t, threshold, max_half_lt, fft_lt)
 
     current_f0 = torch.clamp(f0, min=f0_low_limit)
     coarse = coarse_ap_frames(x, fs, current_f0, t, freq_interval, fft_size,
-                              n_ap, window, max_half, frame_period_ms)
+                              n_ap, window, max_half, frame_period_ms,
+                              temporal_positions)
     coarse = torch.clamp(coarse - sdiv((current_f0[:, None] - 100.0) * 2.0, 100.0),
                          min=0.0)
     zero = torch.zeros((), dtype=dtype, device=dev)
@@ -86,22 +89,18 @@ def d4c(x: torch.Tensor, fs: int, f0_object: dict, threshold: float = 0.85,
         fft_size_for_spectrum: int = None) -> dict:
     """Aperiodicity of one utterance x (n,) (API of
     world_tpu.aperiodicity.d4c.d4c): the source dict with f0 zeroed where
-    unvoiced, "aperiodicity" (bins, frames) and "coarse_ap" (n_ap, frames)."""
+    unvoiced, "aperiodicity" (bins, frames) and "coarse_ap" (n_ap, frames).
+    The frame grid may be any ascending one."""
     fs = int(fs)
     if fft_size_for_spectrum is None:
         fft_size_for_spectrum = int(2 ** np.ceil(np.log2(3 * fs / 71 + 1)))
-    tp = np.asarray(f0_object["temporal_positions"], dtype=np.float64)
-    fp_ms = uniform_frame_period_ms(tp)
-    if fp_ms is None:
-        raise NotImplementedError("d4c on a non-uniform frame grid is not "
-                                  "ported yet: ROADMAP.md, Queue 1, item 16")
-    f0 = torch.tensor(np.asarray(f0_object["f0"]), dtype=x.dtype, device=x.device)
-    vuv = torch.tensor(np.asarray(f0_object["vuv"]), device=x.device)
-    f0 = torch.where(vuv == 0, torch.zeros_like(f0), f0)
+    tp = np.asarray(host(f0_object["temporal_positions"]), dtype=np.float64)
+    f0 = like(x, f0_object["f0"])
+    f0 = torch.where(like(x, f0_object["vuv"]) == 0, torch.zeros_like(f0), f0)
     ap, coarse, f0_eff = d4c_core(
-        x[None], fs, f0[None], torch.tensor(tp, dtype=x.dtype, device=x.device),
+        x[None], fs, f0[None], torch.as_tensor(tp, device=x.device),
         d4c_fft_size(fs), int(fft_size_for_spectrum), float(threshold),
-        frequency_interval(fs), n_bands(fs), fp_ms)
+        frequency_interval(fs), n_bands(fs), uniform_frame_period_ms(tp))
     out = dict(f0_object)
     out["f0"] = f0_eff[0]
     out["aperiodicity"] = ap[0].T

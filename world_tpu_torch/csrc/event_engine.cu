@@ -50,6 +50,7 @@
 //      block of each row writes the interval count.
 // No binary search touches device memory.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -403,12 +404,8 @@ int launch_event_engine(const T* x, int rows, int n, const T* tq, int Q,
   const long long last0 = (long long)(n_tiles - 1) * kTile;
   if ((long long)(n_tiles - 1) * kTileCap + (n - 1 - last0 + 1) / 2 > cap)
     return (int)cudaErrorInvalidValue;
-  const bool vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                   ((size_t)n * sizeof(T)) % 16 == 0;
-  scan_crossings<T><<<dim3(n_tiles, rows), kScanThreads, 0, stream>>>(
-      x, n, n_tiles, cap, Q, pnum, qden, vec, pos, rank, tile_count);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  // a grid's y extent: the caller splits more rows than that
+  if (rows > 65535) return (int)cudaErrorInvalidConfiguration;
   // frames per pass-2 block: those spanning about kSpanSamples samples, so
   // that the block's crossings fit its shared memory
   const long long fpb_raw =
@@ -418,9 +415,22 @@ int launch_event_engine(const T* x, int rows, int n, const T* tq, int Q,
   const int span_cap = (int)(((long long)(fpb - 1) * pnum / qden + 3) / 2 + 12);
   const size_t smem = 4 * sizeof(T) * (size_t)span_cap +
                       sizeof(int) * ((size_t)n_tiles + 1);
-  err = cudaFuncSetAttribute(select_intervals<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  // sized before the first pass is launched: a geometry the second pass
+  // cannot hold launches nothing
+  cudaError_t err = smem > INT_MAX ? cudaErrorInvalidValue
+                                   : cudaFuncSetAttribute(
+                                         select_intervals<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // leave no error behind for the next call to read
+    return (int)err;
+  }
+  const bool vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                   ((size_t)n * sizeof(T)) % 16 == 0;
+  scan_crossings<T><<<dim3(n_tiles, rows), kScanThreads, 0, stream>>>(
+      x, n, n_tiles, cap, Q, pnum, qden, vec, pos, rank, tile_count);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   select_intervals<T><<<dim3((Q + fpb - 1) / fpb, rows), kThreads, smem,
                         stream>>>(pos, rank, tile_count, n, n_tiles, cap, tq,

@@ -452,7 +452,10 @@ int launch_refine(const T* seg, const T* phase, const T* f0, int C, int F,
   const size_t smem = Smem<T>::bytes(S, W);
   cudaError_t err = cudaFuncSetAttribute(
       refine_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // leave no error behind for the next call to read
+    return (int)err;
+  }
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=

@@ -35,6 +35,20 @@ def uniform_frame_period_ms(temporal_positions: np.ndarray):
     return fp_ms if np.allclose(tp, grid, rtol=0, atol=1e-9) else None
 
 
+def host(a) -> np.ndarray:
+    """``a`` (a tensor, an array or a sequence) as a numpy array."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def like(x: torch.Tensor, a) -> torch.Tensor:
+    """``a`` (a tensor, an array or a sequence) as a tensor of x's type on
+    x's device."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype=x.dtype, device=x.device)
+    return torch.tensor(np.asarray(a, dtype=np.float64), dtype=x.dtype,
+                        device=x.device)
+
+
 def gather_trunc_1based(x: torch.Tensor, index_1based: torch.Tensor) -> torch.Tensor:
     """x[b, int(min(n, max(1, idx[b, ...]))) - 1] for rows x (B, n) and
     float indices (B, ...): clamp, then truncate (the reference's

@@ -10,7 +10,8 @@ import functools
 
 import torch
 
-from .._backend import LaunchCounter, check_kernel_input, launch
+from .._backend import (KernelGeometryError, LaunchCounter,
+                        check_kernel_input, launch)
 from ..f0.events import batched_interval_interp, stride_fraction
 
 
@@ -71,10 +72,18 @@ def event_engine_cuda(signals: torch.Tensor, fs: float, t_frames: torch.Tensor,
     out = torch.empty((S, Q), dtype=signals.dtype, device=dev)
     m = torch.empty(S, dtype=torch.int32, device=dev)
     base = work.data_ptr()
-    launch("event_engine", signals.dtype, signals.data_ptr(), S, n,
-           t_frames.data_ptr(), Q, pnum, qden, float(fs), EVENT_TILE,
-           crossing_capacity(n), base + lay["pos"], base + lay["rank"],
-           base + lay["tile_count"], out.data_ptr(), m.data_ptr())
+    try:
+        launch("event_engine", signals.dtype, signals.data_ptr(), S, n,
+               t_frames.data_ptr(), Q, pnum, qden, float(fs), EVENT_TILE,
+               crossing_capacity(n), base + lay["pos"], base + lay["rank"],
+               base + lay["tile_count"], out.data_ptr(), m.data_ptr())
+    except KernelGeometryError as e:
+        raise ValueError(
+            f"event engine: the geometry rows {S} x samples {n}, Q {Q} frames "
+            f"at stride {pnum}/{qden} is too large: a call holds at most "
+            f"65,535 rows, and its second pass keeps a block's crossings and "
+            f"the row's tile offsets in shared memory; split the rows or the "
+            f"signal ({e})") from e
     counter.launches += 1
     return out, m
 

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._backend import LaunchCounter, check_kernel_input, launch, rdiv, sdiv
+from .._backend import (KernelGeometryError, LaunchCounter,
+                        check_kernel_input, launch, rdiv, sdiv)
 from . import prod_diff
 
 
@@ -134,10 +135,17 @@ def refine_cuda(seg, phase, f0, actual_fs: float, max_half: int, S: int,
     if cos_tab.shape[0] != S or sin_tab.shape[0] != S:
         raise ValueError(f"refine_dft: DFT table length != S={S}")
     out = torch.empty((C, Fr, 2), dtype=dtype, device=dev)
-    launch("refine_dft", dtype, seg.data_ptr(), phase.data_ptr(),
-           f0.data_ptr(), C, Fr, W, max_half, S, cos_tab.data_ptr(),
-           sin_tab.data_ptr(), float(actual_fs), float(f0_floor),
-           float(f0_ceil), out.data_ptr())
+    try:
+        launch("refine_dft", dtype, seg.data_ptr(), phase.data_ptr(),
+               f0.data_ptr(), C, Fr, W, max_half, S, cos_tab.data_ptr(),
+               sin_tab.data_ptr(), float(actual_fs), float(f0_floor),
+               float(f0_ceil), out.data_ptr())
+    except KernelGeometryError as e:
+        raise ValueError(
+            f"refine_dft: the geometry (C, F, W, S) = ({C}, {Fr}, {W}, {S}) in "
+            f"{dtype} needs more shared memory a block than the device "
+            f"allows: the DFT table (S) and the window (W = 2 max_half + 1) "
+            f"grow as f0_floor falls ({e})") from e
     counter.launches += 1
     return out[..., 0], out[..., 1]
 

@@ -4,8 +4,12 @@ batch axis of equal-length utterances:
   * Harvest -> CheapTrick -> D4C-Requiem -> Requiem synthesis
     (``_encode_decode_one``);
   * DIO -> StoneMask -> CheapTrick -> D4C -> classic synthesis
-    (``_encode_classic_one``, ``_encode_decode_classic_one``).
+    (``_encode_classic_one``, ``_encode_decode_classic_one``);
+  * the first of these for a batch (``batch_encode_decode``) and for a
+    ragged batch in length buckets (``batch_encode_decode_ragged``).
 """
+import warnings
+
 import numpy as np
 import torch
 from torch import nn
@@ -18,6 +22,7 @@ from ..f0.dio import dio_core, dio_tables, frame_positions
 from ..f0.harvest import (default_max_candidates, default_max_sections,
                           harvest_core, harvest_tables)
 from ..f0.stonemask import max_half_window, stonemask_core, table_size
+from ..f0.swipe import swipe_core, swipe_tables
 from ..ops.refine_dft import dft_table
 from ..spectral.cheaptrick import cheaptrick_core, default_fft_size
 from ..synth.classic import (default_max_pulses, max_noise_length,
@@ -26,6 +31,18 @@ from ..synth.requiem import excitation_core, waveform_core
 from ..synth.seeds import get_seeds_signals
 
 F0_FLOOR, F0_CEIL = 71.0, 800.0
+SWIPE_DT = 0.005
+
+
+def frame_period_of(f0_method: str, frame_period: float) -> float:
+    """The frame period in ms of :func:`f0_contour`'s grid."""
+    return SWIPE_DT * 1000 if f0_method == "swipe" else frame_period
+
+
+def floor_of_fft_size(fs: int, fft_size: int) -> float:
+    """The lowest f0 CheapTrick's window of ``fft_size`` samples resolves:
+    an explicit fft_size sets the F0 search's floor to it."""
+    return 3.0 * fs / fft_size
 
 
 def output_length(signal_length: int, fs: int, frame_period: int) -> int:
@@ -53,7 +70,9 @@ def f0_contour(x: torch.Tensor, fs: int, frame_period: float,
                tables: dict = None) -> dict:
     """f0 and vuv (B, F) and temporal_positions (F,) of rows x (B, n): by
     Harvest, which adds its capacity flags _refine_overflow and
-    _section_overflow (B,), or by DIO refined by StoneMask.  ``tables``
+    _section_overflow (B,), by DIO refined by StoneMask, or by SWIPE' with
+    pitch-strength threshold 0.3 and no refinement (always on the 5 ms
+    grid, whatever ``frame_period``, as in world_tpu.World).  ``tables``
     holds the method's static tables (built when None)."""
     fp_ms = float(frame_period)
     if f0_method == "dio":
@@ -68,61 +87,71 @@ def f0_contour(x: torch.Tensor, fs: int, frame_period: float,
         return harvest_core(x, fs, f0_floor, f0_ceil, fp_ms, max_candidates,
                             max_sections, tables=tables)
     if f0_method == "swipe":
-        raise NotImplementedError("f0_method='swipe' is not ported yet: "
-                                  "ROADMAP.md, Queue 1, item 15 (SWIPE')")
+        return swipe_core(x, fs, (f0_floor, f0_ceil), SWIPE_DT, 0.3, tables)
     raise ValueError(f"unknown f0_method {f0_method!r}")
 
 
 def spectral_envelope(x: torch.Tensor, fs: int, src: dict,
-                      frame_period: float):
+                      frame_period: float, fft_size: int = None):
     """CheapTrick of rows x (B, n) on the contour src, unvoiced frames
-    analysed at 500 Hz.  Returns the envelope and the power spectrum
-    (B, F, bins) and the f0 D4C takes (B, F): CheapTrick's effective f0,
-    zeroed where unvoiced."""
+    analysed at 500 Hz, with ``fft_size`` bins (the default size of fs when
+    None).  Returns the envelope and the power spectrum (B, F, bins) and the
+    f0 D4C takes (B, F): CheapTrick's effective f0, zeroed where unvoiced."""
     f0, vuv = src["f0"], src["vuv"]
     f0_ct = torch.where(vuv == 0, torch.full_like(f0, 500.0), f0)
-    env, ps_spec, f0_eff = cheaptrick_core(x, fs, f0_ct, default_fft_size(fs),
-                                           -0.15, float(frame_period))
+    env, ps_spec, f0_eff = cheaptrick_core(
+        x, fs, f0_ct, default_fft_size(fs) if fft_size is None else int(fft_size),
+        -0.15, float(frame_period))
     return env, ps_spec, torch.where(vuv == 0, torch.zeros_like(f0_eff), f0_eff)
 
 
 def d4c_aperiodicity(x: torch.Tensor, fs: int, f0_d4c: torch.Tensor,
                  temporal_positions: torch.Tensor, frame_period: float,
-                 is_requiem: bool) -> torch.Tensor:
+                 is_requiem: bool, fft_size: int = None) -> torch.Tensor:
     """D4C-Requiem's band aperiodicity in dB (B, F, n_ap+2), or classic
-    D4C's full-resolution aperiodicity as linear amplitude (B, F, bins)."""
+    D4C's full-resolution aperiodicity as linear amplitude (B, F, bins).
+    An explicit ``fft_size`` is D4C-Requiem's own DFT size and the size of
+    the spectrum classic D4C interpolates onto."""
     fp_ms = float(frame_period)
     if is_requiem:
-        return d4c_requiem_core(x, fs, f0_d4c, temporal_positions,
-                                requiem_fft_size(fs), 0.85, 3000.0,
-                                n_bands_ap(fs), fp_ms)
-    return D4C.d4c_core(x, fs, f0_d4c, temporal_positions, d4c_fft_size(fs),
-                        default_fft_size(fs), 0.85, D4C.frequency_interval(fs),
-                        D4C.n_bands(fs), fp_ms)[0]
+        return d4c_requiem_core(
+            x, fs, f0_d4c, temporal_positions,
+            requiem_fft_size(fs) if fft_size is None else int(fft_size), 0.85,
+            3000.0, n_bands_ap(fs), fp_ms)
+    return D4C.d4c_core(
+        x, fs, f0_d4c, temporal_positions, d4c_fft_size(fs),
+        default_fft_size(fs) if fft_size is None else int(fft_size), 0.85,
+        D4C.frequency_interval(fs), D4C.n_bands(fs), fp_ms)[0]
 
 
 def analyze_contour(x: torch.Tensor, fs: int, src: dict, frame_period: float,
-                    is_requiem: bool) -> dict:
+                    is_requiem: bool, fft_size: int = None) -> dict:
     """CheapTrick, then D4C-Requiem or classic D4C, of rows x (B, n) on the
-    contour src of :func:`f0_contour`.
+    contour src of :func:`f0_contour`, at ``fft_size`` (each stage's default
+    when None).
 
     Returns src with f0 zeroed where unvoiced, spectrogram and
     ps_spectrogram (B, F, bins) and aperiodicity (:func:`d4c_aperiodicity`)."""
-    env, ps_spec, f0_d4c = spectral_envelope(x, fs, src, frame_period)
+    env, ps_spec, f0_d4c = spectral_envelope(x, fs, src, frame_period, fft_size)
     ap = d4c_aperiodicity(x, fs, f0_d4c, src["temporal_positions"],
-                          frame_period, is_requiem)
+                          frame_period, is_requiem, fft_size)
     return dict(src, f0=f0_d4c, spectrogram=env, ps_spectrogram=ps_spec,
                 aperiodicity=ap)
 
 
 def analyze(x: torch.Tensor, fs: int, frame_period: float,
             f0_method: str = "harvest", is_requiem: bool = True,
-            tables: dict = None, **f0_options) -> dict:
+            tables: dict = None, fft_size: int = None, **f0_options) -> dict:
     """The analysis of rows x (B, n): :func:`f0_contour` (``f0_options``
-    go to it), then :func:`analyze_contour`."""
+    go to it), then :func:`analyze_contour`.  An explicit ``fft_size`` also
+    sets the F0 search's floor, 3 fs / fft_size, before the F0 estimation
+    (world_tpu.World.encode)."""
+    if fft_size is not None:
+        f0_options["f0_floor"] = floor_of_fft_size(fs, fft_size)
     src = f0_contour(x, fs, frame_period, f0_method, tables=tables,
                      **f0_options)
-    return analyze_contour(x, fs, src, frame_period, is_requiem)
+    return analyze_contour(x, fs, src, frame_period_of(f0_method, frame_period),
+                           is_requiem, fft_size)
 
 
 def synthesize(temporal_positions, f0, vuv, band_ap_db, spectrogram,
@@ -244,6 +273,145 @@ def classic_tables(fs: int, dtype: torch.dtype, device) -> dict:
     return tables
 
 
+HARVEST_TABLE_KEYS = ("band_bank", "band_bias", "decimator_ir", "refine_cos",
+                      "refine_sin", "smooth_kernel")
+
+
+def harvest_requiem_tables(fs: int, seed: int, dtype: torch.dtype, device) -> dict:
+    """The Harvest/Requiem round trip's static tables at the default f0
+    range: Harvest's (HARVEST_TABLE_KEYS) and the Requiem seed banks
+    pulse_seed and noise_seed of ``seed``."""
+    tables = harvest_tables(fs, F0_FLOOR, F0_CEIL, dtype, device)
+    seeds = get_seeds_signals(fs, seed=seed)
+    for name in ("pulse", "noise"):
+        tables[f"{name}_seed"] = torch.tensor(seeds[name], dtype=dtype,
+                                              device=device)
+    return tables
+
+
+def default_batch_max_pulses(n_samples: int, fs: int) -> int:
+    return int(2 ** np.ceil(np.log2(n_samples / fs * 1000 + 8)))
+
+
+def _one_device(devices) -> torch.device:
+    """The device of ``devices``: None (the GPU), one device, or a sequence
+    of one."""
+    if devices is None or isinstance(devices, (str, torch.device)):
+        return resolve_device(devices)
+    devices = list(devices)
+    if len(devices) != 1:
+        raise NotImplementedError(
+            f"a batch over {len(devices)} devices is not ported yet: "
+            f"ROADMAP.md, Queue 1, item 19 (Multi-GPU)")
+    return resolve_device(devices[0])
+
+
+def batch_encode_decode(xs, fs: int, devices=None, frame_period: int = 5,
+                        seed: int = 0, max_pulses: int = None,
+                        max_candidates: int = None, max_sections: int = None,
+                        check_capacity: bool = True, dtype=torch.float32,
+                        tables: dict = None) -> dict:
+    """The Harvest/Requiem round trip of a (batch, n_samples) utterance
+    batch xs (a tensor or an array) as one rectangular call on one device
+    (``devices``: None for the GPU, or the device; more than one is not
+    ported).  Returns :func:`encode_decode_one`'s dict of tensors.
+
+    The static table caps default to the sizes the single-utterance API
+    uses.  ``check_capacity`` reads the per-utterance overflow flags once
+    after the batch and raises the RuntimeWarning of ``harvest()`` and
+    ``decode()``.  ``tables``: :func:`harvest_requiem_tables`' dict for fs
+    and ``seed`` (built when None)."""
+    dev = _one_device(devices)
+    fs = int(fs)
+    xs = (xs.to(dtype=dtype, device=dev) if isinstance(xs, torch.Tensor)
+          else torch.tensor(np.asarray(xs), dtype=dtype, device=dev))
+    if tables is None:
+        tables = harvest_requiem_tables(fs, seed, dtype, dev)
+    if max_pulses is None:
+        max_pulses = default_batch_max_pulses(xs.shape[1], fs)
+    if max_candidates is None:
+        max_candidates = default_max_candidates(F0_FLOOR, F0_CEIL)
+    if max_sections is None:
+        max_sections = default_max_sections(xs.shape[1], fs)
+    out = encode_decode_one(xs, tables["pulse_seed"], tables["noise_seed"], fs,
+                            int(frame_period), int(max_pulses),
+                            int(max_candidates), int(max_sections),
+                            tables={k: tables[k] for k in HARVEST_TABLE_KEYS})
+    if check_capacity:
+        _warn_batch_capacity(out["_overflow"].cpu().numpy(), max_sections,
+                             max_pulses)
+    return out
+
+
+def bucket_lengths(lens, fs: int, bucket_quantum_s: float) -> dict:
+    """{padded length: indices of the utterances it holds}, in ascending
+    length: each utterance is padded up to the next multiple of
+    ``bucket_quantum_s`` seconds."""
+    quantum = max(1, int(round(bucket_quantum_s * fs)))
+    buckets = {}
+    for i, n in enumerate(lens):
+        buckets.setdefault(max(quantum, -(-n // quantum) * quantum), []).append(i)
+    return dict(sorted(buckets.items()))
+
+
+def batch_encode_decode_ragged(xs, fs: int, devices=None, frame_period: int = 5,
+                               seed: int = 0, bucket_quantum_s: float = 1.0,
+                               check_capacity: bool = True,
+                               dtype=torch.float32) -> list:
+    """The Harvest/Requiem round trip of a ragged batch: utterances of
+    unequal lengths, as a server gets them.
+
+    Utterances are grouped into length buckets (:func:`bucket_lengths`),
+    each bucket runs through :func:`batch_encode_decode` as one rectangular
+    call, in ascending length, and the outputs are stripped back to each
+    utterance's own frames and samples.  The static tables are built once
+    and shared by all buckets.
+
+    Each utterance is analysed as if zero-padded to its bucket's length; the
+    zero tail analyses as unvoiced.  Within a bucket a row takes the
+    decisions of a single-utterance call at the same padded length.
+
+    Returns a list of per-utterance dicts of numpy arrays (f0, vuv,
+    spectrogram, band_aperiodicity, y), in input order."""
+    dev = _one_device(devices)
+    fs, fp = int(fs), int(frame_period)
+    np_dtype = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    xs = [np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x,
+                     np_dtype) for x in xs]
+    lens = [int(x.shape[0]) for x in xs]
+    tables = harvest_requiem_tables(fs, seed, dtype, dev)
+    results = [None] * len(xs)
+    for L, idxs in bucket_lengths(lens, fs, bucket_quantum_s).items():
+        xb = np.zeros((len(idxs), L), np_dtype)
+        for r, i in enumerate(idxs):
+            xb[r, :lens[i]] = xs[i]
+        out = batch_encode_decode(xb, fs, devices=dev, frame_period=fp,
+                                  seed=seed, check_capacity=check_capacity,
+                                  dtype=dtype, tables=tables)
+        out = {k: out[k].cpu().numpy()
+               for k in ("f0", "vuv", "spectrogram", "band_aperiodicity", "y")}
+        for r, i in enumerate(idxs):
+            nf = int(1000 * lens[i] / fs / fp + 1)
+            y_len = output_length(lens[i], fs, fp)
+            results[i] = {k: (v[r][:y_len] if k == "y" else v[r][:nf])
+                          for k, v in out.items()}
+    return results
+
+
+def _warn_batch_capacity(overflow, max_sections, max_pulses):
+    """Surface per-utterance static-table saturation: the tables are static
+    and must never truncate silently."""
+    overflow = np.asarray(overflow)
+    if overflow.any():
+        idx = np.flatnonzero(overflow)
+        warnings.warn(
+            f"batch_encode_decode: static table capacity "
+            f"(max_sections={max_sections}, refinement slots, or "
+            f"max_pulses={max_pulses}) saturated for utterance(s) "
+            f"{idx.tolist()}; results for those rows may degrade — "
+            f"raise the caps", RuntimeWarning, stacklevel=3)
+
+
 class _TableModule(nn.Module):
     """A round trip as a module whose buffers are its static tables."""
 
@@ -269,6 +437,30 @@ class _TableModule(nn.Module):
             raise ValueError(f"expected {self.n_samples} samples, got "
                              f"{xb.shape[1]}")
         return xb
+
+
+class SwipeF0(_TableModule):
+    """SWIPE' as a module whose buffers are its static tables
+    (:func:`..f0.swipe.swipe_tables`): the candidate grid and each octave's
+    spline operator, kernel matrix, blending weights and window.
+
+    ``forward(x)`` takes (B, n_samples) or (n_samples,) signals of the length
+    the module was built for."""
+
+    def __init__(self, fs: int, n_samples: int, plim=(F0_FLOOR, F0_CEIL),
+                 dt: float = SWIPE_DT, sTHR: float = float("-inf"),
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.fs = int(fs)
+        self.n_samples = int(n_samples)
+        self.plim = tuple(float(p) for p in plim)
+        self.dt, self.sTHR = float(dt), float(sTHR)
+        self._register_tables(swipe_tables(self.fs, self.plim, dtype,
+                                           resolve_device(device)))
+
+    def forward(self, x: torch.Tensor) -> dict:
+        return swipe_core(self._batch(x), self.fs, self.plim, self.dt,
+                          self.sTHR, dict(self.named_buffers()))
 
 
 class DioClassic(_TableModule):
@@ -313,28 +505,18 @@ class HarvestRequiem(_TableModule):
         self.fs = int(fs)
         self.n_samples = int(n_samples)
         self.frame_period = int(frame_period)
-        duration = n_samples / fs
         self.max_pulses = (max_pulses if max_pulses is not None
-                           else int(2 ** np.ceil(np.log2(duration * 1000 + 8))))
+                           else default_batch_max_pulses(n_samples, fs))
         self.max_candidates = (max_candidates if max_candidates is not None
                                else default_max_candidates(F0_FLOOR, F0_CEIL))
         self.max_sections = (max_sections if max_sections is not None
                              else default_max_sections(n_samples, fs))
-        device = resolve_device(device)
-        tables = harvest_tables(self.fs, F0_FLOOR, F0_CEIL, dtype, device)
-        seeds = get_seeds_signals(self.fs, seed=seed)
-        tables["pulse_seed"] = torch.tensor(seeds["pulse"], dtype=dtype,
-                                            device=device)
-        tables["noise_seed"] = torch.tensor(seeds["noise"], dtype=dtype,
-                                            device=device)
-        self._register_tables(tables)
-
-    _HARVEST_KEYS = ("band_bank", "band_bias", "decimator_ir", "refine_cos",
-                     "refine_sin", "smooth_kernel")
+        self._register_tables(harvest_requiem_tables(
+            self.fs, seed, dtype, resolve_device(device)))
 
     def forward(self, x: torch.Tensor, noise_offsets: torch.Tensor = None) -> dict:
         xb = self._batch(x)
-        tables = {k: getattr(self, k) for k in self._HARVEST_KEYS}
+        tables = {k: getattr(self, k) for k in HARVEST_TABLE_KEYS}
         return encode_decode_one(xb, self.pulse_seed, self.noise_seed, self.fs,
                                  self.frame_period, self.max_pulses,
                                  self.max_candidates, self.max_sections,

@@ -10,7 +10,8 @@ from .._backend import F64_EPS, rdiv, sdiv
 from ..aperiodicity.common import frame_slabs, rect_smooth_half
 from ..dsp.dcfill import dc_fill_add
 from ..dsp.minphase import mirror_full
-from ..frames import apply_adaptive_window
+from ..frames import (apply_adaptive_window, host as _host, like as _like,
+                      uniform_frame_period_ms)
 
 
 def default_fft_size(fs: int) -> int:
@@ -64,10 +65,12 @@ def _smoothing_with_recovery(smoothed_full, f0, fs, fft_size: int, q1: float):
 
 
 def cheaptrick_core(x: torch.Tensor, fs: int, f0_seq: torch.Tensor,
-                    fft_size: int, q1: float, frame_period_ms: float):
+                    fft_size: int, q1: float, frame_period_ms,
+                    temporal_positions: torch.Tensor = None):
     """Envelope (B, n_frames, fft//2+1), pitch-synchronous spectrum
     (B, n_frames, fft) and effective f0 (B, n_frames) for rows x (B, n) and
-    f0 (B, n_frames) on the uniform frame grid."""
+    f0 (B, n_frames), on the uniform frame grid of ``frame_period_ms`` or,
+    when that is None, at ``temporal_positions`` (n_frames,)."""
     B, n_frames = f0_seq.shape
     dtype = x.dtype
     f0_low_limit = fs * 3.0 / (fft_size - 3.0)
@@ -75,10 +78,13 @@ def cheaptrick_core(x: torch.Tensor, fs: int, f0_seq: torch.Tensor,
                          torch.full((), 500.0, dtype=dtype, device=x.device),
                          f0_seq)
     f0 = f0_eff.reshape(-1)
-    tp = torch.as_tensor(np.arange(n_frames) * frame_period_ms / 1000,
-                         dtype=dtype, device=x.device).repeat(B)
+    if frame_period_ms is not None:
+        temporal_positions = torch.as_tensor(
+            np.arange(n_frames) * frame_period_ms / 1000, device=x.device)
+    tp = temporal_positions.to(dtype).repeat(B)
     max_half = (fft_size - 2) // 2
-    seg = frame_slabs(x, fs, frame_period_ms, n_frames, max_half)
+    seg = frame_slabs(x, fs, frame_period_ms, n_frames, max_half,
+                      temporal_positions)
     waveform, _, _ = apply_adaptive_window(
         seg, float(fs), f0, tp, 1.5, max_half, "hanning",
         sub_sample_shift=False, normalize_window=True)
@@ -92,3 +98,27 @@ def cheaptrick_core(x: torch.Tensor, fs: int, f0_seq: torch.Tensor,
                                    fft_size, q1)
     return (env.reshape(B, n_frames, -1), ps_spec.reshape(B, n_frames, -1),
             f0_eff)
+
+
+def cheaptrick(x: torch.Tensor, fs: int, source_object: dict, q1: float = -0.15,
+               fft_size: int = None) -> dict:
+    """Spectral envelope of one utterance x (n,) (API of
+    world_tpu.spectral.cheaptrick.cheaptrick) on any ascending frame grid:
+    "spectrogram" (fft//2+1, frames), the complex "ps spectrogram"
+    (fft, frames) and "f0_effective" (frames,), the contour with unvoiced
+    frames and frames below the window's floor raised to 500 Hz.  The
+    source dict is not changed."""
+    fs = int(fs)
+    if fft_size is None:
+        fft_size = default_fft_size(fs)
+    tp_np = np.asarray(_host(source_object["temporal_positions"]), dtype=np.float64)
+    f0 = _like(x, source_object["f0"])
+    vuv = _like(x, source_object["vuv"])
+    f0 = torch.where(vuv == 0, torch.full_like(f0, 500.0), f0)
+    env, ps_spec, f0_eff = cheaptrick_core(
+        x[None], fs, f0[None], int(fft_size), float(q1),
+        uniform_frame_period_ms(tp_np),
+        torch.as_tensor(tp_np, device=x.device))
+    return {"temporal_positions": source_object["temporal_positions"],
+            "spectrogram": env[0].T, "fs": fs, "ps spectrogram": ps_spec[0].T,
+            "f0_effective": f0_eff[0]}

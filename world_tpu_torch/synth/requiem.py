@@ -3,15 +3,18 @@ world_tpu/synth/requiem.py).  The velvet noise is read at explicit
 per-band offsets, pulses are overlap-added with ``index_add_``, and all
 frames are filtered through batched minimum-phase spectra."""
 import math
+import warnings
 
+import numpy as np
 import torch
 
-from .._backend import sdiv
+from .._backend import resolve_device, sdiv
 from ..dsp.interp import interp1_extrap
 from ..dsp.minphase import minimum_phase_spectrum, mirror_full
 from ..dsp.ola import scatter_ola, uniform_ola
 from ..dsp.windows import np_hanning_matlab
-from .classic import grid_interp
+from ..frames import host, uniform_frame_period_ms
+from .classic import default_max_pulses, grid_interp
 
 
 def _interp(values, temporal_positions, time_axis, frame_period_s):
@@ -102,3 +105,41 @@ def waveform_core(excitation, spectrogram, fs: int, fft_size: int, fps: int):
     mp = minimum_phase_spectrum(mirror_full(spec))
     resp = torch.fft.ifft(mp * torch.fft.fft(tmp, fft_size)).real
     return uniform_ola(resp, fps - half - 1, fps, y_len)
+
+
+def synthesis_requiem(source_object: dict, filter_object: dict,
+                      seeds_signals: dict, noise_offsets=None,
+                      max_pulses: int = None, dtype=torch.float64,
+                      device=None) -> torch.Tensor:
+    """Waveform of a source/filter dict pair (API of
+    world_tpu.synth.requiem.synthesis_requiem) on ``device`` (the GPU unless
+    the CPU is asked for), on any ascending frame grid.  ``seeds_signals``
+    is :func:`..synth.seeds.get_seeds_signals`' dict; ``noise_offsets`` is
+    one velvet-noise read cursor per band (zeros when None)."""
+    dev = resolve_device(device)
+    as_t = lambda a: torch.tensor(np.asarray(host(a), dtype=np.float64),   # noqa: E731
+                                  dtype=dtype, device=dev)
+    f0 = np.asarray(host(source_object["f0"]), dtype=np.float64)
+    tp = np.asarray(host(source_object["temporal_positions"]), dtype=np.float64)
+    fs = int(filter_object["fs"])
+    spectrogram = as_t(filter_object["spectrogram"])
+    pulse_seed = as_t(seeds_signals["pulse"])
+    noise_seed = as_t(seeds_signals["noise"])
+    if noise_offsets is None:
+        noise_offsets = np.zeros(pulse_seed.shape[1], np.int64)
+    offsets = torch.as_tensor(np.asarray(host(noise_offsets), np.int64), device=dev)
+    y_length = len(np.arange(tp[0], tp[-1] + 1 / fs, 1.0 / fs))
+    if max_pulses is None:
+        max_pulses = default_max_pulses(tp, f0)
+    fp_ms = uniform_frame_period_ms(tp)
+    excitation, overflow = excitation_core(
+        as_t(tp), as_t(f0), as_t(source_object["vuv"]),
+        as_t(source_object["aperiodicity"]), pulse_seed, noise_seed, offsets,
+        fs, y_length, max_pulses, None if fp_ms is None else fp_ms / 1000.0)
+    if bool(overflow):
+        warnings.warn(f"synthesis_requiem: pulse count exceeded max_pulses="
+                      f"{max_pulses}; trailing pulses were dropped — raise "
+                      f"max_pulses", RuntimeWarning, stacklevel=2)
+    fft_size = (spectrogram.shape[0] - 1) * 2
+    return waveform_core(excitation, spectrogram, fs, fft_size,
+                         int((tp[1] - tp[0]) * fs))
