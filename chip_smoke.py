@@ -52,7 +52,19 @@ Phases (each raises on failure; any failure exits non-zero):
      batch_encode_decode_ragged in five length buckets; each row against a
      one-utterance call at the same padded length; both kernels launch once
      per bucket and are held against their plain versions at every
-     bucket's geometry.
+     bucket's geometry;
+ 14. long audio: check_long_audio.py's 60 s glide at 22.05 kHz in float32
+     through World.encode(harvest, requiem) -> decode with that script's
+     asserts, against the float64 analysis on the card, and blocked against
+     unblocked (vuv equal); both kernels against their plain versions at the
+     band chunk's and the frame chunk's geometry in both types (K1
+     bitwise); harvest()'s peak memory blocked and unblocked; the same 60 s
+     through DIO and classic synthesis; LONG_SECONDS of the glide at 16 kHz
+     through Harvest alone, blocked, and unblocked where it fits;
+ 15. rows and devices: 110 utterances of 0.5 s through batch_encode_decode
+     (more rows than one K1 launch takes); phase 5's batch over
+     devices=["cuda:0", "cuda:0"], each shard bitwise its one-device call;
+     frame_sharded_cheaptrick over two and four shards against cheaptrick.
 The last line is {"ok": true, "device": {...}}.  There is no CPU fallback.
 """
 import json
@@ -66,7 +78,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 GOLDEN_DIR = ROOT / "tests" / "golden"
 GOLDEN = GOLDEN_DIR / "harvest_16k.npz"
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
 
 # K1: kernel and plain version evaluate the same IEEE operations in the same
 # order, so the interpolated f0 may differ only by rounding of equal
@@ -111,6 +123,34 @@ RAGGED_QUANTUM_S = 1.0
 # the VAE MLP pair of the reference's voice conversion: 39-256-256-256-12
 VAE_SIZES = (39, 256, 256, 256, 12)
 VAE_ACTS = ("relu", "relu", "relu", "linear")
+# phase 14: the JAX package's long-audio probe (tools/check_long_audio.py, a
+# 60 s glide at 22.05 kHz) and what it found there (LONGAUDIO_r05.json):
+# results, not times
+GLIDE_FS, GLIDE_SECONDS = 22050, 60.0
+GLIDE_REFERENCE = {"frames": 12001, "voiced_frames": 11084,
+                   "median_voiced_f0_hz": 155.785, "resynth_rms": 0.2774}
+# the length that shows the memory bound, at 16 kHz through Harvest alone
+LONG_FS, LONG_SECONDS = 16000, 600.0
+# blocked against unblocked analysis of the 60 s glide in float32: vuv
+# equal, and these bars (path C's row bars for f0 and the envelope).  The
+# stages are bitwise from the refinement on; the FIR bank's blocks and band
+# chunks give the matrix products other shapes, so the filtered signals may
+# differ in their last places.
+BLOCKED_F0_HZ, BLOCKED_ENV_DB, BLOCKED_AP_DB = 1e-3, 0.05, 0.1
+# phase 15: more rows than one K1 launch takes (65,535 = 107 utterances'
+# 608 event rows)
+MANY_ROWS, MANY_ROWS_SECONDS = 110, 0.5
+MAX_K1_ROWS = 65535
+# float32 raw band candidates on the card when the FIR bank's matrix products
+# get other shapes (chunks of bands, blocks of samples): the share of entries
+# live in one call only, and the share of the others within DIO_F32_RAW_RTOL;
+# the filtered signals themselves to FIR_BLOCK_REL of their scale (a float32
+# dot product of 461 terms in two orders)
+FIR_BLOCK, FIR_BLOCK_REL = 65536, 2e-6
+# a shard's waveform against its one-device call's, relative L2: float32 sums
+# of ~10 overlapping pulse responses in another order
+SHARD_Y_REL = 1e-5
+RAW_FLIPS_SHARE, RAW_CLOSE_SHARE = 1e-3, 0.999
 
 
 def card_line() -> str:
@@ -187,37 +227,90 @@ def k2_bound(ops):
                  K2_OPS_PER_WINDOW_SAMPLE * window_samples)
 
 
-def main_path_operands(x16: np.ndarray, fs: int, dtype, f0_floor: float = F0_FLOOR):
-    """The operands each kernel gets on the Harvest path for utterances x16,
-    (n,) or (B, n): K1's (4 bands B, n) event rows and K2's seg, phase
-    (B F, W) and f0 (48, B F); 608 rows and W 341 at the default floor."""
+def glide_signal(fs: int, seconds: float) -> np.ndarray:
+    """The vowel-like probe of tools/check_long_audio.py: an f0 glide over
+    one octave from 110 Hz with four harmonics, 200 ms of silence every 2 s,
+    and seeded noise of 1e-4."""
+    n = int(fs * seconds)
+    t = np.arange(n) / fs
+    f0 = 110.0 * 2 ** (t / max(t[-1], 1e-9))
+    phase = 2 * np.pi * np.cumsum(f0) / fs
+    x = np.zeros(n)
+    for h, a in [(1, 1.0), (2, 0.5), (3, 0.3), (4, 0.2)]:
+        x += a * np.sin(h * phase)
+    gate = np.floor(t / 2.0) != np.floor((t + 0.2) / 2.0)
+    x *= np.where(gate, 0.0, 1.0)
+    x += 1e-4 * np.random.RandomState(0).randn(n)
+    return (0.5 * x / np.abs(x).max()).astype(np.float32)
+
+
+def harvest_blocking(n_samples: int, fs: int, dtype, n_rows: int = 1,
+                     f0_floor: float = F0_FLOOR) -> dict:
+    """The blocking harvest_core chooses for n_rows signals of n_samples, and
+    the K1 and K2 launches that follow from it."""
     import torch
     from world_tpu_torch.f0 import harvest as H
-    from world_tpu_torch.f0.events import event_rows
+    from world_tpu_torch.f0.events import launch_pieces
 
+    ratio, afs = H.decimation(fs)
+    y_len = H.downsample(torch.zeros((1, n_samples), device="cuda"), fs)[0].shape[1]
+    n_frames = int(1000 * n_samples / fs + 1)
+    bank, _ = H.band_filter_bank(H.boundary_f0_list(f0_floor, F0_CEIL), afs)
+    max_half, _ = H.refinement_geometry(afs, f0_floor)
+    blk = H.stage_blocking(n_rows, y_len, n_frames, bank.shape[0], bank.shape[1],
+                           max_half, H.C2_SLOTS,
+                           H.default_max_sections(n_samples, fs),
+                           torch.empty((), dtype=dtype).element_size())
+    chunks = lambda n, c: 1 if c is None else -(-n // c)   # noqa: E731
+    # the bands of one K1 launch: the chunk by bytes, cut to K1's row limit
+    _, k1_bands = launch_pieces(n_rows, bank.shape[0], blk["band_chunk"])
+    return dict(blk, y_len=y_len, n_frames=n_frames, n_bands=bank.shape[0],
+                k1_bands=k1_bands, k1_launches=chunks(bank.shape[0], k1_bands),
+                k2_launches=chunks(n_frames, blk["refine_chunk"]))
+
+
+def main_path_operands(x16: np.ndarray, fs: int, dtype, f0_floor: float = F0_FLOOR,
+                       blocking: dict = None):
+    """The operands each kernel gets on the Harvest path for utterances x16,
+    (n,) or (B, n): K1's (4 bands B, n) event rows and K2's seg, phase
+    (B F, W) and f0 (48, B F); 608 rows and W 341 at the default floor.
+    The operands are those of one launch: the event rows of the first
+    chunk of bands (``blocking``'s, harvest_core's; never more rows than a
+    K1 launch takes), and the first chunk of frames."""
+    import torch
+    from world_tpu_torch.f0 import harvest as H
+    from world_tpu_torch.f0.events import event_rows, launch_pieces
+
+    blk = (blocking or {}).get
     dev = torch.device("cuda")
     x = torch.tensor(np.atleast_2d(x16), dtype=dtype, device=dev)
     tables = H.harvest_tables(fs, f0_floor, F0_CEIL, dtype, dev)
     y, afs = H.downsample(x, fs, 8000, h=tables["decimator_ir"])
-    filtered = H.band_filtered(y, tables["band_bank"], tables["band_bias"])
+    bands = slice(0, launch_pieces(y.shape[0], tables["band_bank"].shape[0],
+                                   blk("band_chunk"))[1])
+    filtered = H.band_filtered(y, tables["band_bank"][bands],
+                               tables["band_bias"][bands], blk("block"))
     rows = event_rows(filtered.reshape(-1, filtered.shape[-1]))
+    del filtered
     n_frames = int(1000 * x.shape[1] / fs + 1)
     tq = torch.as_tensor(np.arange(n_frames) / 1000, dtype=dtype, device=dev)
     bfl = H.boundary_f0_list(f0_floor, F0_CEIL)
     raw = H.raw_band_candidates(y, afs, tables["band_bank"],
-                                tables["band_bias"], bfl, tq, f0_floor, F0_CEIL)
+                                tables["band_bias"], bfl, tq, f0_floor, F0_CEIL,
+                                blk("band_chunk"), blk("block"))
     cands0, _ = H.detect_candidates(raw, H.default_max_candidates(f0_floor,
                                                                   F0_CEIL))
     cands1 = H.overlap_candidates(cands0)
     compact, _ = H.compact_rows(cands1.transpose(-1, -2), cands1.transpose(-1, -2) != 0,
                                 H.C2_SLOTS)
     max_half, S = H.refinement_geometry(afs, f0_floor)
-    seg, phase, f0 = H.refinement_inputs(y, afs, tq, compact.transpose(-1, -2),
-                                         max_half)
+    frames = slice(0, blk("refine_chunk"))
+    seg, phase, f0 = H.refinement_inputs(
+        y, afs, tq[frames], compact.transpose(-1, -2)[..., frames], max_half)
     table = (tables["refine_cos"], tables["refine_sin"])
     return {"rows": rows, "tq": tq, "afs": afs, "stride": afs * 0.001,
             "seg": seg, "phase": phase, "f0": f0, "max_half": max_half, "S": S,
-            "table": table, "f0_floor": f0_floor}
+            "table": table, "f0_floor": f0_floor, "raw": raw}
 
 
 def k2_args(ops):
@@ -633,6 +726,24 @@ def main(phases=ALL_PHASES) -> int:
         edge_interp.counter.launches = 0
         refine_dft.counter.launches = 0
 
+    def hold_kernels(ops, label, k1_geo, k2_geo=None):
+        """Both kernels against their plain versions on one launch's
+        operands (K1 bitwise), recorded under ``geometries`` when the
+        operands are float32."""
+        record = ops["rows"].dtype == torch.float32
+        e1 = check_k1(ops["rows"], ops["afs"], ops["tq"], ops["stride"], label,
+                      bitwise=True)
+        if record:
+            kernels["event_engine"]["geometries"][k1_geo] = {
+                "rows": list(ops["rows"].shape), "Q": ops["tq"].shape[0],
+                "max_abs_err": e1}
+        if k2_geo is not None:
+            e2 = check_k2(ops, label)
+            if record:
+                kernels["refine_dft"]["geometries"][k2_geo] = {
+                    "CFWS": [ops["f0"].shape[0], *ops["seg"].shape, ops["S"]],
+                    "max_abs_err": e2}
+
     # 1. build
     t0 = time.perf_counter()
     _, build_s = kernel_library()
@@ -703,7 +814,7 @@ def main(phases=ALL_PHASES) -> int:
             raise AssertionError("phase 4: output waveform not finite or all zero")
 
     model = classic = None
-    if 5 in phases or 6 in phases or 10 in phases:
+    if 5 in phases or 6 in phases or 10 in phases or 15 in phases:
         rng = np.random.RandomState(0)
         xs = np.stack([x16] + [x16 + 1e-3 * rng.randn(x16.shape[0])
                                for _ in range(3)])
@@ -1062,6 +1173,486 @@ def main(phases=ALL_PHASES) -> int:
                                          f"voiced")
         print("phase 13 path C: ok (zero tails unvoiced in every bucket)")
 
+    opsL32 = blkL32 = x60 = dioL32 = opsX32 = opsM32 = opsS32 = None
+    if 14 in phases or 6 in phases:
+        x60 = glide_signal(GLIDE_FS, GLIDE_SECONDS)
+        dioL32 = dio_event_operands(
+            x60, GLIDE_FS, int(1000 * x60.shape[0] / GLIDE_FS / 5 + 1), torch.float32)
+        blkL32 = harvest_blocking(x60.shape[0], GLIDE_FS, torch.float32)
+        if blkL32["band_chunk"] is None:
+            raise AssertionError("phase 14: the band stage is not blocked at 60 s")
+        opsL32 = main_path_operands(x60, GLIDE_FS, torch.float32, blocking=blkL32)
+    if 14 in phases:
+        import gc
+
+        from world_tpu_torch.f0 import harvest as H
+        from world_tpu_torch.parallel import batch as PB
+
+        keys = ("band_chunk", "block", "refine_chunk", "unreliable_chunk",
+                "step3_chunk", "smooth_chunk")
+        wl32 = World(device="cuda", dtype=torch.float32)
+        wl64 = World(device="cuda", dtype=torch.float64)
+        reset_counts()
+        dat = wl32.encode(GLIDE_FS, x60, f0_method="harvest", is_requiem=True)
+        out = wl32.decode(dat)
+        torch.cuda.synchronize()
+        counts = path_launches("long_audio_60s")
+        f0, vuv, y = dat["f0"], dat["vuv"], np.asarray(out["out"])
+        voiced = f0[f0 > 0]
+        rms = float(np.sqrt(np.mean(y ** 2)))
+        print(f"phase 14 blocking at {GLIDE_SECONDS:g} s float32 "
+              f"({blkL32['y_len']} decimated samples, {blkL32['n_frames']} frames "
+              f"of 1 ms): " + ", ".join(f"{k} {blkL32[k]}" for k in keys)
+              + f"; launches K1 {counts['event_engine']} (expected "
+              f"{blkL32['k1_launches']}), K2 {counts['refine_dft']} (expected "
+              f"{blkL32['k2_launches']})")
+        if counts != {"event_engine": blkL32["k1_launches"],
+                      "refine_dft": blkL32["k2_launches"]} or counts["event_engine"] < 2:
+            raise AssertionError(f"phase 14: one K1 launch per band chunk and one "
+                                 f"K2 launch per frame chunk: {counts}")
+        print(f"phase 14 long audio float32, {GLIDE_SECONDS:g} s glide at {GLIDE_FS} "
+              f"Hz through encode(harvest, requiem) -> decode: {f0.shape[0]} frames "
+              f"(JAX package on its device: {GLIDE_REFERENCE['frames']}), "
+              f"{int(vuv.sum())} voiced ({GLIDE_REFERENCE['voiced_frames']}), "
+              f"median voiced f0 {float(np.median(voiced)):.3f} Hz "
+              f"({GLIDE_REFERENCE['median_voiced_f0_hz']}), resynthesis rms "
+              f"{rms:.4f} ({GLIDE_REFERENCE['resynth_rms']}), max|y| "
+              f"{np.abs(y).max():.3f}")
+        if not (np.all(np.isfinite(f0)) and voiced.size > 0.5 * f0.size
+                and 100.0 < np.median(voiced) < 240.0 and np.all(np.isfinite(y))
+                and np.abs(y).max() <= 1.0 and rms > 0.01):
+            raise AssertionError("phase 14: check_long_audio.py's asserts not met")
+        # the float32 parameters through the float64 synthesis: Requiem's
+        # phase sum and sample-time axis are in the working type
+        y64 = np.asarray(wl64.decode(dict(dat))["out"])
+        print(f"phase 14 sanity, not judged: Requiem synthesis of the float32 "
+              f"parameters in float32 against float64: waveform relative L2 "
+              f"{float(np.linalg.norm(y - y64) / np.linalg.norm(y64)):.3g}")
+
+        ref = wl64.encode(GLIDE_FS, x60, f0_method="harvest", is_requiem=True)
+        b = classic_bars(dat, ref)
+        both = (dat["vuv"] > 0) & (ref["vuv"] > 0)
+        off = int((np.abs(dat["f0"][both] - ref["f0"][both]) > 1.0).sum())
+        print(f"phase 14 long audio float32 vs float64 on the card: "
+              f"{bars_line(b)}; the median is printed, not judged; {off} of "
+              f"{int(both.sum())} frames voiced in both are off by > 1 Hz, RMSE of "
+              f"the best 99% {b['f0_rmse_trimmed99']:.6g} Hz")
+        if not (b["vuv_agreement"] > 0.99 and b["f0_rmse"] < 1.0 and b["lsd"] < 1.0
+                and b["ap_max_db"] < 1.0):
+            raise AssertionError("phase 14: float32 bars at 60 s not met")
+        del ref, y64
+
+        # blocked against unblocked, the same signal and type
+        x60_t = torch.tensor(x60, dtype=torch.float32, device="cuda")[None]
+        caps = (F0_FLOOR, F0_CEIL, 5.0, H.default_max_candidates(),
+                H.default_max_sections(x60.shape[0], GLIDE_FS))
+        an = {}
+        for name, blocking in (("blocked", None), ("unblocked", {})):
+            src = H.harvest_core(x60_t, GLIDE_FS, *caps, blocking=blocking)
+            an[name] = PB.analyze_contour(x60_t, GLIDE_FS, src, 5, True)
+        vuv_equal = torch.equal(an["blocked"]["vuv"], an["unblocked"]["vuv"])
+        df0 = float((an["blocked"]["f0"] - an["unblocked"]["f0"]).abs().max())
+        db = lambda t: 10 * torch.log10(t + 1e-12)    # noqa: E731
+        denv = float((db(an["blocked"]["spectrogram"])
+                      - db(an["unblocked"]["spectrogram"])).abs().max())
+        dap = float((an["blocked"]["aperiodicity"]
+                     - an["unblocked"]["aperiodicity"]).abs().max())
+        print(f"phase 14 blocked vs unblocked analysis float32 at "
+              f"{GLIDE_SECONDS:g} s: vuv equal {vuv_equal}, max |df0| {df0:.3g} Hz "
+              f"(< {BLOCKED_F0_HZ}), envelope {denv:.3g} dB (< {BLOCKED_ENV_DB}), "
+              f"band aperiodicity {dap:.3g} dB (< {BLOCKED_AP_DB})")
+        if not (vuv_equal and df0 < BLOCKED_F0_HZ and denv < BLOCKED_ENV_DB
+                and dap < BLOCKED_AP_DB):
+            raise AssertionError("phase 14: the blocked analysis differs")
+        del an, src
+
+        # the FIR bank alone with its block forced on: once the bands are
+        # chunked, the budget leaves the bank whole at this length
+        t32 = H.harvest_tables(GLIDE_FS, F0_FLOOR, F0_CEIL, torch.float32, "cuda")
+        y60, afs60 = H.downsample(x60_t, GLIDE_FS, 8000, h=t32["decimator_ir"])
+        bands = slice(0, blkL32["band_chunk"])
+        f_whole = H.band_filtered(y60, t32["band_bank"][bands], t32["band_bias"][bands])
+        f_block = H.band_filtered(y60, t32["band_bank"][bands], t32["band_bias"][bands],
+                                  FIR_BLOCK)
+        dfir = float((f_block - f_whole).abs().max() / f_whole.abs().max())
+        del f_whole, f_block
+        raw_b = H.raw_band_candidates(
+            y60, afs60, t32["band_bank"], t32["band_bias"],
+            H.boundary_f0_list(F0_FLOOR, F0_CEIL), opsL32["tq"], F0_FLOOR, F0_CEIL,
+            blkL32["band_chunk"], FIR_BLOCK)
+        raw_w = opsL32["raw"]
+        live = (raw_b > 0) & (raw_w > 0)
+        one_only = int(((raw_b > 0) != (raw_w > 0)).sum())
+        close = float(torch.isclose(raw_b[live], raw_w[live], rtol=DIO_F32_RAW_RTOL,
+                                    atol=0).double().mean())
+        print(f"phase 14 FIR bank float32 in blocks of {FIR_BLOCK} output samples "
+              f"against the whole bank at {GLIDE_SECONDS:g} s ({blkL32['band_chunk']} "
+              f"bands): filtered signals within {dfir:.3g} of their scale (< "
+              f"{FIR_BLOCK_REL}); raw candidates: {one_only} of {raw_b.numel()} "
+              f"entries live in one only (share < {RAW_FLIPS_SHARE}), share of the "
+              f"{int(live.sum())} live in both within rtol {DIO_F32_RAW_RTOL} "
+              f"{close:.6f} (> {RAW_CLOSE_SHARE}), bitwise {torch.equal(raw_b, raw_w)}")
+        if not (dfir < FIR_BLOCK_REL and one_only < RAW_FLIPS_SHARE * raw_b.numel()
+                and close > RAW_CLOSE_SHARE):
+            raise AssertionError("phase 14: the blocked FIR bank differs")
+        del y60, raw_b, raw_w, live, t32
+
+        # both kernels at one launch's geometry of the blocked path
+        blkL64 = harvest_blocking(x60.shape[0], GLIDE_FS, torch.float64)
+        opsL64 = main_path_operands(x60, GLIDE_FS, torch.float64, blocking=blkL64)
+        for dt, ops in (("float32", opsL32), ("float64", opsL64)):
+            hold_kernels(ops, f"{dt} {GLIDE_SECONDS:g} s band chunk / frame chunk",
+                         "long_60s_band_chunk", "long_60s_frames")
+        raw32, raw64 = opsL32["raw"].double(), opsL64["raw"]
+        live = (raw32 > 0) & (raw64 > 0)
+        close = torch.isclose(raw32, raw64, rtol=DIO_F32_RAW_RTOL, atol=DIO_RAW_ATOL)
+        print(f"phase 14 float32 raw band candidates at {GLIDE_SECONDS:g} s against "
+              f"float64 (K1 places a crossing at (i+1) - frac: one ulp is "
+              f"{float(np.spacing(np.float32(blkL32['y_len']))):g} sample at "
+              f"{blkL32['y_len']} samples): share within rtol "
+              f"{DIO_F32_RAW_RTOL} {float(close.double().mean()):.6f} of all entries, "
+              f"{float(close[live].double().mean()):.6f} of the "
+              f"{int(live.sum())} live in both; {int(((raw32 > 0) != (raw64 > 0)).sum())} "
+              f"entries live in one only")
+        del opsL64, raw32, raw64, live, close
+
+        # harvest()'s peak memory, blocked and unblocked
+        peaks = {}
+        for name, blocking in (("blocked", None), ("unblocked", {})):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            H.harvest(x60_t[0], GLIDE_FS, blocking=blocking)
+            torch.cuda.synchronize()
+            peaks[name] = (torch.cuda.max_memory_allocated() - base, base)
+        print(f"phase 14 peak device memory of harvest() float32 at "
+              f"{GLIDE_SECONDS:g} s [{card}]: blocked {peaks['blocked'][0] / 2**20:.1f} "
+              f"MiB, unblocked {peaks['unblocked'][0] / 2**20:.1f} MiB above the "
+              f"{peaks['blocked'][1] / 2**20:.1f} MiB resident before the call; "
+              f"ratio {peaks['blocked'][0] / peaks['unblocked'][0]:.3f} (<= 0.5)")
+        if peaks["blocked"][0] > 0.5 * peaks["unblocked"][0]:
+            raise AssertionError("phase 14: the blocked peak is above half of the "
+                                 "unblocked one")
+
+        # each stage alone on what it holds at once in the blocked run: the
+        # bytes the blocking rule reckons for it beside the peak the card
+        # shows above what was resident.  A blocked stage's chunk must stay
+        # inside the budget it was cut for.
+        from world_tpu_torch._backend import STAGE_BYTES_BUDGET
+        from world_tpu_torch.dsp.fir import bank_bytes_per_sample, band_stage_bytes
+
+        def peak_of(fn):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            res = fn()
+            torch.cuda.synchronize()
+            del res
+            return torch.cuda.max_memory_allocated() - base
+
+        t32 = H.harvest_tables(GLIDE_FS, F0_FLOOR, F0_CEIL, torch.float32, "cuda")
+        y60, afs60 = H.downsample(x60_t, GLIDE_FS, 8000, h=t32["decimator_ir"])
+        nb, n_fr, uc = blkL32["k1_bands"], blkL32["n_frames"], blkL32["unreliable_chunk"]
+        bank_c, bias_c = t32["band_bank"][:nb], t32["band_bias"][:nb]
+        bfl_c = H.boundary_f0_list(F0_FLOOR, F0_CEIL)[:nb]
+        units = H.stage_units(1, n_fr, opsL32["max_half"], H.C2_SLOTS,
+                              H.default_max_sections(x60.shape[0], GLIDE_FS), 4)
+        refine_args = (y60, afs60, opsL32["tq"], opsL32["f0"][None], F0_FLOOR,
+                       F0_CEIL, opsL32["max_half"], opsL32["table"])
+        ref_c, score_c = H.refine_candidates(*refine_args)
+        stages = [
+            (f"FIR bank, {nb} bands whole", True,
+             bank_bytes_per_sample(1, nb, bank_c.shape[1], 4) * blkL32["y_len"],
+             lambda: H.band_filtered(y60, bank_c, bias_c)),
+            (f"band stage, {nb} bands", True,
+             band_stage_bytes(1, blkL32["y_len"], 4) * nb,
+             lambda: H.raw_band_candidates(y60, afs60, bank_c, bias_c, bfl_c,
+                                           opsL32["tq"], F0_FLOOR, F0_CEIL)),
+            (f"refinement, {n_fr} frames whole", False,
+             units["refine_chunk"][0] * n_fr,
+             lambda: H.refine_candidates(*refine_args)),
+            (f"remove_unreliable, chunks of {uc} frames", True,
+             units["unreliable_chunk"][0] * uc,
+             lambda: H.remove_unreliable(ref_c, score_c, frame_chunk=uc))]
+        for label, blocked, reckoned, fn in stages:
+            got = peak_of(fn)
+            print(f"phase 14 stage peak at {GLIDE_SECONDS:g} s float32, {label}: the "
+                  f"rule reckons {reckoned / 2**20:.1f} MiB, the card shows "
+                  f"{got / 2**20:.1f} MiB ({got / reckoned:.3f} of it; budget "
+                  f"{STAGE_BYTES_BUDGET / 2**20:.0f} MiB)")
+            if blocked and got > STAGE_BYTES_BUDGET:
+                raise AssertionError(f"phase 14: {label} holds more than the budget")
+        del y60, t32, ref_c, score_c, refine_args, stages, bank_c, bias_c
+
+        # the same 60 s through DIO and classic synthesis
+        reset_counts()
+        dat = wl32.encode(GLIDE_FS, x60, f0_method="dio", is_requiem=False)
+        out = wl32.decode(dat)
+        torch.cuda.synchronize()
+        counts = path_launches("long_audio_60s_dio")
+        f0, y = dat["f0"], np.asarray(out["out"])
+        voiced = f0[f0 > 0]
+        rms = float(np.sqrt(np.mean(y ** 2)))
+        print(f"phase 14 long audio float32, the same glide through encode(dio) -> "
+              f"classic decode: {f0.shape[0]} frames, {int(dat['vuv'].sum())} "
+              f"voiced, median voiced f0 {float(np.median(voiced)):.3f} Hz, rms "
+              f"{rms:.4f}, max|y| {np.abs(y).max():.3f}; launches K1 "
+              f"{counts['event_engine']}, K2 {counts['refine_dft']}")
+        if not (np.all(np.isfinite(f0)) and voiced.size > 0.5 * f0.size
+                and 100.0 < np.median(voiced) < 240.0 and np.all(np.isfinite(y))
+                and np.abs(y).max() <= 1.0 and rms > 0.01
+                and counts["event_engine"] >= 1 and counts["refine_dft"] == 0):
+            raise AssertionError("phase 14: the DIO/classic round trip at 60 s")
+        # K1 at the one launch that round trip made: DIO's 7 bands whole
+        for dt, d in (("float32", dioL32),
+                      ("float64", dio_event_operands(x60, GLIDE_FS, f0.shape[0],
+                                                     torch.float64))):
+            if d["tq"].shape[0] != f0.shape[0]:
+                raise AssertionError("phase 14: DIO's frame grid at 60 s")
+            hold_kernels(d, f"{dt} {GLIDE_SECONDS:g} s DIO geometry (stride 20/1)",
+                         "long_60s_dio")
+        del dat, out, x60_t, d
+
+        # the length that shows the bound: Harvest alone, blocked
+        xl_np = glide_signal(LONG_FS, LONG_SECONDS)
+        xl = torch.tensor(xl_np, device="cuda")
+        blkX = harvest_blocking(xl.shape[0], LONG_FS, torch.float32)
+        runs = {}
+        for name, blocking in (("blocked", None), ("unblocked", {})):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            if name == "blocked":
+                hv = H.harvest(xl, LONG_FS, blocking=blocking)
+            else:
+                # the one call that may not fit the card: printed, not judged
+                try:
+                    hv = H.harvest(xl, LONG_FS, blocking=blocking)
+                except torch.cuda.OutOfMemoryError:
+                    hv = None
+            torch.cuda.synchronize()
+            runs[name] = (hv, time.perf_counter() - t0,
+                          torch.cuda.max_memory_allocated(), path_launches(
+                              f"long_audio_{LONG_SECONDS:g}s_{name}"))
+        hv, secs, peak, counts = runs["blocked"]
+        f0 = hv["f0"].cpu().numpy()
+        voiced = f0[f0 > 0]
+        print(f"phase 14 Harvest alone float32 on {LONG_SECONDS:g} s of the glide at "
+              f"{LONG_FS} Hz, blocked (" + ", ".join(f"{k} {blkX[k]}" for k in keys)
+              + f") [{card}]: {f0.shape[0]} frames, {voiced.size} voiced, median "
+              f"voiced f0 {float(np.median(voiced)):.3f} Hz; {secs:.2f} s = "
+              f"{LONG_SECONDS / secs:.1f} xRT, peak {peak / 2**30:.2f} GiB; launches "
+              f"K1 {counts['event_engine']} (expected {blkX['k1_launches']}), K2 "
+              f"{counts['refine_dft']} (expected {blkX['k2_launches']})")
+        if not (np.all(np.isfinite(f0)) and voiced.size > 0.5 * f0.size
+                and 100.0 < np.median(voiced) < 240.0
+                and counts == {"event_engine": blkX["k1_launches"],
+                               "refine_dft": blkX["k2_launches"]}):
+            raise AssertionError(f"phase 14: Harvest at {LONG_SECONDS:g} s, blocked")
+        hv_u, secs_u, peak_u, _ = runs["unblocked"]
+        if hv_u is None:
+            print(f"phase 14 Harvest alone on {LONG_SECONDS:g} s, unblocked: "
+                  f"torch.cuda.OutOfMemoryError caught after {secs_u:.2f} s; the "
+                  f"call does not fit the card (printed, not judged)")
+        else:
+            same = torch.equal(hv_u["vuv"], hv["vuv"])
+            print(f"phase 14 Harvest alone on {LONG_SECONDS:g} s, unblocked: fits, "
+                  f"{secs_u:.2f} s, peak {peak_u / 2**30:.2f} GiB; vuv equal to the "
+                  f"blocked run's {same}, max |df0| "
+                  f"{float((hv_u['f0'] - hv['f0']).abs().max()):.3g} Hz (printed, "
+                  f"not judged)")
+        del runs, hv, hv_u, xl
+        gc.collect()
+        torch.cuda.empty_cache()
+        # both kernels at one launch of that run: the first chunk of bands
+        # (the longest rows K1 runs) and the first chunk of frames
+        opsX32 = main_path_operands(xl_np, LONG_FS, torch.float32, blocking=blkX)
+        hold_kernels(opsX32, f"float32 {LONG_SECONDS:g} s band chunk / frame chunk",
+                     "long_600s_band_chunk", "long_600s_frame_chunk")
+        del opsX32["raw"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("phase 14 long audio: ok")
+
+    if 15 in phases:
+        from world_tpu_torch import (batch_encode_decode, frame_sharded_cheaptrick)
+        from world_tpu_torch.spectral.cheaptrick import cheaptrick
+
+        # more rows than one K1 launch takes
+        n_cut = int(MANY_ROWS_SECONDS * fs)
+        step = (x16.shape[0] - n_cut) // MANY_ROWS
+        xm = np.stack([x16[i * step:i * step + n_cut] for i in range(MANY_ROWS)])
+        blkM = harvest_blocking(n_cut, fs, torch.float32, n_rows=MANY_ROWS)
+        launched_rows = []
+        real_k1 = edge_interp.event_engine_cuda
+
+        def recording_k1(signals, *a):
+            launched_rows.append(signals.shape[0])
+            return real_k1(signals, *a)
+
+        edge_interp.event_engine_cuda = recording_k1
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            out = batch_encode_decode(xm, fs)
+            torch.cuda.synchronize()
+            many_s = time.perf_counter() - t0
+            counts = path_launches("many_rows")
+            # the row split alone: every band in one chunk
+            from world_tpu_torch.f0 import harvest as H
+            xm_t = torch.tensor(xm, dtype=torch.float32, device="cuda")
+            tabs = H.harvest_tables(fs, F0_FLOOR, F0_CEIL, torch.float32, "cuda")
+            ym, afs_m = H.downsample(xm_t, fs, 8000, h=tabs["decimator_ir"])
+            tq_m = torch.as_tensor(np.arange(int(1000 * n_cut / fs + 1)) / 1000,
+                                   dtype=torch.float32, device="cuda")
+            raw_args = (ym, afs_m, tabs["band_bank"], tabs["band_bias"],
+                        H.boundary_f0_list(F0_FLOOR, F0_CEIL), tq_m, F0_FLOOR, F0_CEIL)
+            n_before = len(launched_rows)
+            raw_split = H.raw_band_candidates(*raw_args)
+            split_rows = launched_rows[n_before:]
+            raw_chunked = H.raw_band_candidates(*raw_args, blkM["band_chunk"])
+        finally:
+            edge_interp.event_engine_cuda = real_k1
+        n_path = counts["event_engine"]
+        # both kernels against their plain versions on one launch of that
+        # batch (a chunk of bands of all 110 rows; every row's frames), then
+        # K1 on the most rows a launch takes: every band asked for in one
+        # chunk, which the band stage cuts to 148 bands of 110 rows
+        opsM32 = main_path_operands(xm, fs, torch.float32, blocking=blkM)
+        hold_kernels(opsM32, f"float32 {MANY_ROWS} rows of {MANY_ROWS_SECONDS} s, "
+                     f"one band chunk / all frames", "many_rows_band_chunk",
+                     "many_rows_frames")
+        del opsM32["raw"]
+        opsR32 = main_path_operands(xm, fs, torch.float32)
+        hold_kernels(opsR32, f"float32 {MANY_ROWS} rows, the most bands one launch "
+                     f"takes", "many_rows_row_limit")
+        limit_rows = opsR32["rows"].shape[0]
+        if (opsM32["rows"].shape[0] != launched_rows[0]
+                or opsM32["seg"].shape[0] != MANY_ROWS * opsM32["tq"].shape[0]
+                or limit_rows != split_rows[0]):
+            raise AssertionError("phase 15: the operands held are not the launches'")
+        del opsR32
+        # every band in one chunk against chunks of bands: the bank's matrix
+        # products get other shapes, so float32 filtered signals differ in
+        # their last places, and with them a crossing here and there
+        live = (raw_split > 0) & (raw_chunked > 0)
+        one_only = int(((raw_split > 0) != (raw_chunked > 0)).sum())
+        close = float(torch.isclose(raw_split[live], raw_chunked[live],
+                                    rtol=DIO_F32_RAW_RTOL, atol=0).double().mean())
+        print(f"phase 15 {MANY_ROWS} utterances of {MANY_ROWS_SECONDS} s through "
+              f"batch_encode_decode float32 ({MANY_ROWS * 4 * blkM['n_bands']} event "
+              f"rows, band_chunk {blkM['band_chunk']}): K1 launched "
+              f"{n_path} times with {launched_rows[:n_path]} rows, K2 "
+              f"{counts['refine_dft']}; {many_s:.2f} s of wall time = "
+              f"{MANY_ROWS * MANY_ROWS_SECONDS / many_s:.1f} xRT [{card}]; voiced share "
+              f"{float(out['vuv'].mean()):.3f}; every band asked for in one chunk: "
+              f"K1 rows {split_rows}, the first held bitwise against the plain "
+              f"version above; raw "
+              f"candidates against the chunked call's: {one_only} of "
+              f"{raw_split.numel()} entries live in one only (share < "
+              f"{RAW_FLIPS_SHARE}), share of the {int(live.sum())} live in both "
+              f"within rtol {DIO_F32_RAW_RTOL} {close:.6f} (> {RAW_CLOSE_SHARE}), "
+              f"bitwise {torch.equal(raw_split, raw_chunked)}")
+        if not (n_path == blkM["k1_launches"] and n_path > 1 and len(split_rows) > 1
+                and max(launched_rows) <= MAX_K1_ROWS
+                and sum(launched_rows[:n_path]) == MANY_ROWS * 4 * blkM["n_bands"]
+                and sum(split_rows) == MANY_ROWS * 4 * blkM["n_bands"]
+                and torch.isfinite(out["y"]).all() and bool(out["vuv"].any())
+                and out["y"].shape[0] == MANY_ROWS
+                and one_only < RAW_FLIPS_SHARE * raw_split.numel()
+                and close > RAW_CLOSE_SHARE):
+            raise AssertionError("phase 15: the batch of many rows")
+        del out, raw_split, raw_chunked, ym, xm_t
+
+        # phase 5's batch over two shards on the one card
+        two = ["cuda:0", "cuda:0"]
+        blkS = harvest_blocking(x16.shape[0], fs, torch.float32, n_rows=2)
+        reset_counts()
+        sharded = batch_encode_decode(xs, fs, devices=two)
+        torch.cuda.synchronize()
+        counts = path_launches("two_shards")
+        whole = batch_encode_decode(xs, fs, devices="cuda:0")
+        # the analysis is held bitwise.  The waveform is not: the pulses are
+        # overlap-added by index_add_, whose atomic float adds have no fixed
+        # order on the card, so two runs of one call differ in their last
+        # places too (printed); it is held to SHARD_Y_REL relative L2
+        keys5 = ("f0", "vuv", "spectrogram", "band_aperiodicity", "_overflow")
+        rel_own, rerun_equal = 0.0, []
+        for k in range(2):
+            own = batch_encode_decode(xs[2 * k:2 * k + 2], fs, devices="cuda:0")
+            again = batch_encode_decode(xs[2 * k:2 * k + 2], fs, devices="cuda:0")
+            rerun_equal.append(torch.equal(own["y"], again["y"]))
+            for key in keys5:
+                if not torch.equal(sharded[key][2 * k:2 * k + 2], own[key]):
+                    raise AssertionError(f"phase 15: shard {k}'s {key} is not "
+                                         f"bitwise its one-device call's")
+            rel_own = max(rel_own, float(
+                ((sharded["y"][2 * k:2 * k + 2] - own["y"]).norm(dim=1)
+                 / own["y"].norm(dim=1)).max()))
+        if not rel_own < SHARD_Y_REL:
+            raise AssertionError(f"phase 15: a shard's waveform is {rel_own:.3g} "
+                                 f"relative L2 from its one-device call's")
+        flips = int((sharded["vuv"] != whole["vuv"]).sum())
+        df0 = float((sharded["f0"] - whole["f0"]).abs().max())
+        rel = float(((sharded["y"] - whole["y"]).norm(dim=1)
+                     / whole["y"].norm(dim=1)).max())
+        ddb = float((10 * torch.log10(sharded["spectrogram"] + 1e-12)
+                     - 10 * torch.log10(whole["spectrogram"] + 1e-12)).abs().max())
+        print(f"phase 15 batch of 4 over devices={two}: each shard's f0, vuv, "
+              f"envelope, band aperiodicity and flags bitwise its one-device call's "
+              f"on its own rows, its waveform within {rel_own:.3g} relative L2 (< "
+              f"{SHARD_Y_REL}; the same one-device call twice gives a bitwise equal "
+              f"waveform: {rerun_equal}); against the one-device batch of 4: "
+              f"vuv flips {flips} (0), max |df0| {df0:.3g} Hz (< 1e-3), waveform rel "
+              f"L2 {rel:.3g} (< 1e-2), envelope {ddb:.3g} dB (< 0.05); launches K1 "
+              f"{counts['event_engine']}, K2 {counts['refine_dft']}; on "
+              f"{sharded['y'].device}")
+        if not (flips == 0 and df0 < 1e-3 and rel < 1e-2 and ddb < 0.05
+                and counts == {"event_engine": 2 * blkS["k1_launches"],
+                               "refine_dft": 2 * blkS["k2_launches"]}):
+            raise AssertionError("phase 15: the sharded batch")
+        # both kernels at the geometry a shard of two rows launches them at
+        opsS32 = main_path_operands(xs[:2], fs, torch.float32, blocking=blkS)
+        hold_kernels(opsS32, "float32 one shard of 2 rows", "shard_of_2",
+                     "shard_of_2")
+        del opsS32["raw"]
+
+        # CheapTrick with its frames sharded, on the golden contour
+        x16_64 = torch.tensor(x16, dtype=torch.float64, device="cuda")
+        src_g = {"f0": g["f0"], "vuv": g["vuv"],
+                 "temporal_positions": g["temporal_positions"]}
+        ref_env = cheaptrick(x16_64, fs, src_g)["spectrogram"].T
+        n_fr = ref_env.shape[0]
+        for n_dev in (2, 4):
+            env, total = frame_sharded_cheaptrick(
+                x16_64, g["f0"], g["vuv"], g["temporal_positions"], fs,
+                ["cuda:0"] * n_dev)
+            pad = (-n_fr) % n_dev
+            padded = dict(f0=np.r_[np.where(g["vuv"] == 0, 500.0, g["f0"]),
+                                   np.full(pad, 500.0)],
+                          vuv=np.ones(n_fr + pad),
+                          temporal_positions=np.r_[g["temporal_positions"],
+                                                   np.zeros(pad)])
+            want_total = float(cheaptrick(x16_64, fs, padded)["spectrogram"].sum())
+            ddb = float((10 * torch.log10(env + 1e-7)
+                         - 10 * torch.log10(ref_env + 1e-7)).abs().max())
+            rel_tot = abs(float(total) - want_total) / want_total
+            print(f"phase 15 frame_sharded_cheaptrick float64 over {n_dev} shards "
+                  f"({n_fr} frames + {pad} padding frames): envelope within "
+                  f"{ddb:.3g} dB of cheaptrick (< 0.2 on a 1e-7 floor); total_energy "
+                  f"{float(total):.9g} against {want_total:.9g} with the padding "
+                  f"frames (relative {rel_tot:.3g}), {float(ref_env.sum()):.9g} "
+                  f"without")
+            if not (env.shape == ref_env.shape and ddb < 0.2 and rel_tot < 1e-9
+                    and (pad == 0 or float(total) > float(ref_env.sum()))):
+                raise AssertionError(f"phase 15: frame_sharded_cheaptrick over "
+                                     f"{n_dev} shards")
+        print("phase 15 rows and devices: ok")
+
     if 6 in phases:
         # K1's passes apart, first: the profiler is used again below
         passes = k1_pass_times([("harvest_8k", ops32), ("dio_x16", dio32)])
@@ -1209,7 +1800,60 @@ def main(phases=ALL_PHASES) -> int:
             for r, i in enumerate(buckets[L]):
                 xb[r, :utts[i].shape[0]] = utts[i]
             opsC32 = main_path_operands(xb, fs, torch.float32)
-        cases = [k1_case("harvest_8k", o), k1_case("dio_x16", dio32),
+        # the 60 s glide: the round trip and its launches
+        wl = World(device="cuda", dtype=torch.float32)
+        t_long = cuda_ms(lambda: wl.decode(wl.encode(
+            GLIDE_FS, x60, f0_method="harvest", is_requiem=True)), iters=2)
+        reset_counts()
+        wl.decode(wl.encode(GLIDE_FS, x60, f0_method="harvest", is_requiem=True))
+        print(f"phase 6 Harvest/Requiem round trip float32 on the "
+              f"{GLIDE_SECONDS:g} s glide at {GLIDE_FS} Hz [{card}]: {t_long:.1f} ms "
+              f"= {GLIDE_SECONDS / (t_long / 1e3):.2f} xRT; launches of one call, "
+              f"counted around it: K1 {edge_interp.counter.launches}, K2 "
+              f"{refine_dft.counter.launches}")
+        # what the blocking costs: harvest_core on the same 60 s, blocked as
+        # it chooses and with every bound off, taken one, other, other, one
+        from world_tpu_torch.f0 import harvest as H6
+
+        x60_t = torch.tensor(x60, dtype=torch.float32, device="cuda")[None]
+        caps6 = (F0_FLOOR, F0_CEIL, 5.0, H6.default_max_candidates(),
+                 H6.default_max_sections(x60.shape[0], GLIDE_FS))
+        tabs6 = H6.harvest_tables(GLIDE_FS, F0_FLOOR, F0_CEIL, torch.float32, "cuda")
+        core = lambda blocking: H6.harvest_core(    # noqa: E731
+            x60_t, GLIDE_FS, *caps6, tables=tabs6, blocking=blocking)
+        hb1 = cuda_ms(lambda: core(None), iters=2)
+        hu1 = cuda_ms(lambda: core({}), iters=2)
+        hu2 = cuda_ms(lambda: core({}), iters=2)
+        hb2 = cuda_ms(lambda: core(None), iters=2)
+        print(f"phase 6 harvest_core float32 on the {GLIDE_SECONDS:g} s glide "
+              f"[{card}]: blocked {hb1:.1f}/{hb2:.1f} ms, every bound off "
+              f"{hu1:.1f}/{hu2:.1f} ms, ratio {(hb1 + hb2) / (hu1 + hu2):.3f}")
+        del x60_t, tabs6
+        # the batch of 4 on one device and over two shards of the one card,
+        # taken one, two, two, one
+        two = ["cuda:0", "cuda:0"]
+        d1 = cuda_ms(lambda: batch_encode_decode(xs, fs, devices="cuda:0"), iters=2)
+        s1 = cuda_ms(lambda: batch_encode_decode(xs, fs, devices=two), iters=2)
+        s2 = cuda_ms(lambda: batch_encode_decode(xs, fs, devices=two), iters=2)
+        d2 = cuda_ms(lambda: batch_encode_decode(xs, fs, devices="cuda:0"), iters=2)
+        print(f"phase 6 batch_encode_decode of 4 float32 [{card}]: one device "
+              f"{d1:.2f}/{d2:.2f} ms, devices={two} {s1:.2f}/{s2:.2f} ms, ratio "
+              f"{(s1 + s2) / (d1 + d2):.3f} (two worker threads on one card: the "
+              f"split, not an overlap of two cards)")
+        cases = [k1_case("long_60s_band_chunk", opsL32, 1),
+                 k2_case("long_60s_frames", opsL32, 1),
+                 k1_case("long_60s_dio", dioL32, 2)]
+        # the geometries phases 14 and 15 held, where those phases ran
+        if opsX32 is not None:
+            cases += [k1_case("long_600s_band_chunk", opsX32, 1),
+                      k2_case("long_600s_frame_chunk", opsX32, 1)]
+        if opsM32 is not None:
+            cases += [k1_case("many_rows_band_chunk", opsM32, 1),
+                      k2_case("many_rows_frames", opsM32, 1),
+                      k1_case("shard_of_2", opsS32, 2),
+                      k2_case("shard_of_2", opsS32, 2)]
+        cases += [
+                 k1_case("harvest_8k", o), k1_case("dio_x16", dio32),
                  k1_case("harvest_8k_batch4", b4, 2),
                  k1_case("bucket_1s", opsC32), k1_case("harvest_fft2048", opsB32, 2),
                  k1_case("dio_fft2048", dioB32),

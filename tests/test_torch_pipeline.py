@@ -221,39 +221,37 @@ def _roadmap_queue1_items():
 
 
 def test_unported_paths_name_their_roadmap_item():
-    """Every path the port does not have yet raises NotImplementedError
-    naming an open ROADMAP Queue 1 item whose title matches the message:
-    what is left is a batch over more than one device.  The facade itself
-    has no unported method (set_pitch raises bare, as the reference's and
+    """No path of world_tpu is left unported: ROADMAP.md's Queue 1 has no
+    open item (every numbered item is struck), the batch functions take a
+    list of devices, and nothing in the package raises NotImplementedError
+    but the facade's set_pitch (which raises bare, as the reference's and
     world_tpu's do)."""
     import inspect
-    import re
 
     import world_tpu_torch
     from world_tpu_torch import (World, batch_encode_decode,
                                  batch_encode_decode_ragged)
 
     items = _roadmap_queue1_items()
-    x = np.zeros((2, 1600))
-    calls = [lambda: batch_encode_decode(x, 16000, devices=["cpu", "cpu"]),
-             lambda: batch_encode_decode_ragged(list(x), 16000,
-                                                devices=("cpu", "cpu", "cpu"))]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-            call()
-        m = re.search(r"item (\d+) \(([^)]*)\)", str(err.value))
-        assert m, str(err.value)
-        title = items[int(m.group(1))]
-        word = max(re.findall(r"[A-Za-z]+", m.group(2)), key=len)
-        assert not title.startswith("~~"), (str(err.value), title)
-        assert word.lower() in title.lower(), (str(err.value), title)
+    assert {18, 19} <= set(items)
+    still_open = {n: t for n, t in items.items() if not t.startswith("~~")}
+    assert not still_open, still_open
 
-    # nothing else in the package raises NotImplementedError, bar set_pitch
+    rng = np.random.RandomState(0)
+    x = 0.1 * rng.randn(2, 1600)
+    caps = dict(max_pulses=256, max_candidates=8, max_sections=16)
+    out = batch_encode_decode(x, 16000, devices=["cpu", "cpu"], **caps)
+    assert out["y"].shape[0] == 2 and torch.isfinite(out["y"]).all()
+    rows = batch_encode_decode_ragged(list(x), 16000,
+                                      devices=("cpu", "cpu", "cpu"))
+    assert len(rows) == 2 and all(np.isfinite(r["y"]).all() for r in rows)
+
+    # nothing in the package raises NotImplementedError, bar set_pitch
     pkg = Path(world_tpu_torch.__file__).parent
     raising = {p.relative_to(pkg).as_posix(): n
                for p in pkg.rglob("*.py")
                if (n := p.read_text().count("raise NotImplementedError"))}
-    assert raising == {"api.py": 1, "parallel/batch.py": 1}, raising
+    assert raising == {"api.py": 1}, raising
     assert "raise NotImplementedError" in inspect.getsource(World.set_pitch)
     with pytest.raises(NotImplementedError):
         World(device="cpu").set_pitch({}, 0.1, 100.0)

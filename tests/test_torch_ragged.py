@@ -34,10 +34,10 @@ def _chirps():
             chirp(2900, 170.0, 0.9)]
 
 
-def _ragged(xs, **kw):
+def _ragged(xs, devices="cpu", **kw):
     from world_tpu_torch import batch_encode_decode_ragged
 
-    return batch_encode_decode_ragged(xs, FS, devices="cpu", frame_period=FP,
+    return batch_encode_decode_ragged(xs, FS, devices=devices, frame_period=FP,
                                       bucket_quantum_s=QUANTUM, **kw)
 
 
@@ -187,13 +187,30 @@ def test_batch_overflow_warns_end_to_end():
         batch_encode_decode(xs, FS, devices="cpu", check_capacity=False, **caps)
 
 
-def test_more_than_one_device_names_the_roadmap_item(xs):
-    from world_tpu_torch import batch_encode_decode, batch_encode_decode_ragged
+def test_more_than_one_device_names_the_roadmap_item(xs, mixed):
+    """More than one device was ROADMAP Queue 1's item 19; it is ported.
+    The ragged batch over two devices gives each row within the row bars
+    above of the one-device batch (a bucket's rows now run in two calls of
+    one row each, and float32 sums depend on the batch's shape), and each
+    device's shard of a rectangular batch is bitwise the one-device call on
+    the same rows."""
+    from world_tpu_torch import batch_encode_decode
 
-    for fn in (batch_encode_decode_ragged,
-               lambda x, fs, **k: batch_encode_decode(np.zeros((2, 3072)), fs, **k)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.*item 19"):
-            fn(xs, FS, devices=["cpu", "cpu"])
+    rows = _ragged(xs, devices=["cpu", "cpu"])
+    for row, one in zip(rows, mixed):
+        np.testing.assert_array_equal(row["vuv"], one["vuv"])
+        assert np.abs(row["f0"] - one["f0"]).max() < 1e-3
+        assert (np.linalg.norm(row["y"] - one["y"])
+                / max(np.linalg.norm(one["y"]), 1e-30)) < 1e-2
+        assert np.abs(10 * np.log10(row["spectrogram"] + 1e-12)
+                      - 10 * np.log10(one["spectrogram"] + 1e-12)).max() < 0.05
+    xb = np.zeros((2, 3072), np.float32)
+    xb[0, :2500], xb[1, :2900] = xs[0], xs[2]
+    two = batch_encode_decode(xb, FS, devices=["cpu", "cpu"], frame_period=FP)
+    for r in range(2):
+        one = batch_encode_decode(xb[r:r + 1], FS, devices="cpu", frame_period=FP)
+        for k in KEYS + ("_overflow",):
+            assert torch.equal(two[k][r:r + 1], one[k]), (r, k)
 
 
 def test_batch_without_cuda_needs_the_cpu_by_name(xs):

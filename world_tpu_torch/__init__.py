@@ -9,9 +9,11 @@ from .api import World
 from .parallel.batch import (DioClassic, HarvestRequiem, SwipeF0,
                              batch_encode_decode, batch_encode_decode_ragged,
                              encode_classic_one, encode_decode_classic_one,
-                             encode_decode_one)
+                             encode_decode_one, frame_sharded_cheaptrick,
+                             make_devices)
 
 __all__ = ["World", "HarvestRequiem", "DioClassic", "SwipeF0",
            "encode_decode_one", "encode_classic_one",
            "encode_decode_classic_one", "batch_encode_decode",
-           "batch_encode_decode_ragged"]
+           "batch_encode_decode_ragged", "frame_sharded_cheaptrick",
+           "make_devices"]

@@ -18,6 +18,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -44,11 +45,36 @@ PTXAS_REPORT = "-Xptxas=-v"
 
 class LaunchCounter:
     """Launches of one CUDA kernel: its wrapper adds one where it launches
-    the kernel, and nowhere else (the plain version does not count)."""
+    the kernel, and nowhere else (the plain version does not count).
+    Wrappers on several threads (one per device) count into the same
+    ``launches``."""
 
     def __init__(self):
         self.launches = 0
+        self._lock = threading.Lock()
 
+    def add(self):
+        with self._lock:
+            self.launches += 1
+
+
+# What one analysis stage may hold alive in temporaries before it blocks its
+# work (bands, output samples, frames, voiced sections): 1 GiB, 1/80 of an
+# 80 GB card's memory, so that a stage's leftovers, the allocator's cache
+# and the stages after it stay far inside the card at any length.  The
+# stages size their blocks from the shapes they are given, batch included.
+STAGE_BYTES_BUDGET = 2 ** 30
+
+
+def chunk_size(unit_bytes: int, count: int, budget: int = STAGE_BYTES_BUDGET):
+    """How a stage whose temporaries hold ``unit_bytes`` for each of ``count``
+    independent units (bands, samples, frames, sections) blocks its work:
+    None where the whole fits ``budget``, else the units of one chunk.  A
+    chunk gets half of the budget: the stage's result, which grows while
+    the chunks run, and the chunks' own leftovers have the other half."""
+    if unit_bytes * count <= budget:
+        return None
+    return max(1, budget // 2 // unit_bytes)
 
 # float64's machine epsilon: the reference's guards add or floor at it, and
 # the port keeps it in every working type (float32's own eps, 1.2e-7, lies
@@ -127,12 +153,21 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libworld_kernels_{digest.hexdigest()[:16]}.so"
 
 
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=1)
 def kernel_library():
     """Build (once per source content) and load the kernel library.
 
     Returns ``(lib, build_seconds)``; build_seconds is 0.0 when an up-to-date
-    library was already on disk."""
+    library was already on disk.  Threads that ask together (one per device)
+    wait for the one that builds."""
+    with _BUILD_LOCK:
+        return _build_and_load()
+
+
+def _build_and_load():
     BUILD_DIR.mkdir(exist_ok=True)
     lib_path = _library_path()
     seconds = 0.0

@@ -32,6 +32,20 @@ def frame_slabs(x: torch.Tensor, fs: float, frame_period_ms, n_frames: int,
     return slab.reshape(-1, slab.shape[-1])
 
 
+def frame_times(frame_period_ms, n_frames: int,
+                temporal_positions: torch.Tensor, device) -> torch.Tensor:
+    """The (n_frames,) frame times in float64, whatever the working type:
+    the exact grid q * frame_period_ms / 1000 when it is uniform, else
+    ``temporal_positions``.  D4C centres its windows at floor(t fs + 0.501)
+    and shifts them by t fs - round(t fs); in float32 t fs carries 0.06-0.125
+    sample at a minute of audio, which measured 1.54 dB of band aperiodicity
+    on a 60 s glide (0.10 dB at 4.6 s)."""
+    if frame_period_ms is not None:
+        return torch.as_tensor(np.arange(n_frames) * frame_period_ms / 1000,
+                               device=device)
+    return temporal_positions.double()
+
+
 def d4c_fft_size(fs: int) -> int:
     return int(2 ** np.ceil(np.log2(4 * fs / 47 + 1)))
 
@@ -97,7 +111,8 @@ def love_train_vuv(seg: torch.Tensor, fs: int, f0: torch.Tensor,
 def _centroid_from_slab(slab, margin: int, fs: float, f0, t_base, t_shifted,
                         max_half: int, fft_size: int):
     """get_centroid for one shifted window set (d4c.py:132-153):
-    Re(conj(S) U) with S = FFT(x), U = FFT(x * t)."""
+    Re(conj(S) U) with S = FFT(x), U = FFT(x * t).  t_base and t_shifted are
+    float64 frame times (:func:`frame_times`)."""
     dtype, dev = slab.dtype, slab.device
     w0 = 2 * max_half + 1
     center_b = torch.floor(t_base * fs + 0.501) + 1.0

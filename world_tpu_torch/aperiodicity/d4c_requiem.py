@@ -4,7 +4,7 @@ import torch
 
 from .._backend import sdiv
 from ..frames import host, like, uniform_frame_period_ms
-from .common import (band_window, coarse_ap_frames, frame_slabs,
+from .common import (band_window, coarse_ap_frames, frame_slabs, frame_times,
                      love_train_fft_size, love_train_vuv)
 
 
@@ -32,7 +32,8 @@ def d4c_requiem_core(x: torch.Tensor, fs: int, f0_seq: torch.Tensor,
     max_half = int(2.0 * fs / f0_low_limit + 0.5)
     fft_lt = love_train_fft_size(fs)
     f0 = f0_seq.reshape(-1)
-    t = temporal_positions.to(dtype).repeat(B)
+    t = frame_times(frame_period_ms, n_frames, temporal_positions,
+                    x.device).repeat(B)
 
     seg_lt = frame_slabs(x, fs, frame_period_ms, n_frames, max_half_lt,
                          temporal_positions)

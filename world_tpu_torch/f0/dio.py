@@ -7,6 +7,11 @@ taps), the four event types of every band go to K1 as rows, and the
 contour fixer runs batched.  Its two sequential passes, FixStep3 and
 FixStep4, extend every voiced section at once: the Python loop runs over
 extension steps, not over frames.
+
+Long audio and large batches: the band stage takes ``band_chunk`` and
+``block`` as Harvest's does (:func:`..dsp.fir.band_blocking` sizes them in
+:func:`dio_core`), so that the bank's unfolded columns, its output and the
+event rows stay inside a budget of bytes.
 """
 import math
 
@@ -15,11 +20,11 @@ import torch
 import torch.nn.functional as F
 
 from .._backend import F64_EPS
-from ..dsp.fir import band_filtered
+from ..dsp.fir import band_blocking, band_filtered
 from ..dsp.iir import decimate_world, world_decimator_impulse
 from ..dsp.rounding import round_half_even_decimals
 from ..dsp.windows import np_hanning_matlab, np_nuttall
-from .events import four_event_stats
+from .events import four_event_stats, launch_pieces
 
 
 # ---------------------------------------------------------------------------
@@ -78,23 +83,43 @@ def candidates_and_stability(y: torch.Tensor, actual_fs: float, f0_floor: float,
                              f0_ceil: float, boundary_f0s: np.ndarray,
                              temporal_positions: torch.Tensor,
                              frame_period: float, bank: torch.Tensor,
-                             offsets: torch.Tensor):
+                             offsets: torch.Tensor, band_chunk: int = None,
+                             block: int = None):
     """Per-band f0 candidates and their stability, each (B, n_bands, F), for
-    decimated rows y (B, ny)."""
+    decimated rows y (B, ny).  ``band_chunk``: filter and run K1 on that
+    many bands at a time (one launch per chunk, and never more event rows
+    than a launch takes: :func:`.events.launch_pieces`); ``block``: the FIR
+    bank's block of output samples."""
     B, y_len = y.shape
     n_bands = bank.shape[0]
-    filtered = band_filtered(y, bank, offsets).reshape(B * n_bands, y_len)
+    row_piece, chunk = launch_pieces(B, n_bands, band_chunk)
+    if row_piece < B:
+        done = [candidates_and_stability(y[r0:r0 + row_piece], actual_fs,
+                                         f0_floor, f0_ceil, boundary_f0s,
+                                         temporal_positions, frame_period,
+                                         bank, offsets, band_chunk, block)
+                for r0 in range(0, B, row_piece)]
+        return (torch.cat([d[0] for d in done]), torch.cat([d[1] for d in done]))
     stride = actual_fs * frame_period / 1000.0
-    f0c, dev, _ = four_event_stats(filtered, actual_fs, temporal_positions,
-                                   stride)
-    f0c = f0c.reshape(B, n_bands, -1)
-    dev = dev.reshape(B, n_bands, -1)
-    bf = torch.as_tensor(boundary_f0s, dtype=y.dtype, device=y.device)[:, None]
-    bad = (f0c > bf) | (f0c < bf / 2) | (f0c > f0_ceil) | (f0c < f0_floor)
-    f0c = torch.where(bad, torch.zeros_like(f0c), f0c)
-    dev = torch.where(f0c == 0, torch.full_like(dev, 100000.0), dev)
-    stability = torch.exp(-(dev / torch.clamp(f0c, min=0.0000001)))
-    return f0c, stability
+    bf_all = torch.as_tensor(boundary_f0s, dtype=y.dtype, device=y.device)
+    f0s, stabs = [], []
+    for b0 in range(0, n_bands, chunk):
+        filtered = band_filtered(y, bank[b0:b0 + chunk], offsets[b0:b0 + chunk],
+                                 block)
+        f0c, dev, _ = four_event_stats(filtered.reshape(-1, y_len), actual_fs,
+                                       temporal_positions, stride)
+        del filtered
+        f0c = f0c.reshape(B, -1, f0c.shape[-1])
+        dev = dev.reshape(f0c.shape)
+        bf = bf_all[b0:b0 + chunk, None]
+        bad = (f0c > bf) | (f0c < bf / 2) | (f0c > f0_ceil) | (f0c < f0_floor)
+        f0c = torch.where(bad, torch.zeros_like(f0c), f0c)
+        dev = torch.where(f0c == 0, torch.full_like(dev, 100000.0), dev)
+        f0s.append(f0c)
+        stabs.append(torch.exp(-(dev / torch.clamp(f0c, min=0.0000001))))
+    if len(f0s) == 1:
+        return f0s[0], stabs[0]
+    return torch.cat(f0s, dim=1), torch.cat(stabs, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -287,10 +312,12 @@ def frame_positions(signal_length: int, fs: int, frame_period: float) -> np.ndar
 def dio_stages(y: torch.Tensor, actual_fs: float, f0_floor: float,
                f0_ceil: float, channels_in_octave: int, frame_period: float,
                allowed_range: float, n_frames: int, bank: torch.Tensor = None,
-               offsets: torch.Tensor = None) -> dict:
+               offsets: torch.Tensor = None, band_chunk: int = None,
+               block: int = None) -> dict:
     """DIO after the decimation, for decimated rows y (B, ny) at actual_fs:
     candidates, their stability-sorted order and the fixed contour.  Every
-    intermediate is returned, under the JAX package's names."""
+    intermediate is returned, under the JAX package's names.  ``band_chunk``
+    and ``block``: :func:`candidates_and_stability`'s."""
     dtype, dev = y.dtype, y.device
     bfl = boundary_f0_list(f0_floor, f0_ceil, channels_in_octave)
     if bank is None:
@@ -300,7 +327,8 @@ def dio_stages(y: torch.Tensor, actual_fs: float, f0_floor: float,
     tp = torch.as_tensor(np.arange(n_frames) * frame_period / 1000, dtype=dtype,
                          device=dev)
     raw_f0, raw_stab = candidates_and_stability(
-        y, actual_fs, f0_floor, f0_ceil, bfl, tp, frame_period, bank, offsets)
+        y, actual_fs, f0_floor, f0_ceil, bfl, tp, frame_period, bank, offsets,
+        band_chunk, block)
     order = torch.argsort(-raw_stab, dim=1, stable=True)
     f0_candidates = torch.gather(raw_f0, 1, order)
     f0_scores = torch.gather(raw_stab, 1, order)
@@ -325,9 +353,12 @@ def dio_core(x: torch.Tensor, fs: int, f0_floor: float = 71.0,
                             target_fs, x.dtype, x.device)
     y = decimate_world(x, int(fs / target_fs), h=tables["dio_decimator_ir"])
     n_frames = frame_positions(x.shape[1], fs, frame_period).shape[0]
+    bank = tables["dio_bank"]
+    band_chunk, block = band_blocking(y.shape[0], bank.shape[0], y.shape[1],
+                                      bank.shape[1], y.element_size())
     return dio_stages(y, float(target_fs), f0_floor, f0_ceil, channels_in_octave,
-                      frame_period, allowed_range, n_frames,
-                      tables["dio_bank"], tables["dio_offsets"])
+                      frame_period, allowed_range, n_frames, bank,
+                      tables["dio_offsets"], band_chunk, block)
 
 
 def dio(x: torch.Tensor, fs: int, f0_floor: float = 71, f0_ceil: float = 800,

@@ -15,6 +15,20 @@ from .._backend import scalar, sdiv
 
 N_PREV = 4
 N_NEXT = 5
+# rows of one K1 launch: a CUDA grid's second extent ends at 65,535
+MAX_EVENT_ROWS = 65535
+
+
+def launch_pieces(n_rows: int, n_bands: int, band_chunk: int = None):
+    """(row_piece, chunk): how the band stages of Harvest and DIO cut
+    ``n_rows`` signals times ``n_bands`` bands into K1 launches of at most
+    MAX_EVENT_ROWS event rows (four per band signal).  ``chunk`` bands at a
+    time: ``band_chunk`` (every band when None), fewer where the rows ask
+    for it; ``row_piece`` is n_rows unless one band of every row is already
+    too much."""
+    row_piece = max(1, min(n_rows, MAX_EVENT_ROWS // 4))
+    chunk = n_bands if band_chunk is None else max(1, int(band_chunk))
+    return row_piece, max(1, min(chunk, MAX_EVENT_ROWS // (4 * row_piece)))
 
 
 def stride_fraction(stride_samples: float):

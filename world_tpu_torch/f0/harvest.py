@@ -6,12 +6,23 @@ detection and compaction, the refinement (K2, batch folded into frames) and
 the per-frame contour stages run batched; FixStep3's chains and merge and the
 section smoothing run per utterance.
 
-Left out on purpose, since they change no result:
-  * the f0 bucketing of the refinement (``_bucket_caps`` /
-    ``_refine_bucketed``): an MXU flop saver; the CUDA kernel gets the same
-    saving by looping only over each candidate's own window;
-  * the long-audio memory bounds (``band_chunk``, ``frame_chunk``, the
-    blocked FIR past 65,536 samples): bands and frames are independent.
+Long audio and large batches run in bounded memory.  Each stage whose
+temporaries grow with batch x duration takes the JAX package's argument for
+its blocking (``block``: output samples of the FIR bank, ``band_chunk``:
+bands of the candidate stage, ``frame_chunk``: frames of the refinement and
+of RemoveUnreliableCandidates, ``section_chunk``: voiced sections of
+FixStep3 and of the smoothing), None for one block.  :func:`harvest_core`
+sizes them from the bytes the stage would hold alive (:func:`stage_blocking`)
+against ``STAGE_BYTES_BUDGET``.  Bands, frames and sections are independent,
+so a blocked stage computes what the whole one computes: bitwise from the
+refinement on, and up to the summation order of the FIR bank's matrix
+products before it.  The last chunk of bands, frames or sections is simply
+shorter (the JAX package pads to equal chunks for ``lax.map``).
+
+Left out on purpose, since it changes no result: the f0 bucketing of the
+refinement (``_bucket_caps`` / ``_refine_bucketed``), an MXU flop saver; the
+CUDA kernel gets the same saving by looping only over each candidate's own
+window.
 """
 import math
 import warnings
@@ -20,15 +31,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._backend import F64_EPS, rdiv
-from ..dsp.fir import band_filtered
+from .._backend import F64_EPS, STAGE_BYTES_BUDGET, chunk_size, rdiv
+from ..dsp.fir import band_blocking, band_filtered
 from ..dsp.iir import decimate_matlab, decimator_impulse
 from ..dsp.rounding import matlab_round_half
 from ..dsp.scanops import compact_rows
 from ..dsp.windows import np_nuttall
 from ..frames import uniform_centered_slabs
 from ..ops.refine_dft import dft_table, refine_full
-from .events import four_event_interp
+from .events import four_event_interp, launch_pieces
 
 C2_SLOTS = 48           # refinement slots per frame after compaction
 
@@ -145,18 +156,39 @@ def downsample(x: torch.Tensor, fs: int, target_fs: int = 8000,
 def raw_band_candidates(y: torch.Tensor, actual_fs: float, bank: torch.Tensor,
                         bias: torch.Tensor, boundary_f0s: np.ndarray,
                         temporal_positions: torch.Tensor, f0_floor: float,
-                        f0_ceil: float) -> torch.Tensor:
-    """CalculateCandidates: (B, n_bands, n_frames) per-band f0 means."""
+                        f0_ceil: float, band_chunk: int = None,
+                        block: int = None) -> torch.Tensor:
+    """CalculateCandidates: (B, n_bands, n_frames) per-band f0 means.
+
+    ``band_chunk``: filter, run K1 and range-check that many bands at a
+    time, keeping only each chunk's (B, bands, n_frames) result; K1 then
+    launches once per chunk.  A chunk never holds more event rows than one
+    K1 launch takes, whatever B is (:func:`.events.launch_pieces`).
+    ``block``: the FIR bank's block of output samples
+    (:func:`..dsp.fir.band_filtered`)."""
     B, y_len = y.shape
     n_bands = bank.shape[0]
-    filtered = band_filtered(y, bank, bias)
-    f0c, _ = four_event_interp(filtered.reshape(B * n_bands, y_len), actual_fs,
-                               temporal_positions, actual_fs * 0.001)
-    f0c = f0c.reshape(B, n_bands, -1)
-    bf = torch.as_tensor(boundary_f0s, dtype=y.dtype, device=y.device)[:, None]
-    bad = ((f0c > bf * 1.1) | (f0c < bf * 0.9) | (f0c > f0_ceil)
-           | (f0c < f0_floor))
-    return torch.where(bad, torch.zeros_like(f0c), f0c)
+    row_piece, chunk = launch_pieces(B, n_bands, band_chunk)
+    if row_piece < B:
+        return torch.cat([
+            raw_band_candidates(y[r0:r0 + row_piece], actual_fs, bank, bias,
+                                boundary_f0s, temporal_positions, f0_floor,
+                                f0_ceil, band_chunk, block)
+            for r0 in range(0, B, row_piece)])
+    bf_all = torch.as_tensor(boundary_f0s, dtype=y.dtype, device=y.device)
+    out = []
+    for b0 in range(0, n_bands, chunk):
+        filtered = band_filtered(y, bank[b0:b0 + chunk], bias[b0:b0 + chunk],
+                                 block)
+        f0c, _ = four_event_interp(filtered.reshape(-1, y_len), actual_fs,
+                                   temporal_positions, actual_fs * 0.001)
+        del filtered
+        f0c = f0c.reshape(B, -1, f0c.shape[-1])
+        bf = bf_all[b0:b0 + chunk, None]
+        bad = ((f0c > bf * 1.1) | (f0c < bf * 0.9) | (f0c > f0_ceil)
+               | (f0c < f0_floor))
+        out.append(torch.where(bad, torch.zeros_like(f0c), f0c))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
 
 
 def detect_candidates(raw: torch.Tensor, max_candidates: int,
@@ -234,14 +266,16 @@ def refinement_phase(actual_fs: float, max_half: int,
 
 def refinement_inputs(y: torch.Tensor, actual_fs: float,
                       temporal_positions: torch.Tensor, cands: torch.Tensor,
-                      max_half: int):
+                      max_half: int, first: int = 0):
     """K2's operands for (B, C, F) candidates on rows y (B, ny), with the
     batch folded into the frame axis: seg and phase (B*F, W), f0 (C, B*F).
-    Every frame's segment is shared by its candidates."""
+    Every frame's segment is shared by its candidates.  The F frames are
+    those from frame ``first`` of the 1 ms grid, at ``temporal_positions``
+    (F,)."""
     B, C, Fr = cands.shape
     W = 2 * max_half + 1
     seg = uniform_centered_slabs(y, actual_fs, actual_fs * 0.001 / actual_fs,
-                                 Fr, max_half, offset=-1)          # (B, F, W)
+                                 Fr, max_half, offset=-1, first=first)  # (B, F, W)
     phase = refinement_phase(actual_fs, max_half, temporal_positions)
     f0 = torch.clamp(cands, min=1e-12)
     return (seg.reshape(B * Fr, W).contiguous(),
@@ -252,29 +286,47 @@ def refinement_inputs(y: torch.Tensor, actual_fs: float,
 def refine_candidates(y: torch.Tensor, actual_fs: float,
                       temporal_positions: torch.Tensor, cands: torch.Tensor,
                       f0_floor: float, f0_ceil: float, max_half: int,
-                      table=None):
+                      table=None, frame_chunk: int = None):
     """RefineCandidates for (B, C, F) candidates: (refined, score) (B, C, F).
-    ``table``: the refinement DFT (cos, sin) table (computed when None)."""
+    ``table``: the refinement DFT (cos, sin) table (computed when None).
+    ``frame_chunk``: cut the segments and run K2 that many frames at a time
+    (one launch per chunk); every (candidate, frame) pair is computed as in
+    the whole call."""
     B, C, Fr = cands.shape
-    seg, phase, f0 = refinement_inputs(y, actual_fs, temporal_positions, cands,
-                                       max_half)
     _, S = refinement_geometry(actual_fs, f0_floor)
-    ref, score = refine_full(seg, phase, f0, actual_fs, max_half, S, f0_floor,
-                             f0_ceil, table)
-    unfold = lambda t: t.reshape(C, B, Fr).permute(1, 0, 2)   # noqa: E731
-    return unfold(ref), unfold(score)
+    chunk = Fr if frame_chunk is None else max(1, int(frame_chunk))
+    refs, scores = [], []
+    for q0 in range(0, Fr, chunk):
+        q1 = min(q0 + chunk, Fr)
+        seg, phase, f0 = refinement_inputs(y, actual_fs,
+                                           temporal_positions[q0:q1],
+                                           cands[..., q0:q1], max_half, q0)
+        ref, score = refine_full(seg, phase, f0, actual_fs, max_half, S,
+                                 f0_floor, f0_ceil, table)
+        del seg, phase, f0
+        refs.append(ref.reshape(C, B, q1 - q0).permute(1, 0, 2))
+        scores.append(score.reshape(C, B, q1 - q0).permute(1, 0, 2))
+    if len(refs) == 1:
+        return refs[0], scores[0]
+    return torch.cat(refs, dim=-1), torch.cat(scores, dim=-1)
 
 
 def remove_unreliable(cands: torch.Tensor, scores: torch.Tensor,
-                      threshold: float = 0.05):
-    """RemoveUnreliableCandidates on (B, C, F)."""
+                      threshold: float = 0.05, frame_chunk: int = None):
+    """RemoveUnreliableCandidates on (B, C, F).  ``frame_chunk``: compare
+    that many frames at a time with their two neighbours, so that the
+    (B, C, C, frames) errors exist a chunk at a time."""
     Fr = cands.shape[-1]
     ref = torch.clamp(cands, min=torch.finfo(cands.dtype).tiny)
+    chunk = Fr if frame_chunk is None else max(1, int(frame_chunk))
 
     def min_err_vs(other):
-        e = (torch.abs(ref[..., :, None, :] - other[..., None, :, :])
-             / ref[..., :, None, :])
-        return torch.clamp(e.amin(dim=-2), max=1.0)
+        parts = []
+        for q0 in range(0, Fr, chunk):
+            r = ref[..., :, None, q0:q0 + chunk]
+            e = torch.abs(r - other[..., None, :, q0:q0 + chunk]) / r
+            parts.append(torch.clamp(e.amin(dim=-2), max=1.0))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
     nxt = F.pad(cands[..., 1:], (0, 1))
     prv = F.pad(cands[..., :-1], (1, 0))
@@ -394,10 +446,36 @@ def _place_chain(row, pos, val, act):
     row[s_idx, pos[k_idx, s_idx]] = val[k_idx, s_idx]
 
 
+def _merge_section(f0_m, cur_st, cur_ed, row, st2, ed2, i, sscore, zero):
+    """One step of MergeF0 (harvest.py:442-486): merge the extended section
+    ``row`` over [st2, ed2] into the contour ``f0_m``, whose last section
+    covers [cur_st, cur_ed] (all None before the first section).  Returns
+    the new (f0_m, cur_st, cur_ed)."""
+    if f0_m is None:
+        return row, st2, ed2
+    disjoint = (st2 - cur_ed) > 0
+    f0_dis = torch.where((i >= st2) & (i <= ed2), row, f0_m)
+    contained = (cur_st <= st2) & (cur_ed >= ed2)
+    ov = (i >= st2) & (i <= cur_ed)
+    s1 = torch.where(ov, sscore(f0_m), zero).sum()
+    s2 = torch.where(ov, sscore(row), zero).sum()
+    take2_from = torch.where(s1 > s2, cur_ed, st2)
+    f0_sub = torch.where((i >= take2_from) & (i <= ed2), row, f0_m)
+    f0_ovl = torch.where(contained, f0_m, f0_sub)
+    new_ed_ovl = torch.where(contained, cur_ed, ed2)
+    return (torch.where(disjoint, f0_dis, f0_ovl),
+            torch.where(disjoint, st2, cur_st),
+            torch.where(disjoint, ed2, new_ed_ovl))
+
+
 def fix_step3(f0_step2: torch.Tensor, cands: torch.Tensor, scores: torch.Tensor,
-              allowed_range: float = 0.18, max_sections: int = 256):
+              allowed_range: float = 0.18, max_sections: int = 256,
+              section_chunk: int = None):
     """Extend + merge voiced sections (harvest.py:357-383) for one utterance:
-    f0_step2 (n,), cands/scores (C, n)."""
+    f0_step2 (n,), cands/scores (C, n).  ``section_chunk``: hold the
+    (sections, n) extended contour rows of that many sections at a time,
+    first to decide which sections are kept, then again for the kept ones in
+    merge order."""
     n = f0_step2.shape[0]
     dev, dtype = f0_step2.device, f0_step2.dtype
     starts, ends = sections(f0_step2, max_sections)
@@ -412,13 +490,25 @@ def fix_step3(f0_step2: torch.Tensor, cands: torch.Tensor, scores: torch.Tensor,
         allowed_range, threshold1 + 1)
     i = torch.arange(n, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
-    rows = torch.where((i >= starts[:, None]) & (i <= ends[:, None]),
-                       f0_step2[None, :], zero)
-    _place_chain(rows, pos_f, val_f, act_f)
-    _place_chain(rows, pos_b, val_b, act_b)
-    in_rng = (i >= r0[:, None]) & (i <= r1[:, None])
-    mean_f0 = (torch.where(in_rng, rows, zero).sum(dim=1)
-               / in_rng.sum(dim=1))
+    n_sec = starts.shape[0]
+    chunk = n_sec if section_chunk is None else max(1, int(section_chunk))
+
+    def section_rows(sel):
+        """The extended contour rows (len(sel), n) of sections ``sel``."""
+        rows = torch.where((i >= starts[sel, None]) & (i <= ends[sel, None]),
+                           f0_step2[None, :], zero)
+        _place_chain(rows, pos_f[:, sel], val_f[:, sel], act_f[:, sel])
+        _place_chain(rows, pos_b[:, sel], val_b[:, sel], act_b[:, sel])
+        return rows
+
+    means = []
+    for lo in range(0, n_sec, chunk):
+        sel = torch.arange(lo, min(lo + chunk, n_sec), device=dev)
+        rows = section_rows(sel)
+        in_rng = (i >= r0[sel, None]) & (i <= r1[sel, None])
+        means.append(torch.where(in_rng, rows, zero).sum(dim=1)
+                     / in_rng.sum(dim=1))
+    mean_f0 = means[0] if len(means) == 1 else torch.cat(means)
     keeps = rdiv(threshold2, mean_f0) < (r1 - r0)
 
     # MergeF0 (harvest.py:442-486): kept sections in order of extended start
@@ -433,23 +523,17 @@ def fix_step3(f0_step2: torch.Tensor, cands: torch.Tensor, scores: torch.Tensor,
         eq = cands == contour[None, :]
         return torch.where(eq, scores, zero).amax(dim=0)
 
-    first = order[0]
-    f0_m, cur_st, cur_ed = rows[first], r0[first], r1[first]
-    for s in order[1:]:
-        row, st2, ed2 = rows[s], r0[s], r1[s]
-        disjoint = (st2 - cur_ed) > 0
-        f0_dis = torch.where((i >= st2) & (i <= ed2), row, f0_m)
-        contained = (cur_st <= st2) & (cur_ed >= ed2)
-        ov = (i >= st2) & (i <= cur_ed)
-        s1 = torch.where(ov, sscore(f0_m), zero).sum()
-        s2 = torch.where(ov, sscore(row), zero).sum()
-        take2_from = torch.where(s1 > s2, cur_ed, st2)
-        f0_sub = torch.where((i >= take2_from) & (i <= ed2), row, f0_m)
-        f0_ovl = torch.where(contained, f0_m, f0_sub)
-        new_ed_ovl = torch.where(contained, cur_ed, ed2)
-        f0_m = torch.where(disjoint, f0_dis, f0_ovl)
-        cur_st = torch.where(disjoint, st2, cur_st)
-        cur_ed = torch.where(disjoint, ed2, new_ed_ovl)
+    whole = chunk >= n_sec       # the one chunk's rows are still there
+    f0_m = cur_st = cur_ed = None
+    for lo in range(0, n_kept, chunk):
+        sel = order[lo:lo + chunk]
+        if not whole:
+            rows = section_rows(sel)
+        for k in range(sel.shape[0]):
+            s = sel[k]
+            f0_m, cur_st, cur_ed = _merge_section(
+                f0_m, cur_st, cur_ed, rows[s] if whole else rows[k], r0[s],
+                r1[s], i, sscore, zero)
     return f0_m
 
 
@@ -472,11 +556,14 @@ def fix_step4(f0_step3: torch.Tensor, threshold: int = 9):
 
 
 def smooth_f0(f0: torch.Tensor, max_sections: int = 256,
-              kernel: torch.Tensor = None) -> torch.Tensor:
+              kernel: torch.Tensor = None,
+              section_chunk: int = None) -> torch.Tensor:
     """Per-voiced-section zero-phase biquad smoothing (harvest.py:533-559) as
     one batched FFT convolution of the constant-extended section rows; f0
     (n,).  ``kernel``: the (2R+1,) float64 zero-phase kernel (computed when
-    None)."""
+    None).  ``section_chunk``: convolve that many section rows at a time;
+    sections are disjoint, so each sample gets at most one nonzero term and
+    the sum over chunks is the single sum."""
     R = _SMOOTH_RADIUS
     dtype, dev = f0.dtype, f0.device
     padded = F.pad(f0, (R, R))
@@ -493,14 +580,17 @@ def smooth_f0(f0: torch.Tensor, max_sections: int = 256,
     cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
     gf = torch.fft.rfft(kern).to(cdtype)
     i = torch.arange(m, device=dev)
-    st, ed = starts[:, None], ends[:, None]
-    rows = torch.where(i < st, padded[starts][:, None],
-                       torch.where(i > ed, padded[ends][:, None],
-                                   padded[None, :]))
-    out = torch.fft.irfft(torch.fft.rfft(rows, N) * gf, N)[:, :m]
-    in_sec = (i >= st) & (i <= ed)
-    smoothed = torch.where(in_sec, out, torch.zeros((), dtype=dtype,
-                                                      device=dev)).sum(dim=0)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    n_sec = starts.shape[0]
+    chunk = n_sec if section_chunk is None else max(1, int(section_chunk))
+    smoothed = None
+    for lo in range(0, n_sec, chunk):
+        st, ed = starts[lo:lo + chunk, None], ends[lo:lo + chunk, None]
+        rows = torch.where(i < st, padded[st], torch.where(i > ed, padded[ed],
+                                                           padded[None, :]))
+        out = torch.fft.irfft(torch.fft.rfft(rows, N) * gf, N)[:, :m]
+        part = torch.where((i >= st) & (i <= ed), out, zero).sum(dim=0)
+        smoothed = part if smoothed is None else smoothed + part
     return smoothed[R:m - R]
 
 
@@ -538,11 +628,64 @@ def _n_sections(f: torch.Tensor) -> torch.Tensor:
     return (v & ~F.pad(v[..., :-1], (1, 0))).sum(dim=-1)
 
 
+def stage_units(n_rows: int, n_frames: int, max_half: int, n_slots: int,
+                max_sections: int, itemsize: int) -> dict:
+    """(bytes per unit, units) of the temporaries of each stage after the
+    bands, by :func:`stage_blocking`'s key:
+
+      * ``refine_chunk`` (refine_candidates' ``frame_chunk``): per frame, the
+        segment and phase windows of W = 2 max_half + 1 items for every row,
+        the phase's three temporaries and the int64 segment index;
+      * ``unreliable_chunk`` (remove_unreliable's ``frame_chunk``): per
+        frame, three (slots, slots) error temporaries for every row;
+      * ``step3_chunk`` (fix_step3's ``section_chunk``): per section, one
+        contour row of n_frames items, the row masked to its range and two
+        boolean masks.  Sized for ``max_sections``; the stage holds no more
+        rows than it finds sections;
+      * ``smooth_chunk`` (smooth_f0's ``section_chunk``): per section, the
+        padded row, its convolution of N items and two half spectra of
+        N / 2 + 1 complex items, N the power of two past n_frames + 1200,
+        and two boolean masks."""
+    W = 2 * max_half + 1
+    m = n_frames + 2 * _SMOOTH_RADIUS
+    N = int(2 ** np.ceil(np.log2(m + 2 * _SMOOTH_RADIUS)))
+    return {"refine_chunk": (W * (8 + 3 * itemsize + 2 * n_rows * itemsize),
+                             n_frames),
+            "unreliable_chunk": (3 * n_rows * n_slots * n_slots * itemsize,
+                                 n_frames),
+            "step3_chunk": (n_frames * (2 * itemsize + 2), max_sections),
+            "smooth_chunk": (itemsize * (m + N + 2 * (N + 2)) + 2 * m,
+                             max_sections)}
+
+
+def stage_blocking(n_rows: int, y_len: int, n_frames: int, n_bands: int,
+                   n_taps: int, max_half: int, n_slots: int, max_sections: int,
+                   itemsize: int, budget: int = STAGE_BYTES_BUDGET) -> dict:
+    """The blocking of every Harvest stage for ``n_rows`` decimated signals
+    of ``y_len`` samples and ``n_frames`` 1 ms frames: each argument's
+    value, None where the stage's temporaries fit ``budget`` bytes whole,
+    else the chunk that fits half of it (:func:`.._backend.chunk_size` says
+    why half).  ``band_chunk`` and ``block`` are
+    :func:`..dsp.fir.band_blocking`'s, the others follow
+    :func:`stage_units`."""
+    band_chunk, block = band_blocking(n_rows, n_bands, y_len, n_taps, itemsize,
+                                      budget)
+    out = {"band_chunk": band_chunk, "block": block}
+    units = stage_units(n_rows, n_frames, max_half, n_slots, max_sections,
+                        itemsize)
+    for name, (unit_bytes, count) in units.items():
+        out[name] = chunk_size(unit_bytes, count, budget)
+    return out
+
+
 def harvest_core(x: torch.Tensor, fs: int, f0_floor: float, f0_ceil: float,
                  frame_period: float, max_candidates: int, max_sections: int,
-                 debug_outputs: bool = False, tables: dict = None) -> dict:
+                 debug_outputs: bool = False, tables: dict = None,
+                 blocking: dict = None) -> dict:
     """Harvest on rows x (B, n).  ``tables`` is :func:`harvest_tables`'
-    dict (built when None)."""
+    dict (built when None).  ``blocking``: the stages' blocking, a dict with
+    :func:`stage_blocking`'s keys (a missing key is None, one block);
+    sized by :func:`stage_blocking` when None."""
     B, signal_length = x.shape
     dtype, dev = x.dtype, x.device
     num_samples = int(1000 * signal_length / fs + 1)
@@ -553,16 +696,21 @@ def harvest_core(x: torch.Tensor, fs: int, f0_floor: float, f0_ceil: float,
     if tables is None:
         tables = harvest_tables(fs, f0_floor, f0_ceil, dtype, dev)
     y, actual_fs = downsample(x, fs, 8000, h=tables["decimator_ir"])
+    max_half, _ = refinement_geometry(actual_fs, f0_floor)
+    C = 7 * max_candidates             # overlap_candidates' rows
+    C2 = min(C2_SLOTS, C)
+    if blocking is None:
+        blocking = stage_blocking(B, y.shape[1], num_samples, len(bfl),
+                                  tables["band_bank"].shape[1], max_half, C2,
+                                  max_sections, x.element_size())
+    blk = blocking.get
     raw = raw_band_candidates(y, actual_fs, tables["band_bank"],
                               tables["band_bias"], bfl, basic_tp,
-                              f0_floor, f0_ceil)
+                              f0_floor, f0_ceil, blk("band_chunk"), blk("block"))
     cands0, _ = detect_candidates(raw, max_candidates)
     cands1 = overlap_candidates(cands0)
-    max_half, _ = refinement_geometry(actual_fs, f0_floor)
 
     # compact the sparse candidate grid to C2 slots per frame, in order
-    C = cands1.shape[-2]
-    C2 = min(C2_SLOTS, C)
     nzT = (cands1 != 0).transpose(-1, -2)                  # (B, F, C)
     compactT, rankT = compact_rows(cands1.transpose(-1, -2), nzT, C2)
     compact = compactT.transpose(-1, -2).contiguous()      # (B, C2, F)
@@ -570,18 +718,22 @@ def harvest_core(x: torch.Tensor, fs: int, f0_floor: float, f0_ceil: float,
     ref_c, score_c = refine_candidates(y, actual_fs, basic_tp, compact,
                                        f0_floor, f0_ceil, max_half,
                                        (tables["refine_cos"],
-                                        tables["refine_sin"]))
-    cands3, scores3 = remove_unreliable(ref_c, score_c)
+                                        tables["refine_sin"]),
+                                       blk("refine_chunk"))
+    cands3, scores3 = remove_unreliable(ref_c, score_c,
+                                        frame_chunk=blk("unreliable_chunk"))
 
     f0_base = search_f0_base(cands3, scores3)
     f0_step1 = fix_step1(f0_base, 0.008)
     f0_step2 = fix_step2(f0_step1, 6)
     f0_step3 = torch.stack([fix_step3(f0_step2[b], cands3[b], scores3[b], 0.18,
-                                      max_sections) for b in range(B)])
+                                      max_sections, blk("step3_chunk"))
+                            for b in range(B)])
     f0_step4 = fix_step4(f0_step3, 9)
     vuv_full = (f0_step4 != 0).to(dtype)
     smoothed = torch.stack([smooth_f0(f0_step4[b], max_sections,
-                                      tables["smooth_kernel"])
+                                      tables["smooth_kernel"],
+                                      blk("smooth_chunk"))
                             for b in range(B)])
     section_overflow = torch.maximum(_n_sections(f0_step2),
                                      _n_sections(f0_step4)) > max_sections
@@ -626,9 +778,11 @@ def harvest_core(x: torch.Tensor, fs: int, f0_floor: float, f0_ceil: float,
 def harvest(x: torch.Tensor, fs: int, f0_floor: float = 71,
             f0_ceil: float = 800, frame_period: float = 5,
             max_candidates: int = None, max_sections: int = None,
-            check_capacity: bool = True, debug_outputs: bool = False) -> dict:
+            check_capacity: bool = True, debug_outputs: bool = False,
+            blocking: dict = None) -> dict:
     """Harvest F0 estimation of one utterance x (n,) or a batch (B, n).
-    Outputs keep the input's batch shape."""
+    Outputs keep the input's batch shape.  ``blocking``: see
+    :func:`harvest_core`; ``{}`` runs every stage in one block."""
     single = x.dim() == 1
     xb = x[None] if single else x
     if max_candidates is None:
@@ -637,7 +791,8 @@ def harvest(x: torch.Tensor, fs: int, f0_floor: float = 71,
         max_sections = default_max_sections(xb.shape[1], fs)
     out = harvest_core(xb, int(fs), float(f0_floor), float(f0_ceil),
                        float(frame_period), int(max_candidates),
-                       int(max_sections), debug_outputs=debug_outputs)
+                       int(max_sections), debug_outputs=debug_outputs,
+                       blocking=blocking)
     if check_capacity:
         warn_capacity(bool(out["_refine_overflow"].any()),
                       bool(out["_section_overflow"].any()), max_sections)

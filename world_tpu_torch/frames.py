@@ -13,12 +13,14 @@ import torch
 from ._backend import rdiv, sdiv
 
 
-def frame_centers(fs: float, frame_period_s: float, n_frames: int) -> np.ndarray:
-    """1-based anchor sample of each frame, floor(t_q*fs + 0.501) + 1, in
-    exact integer arithmetic on the rational grid t_q*fs = q*pnum/qden."""
+def frame_centers(fs: float, frame_period_s: float, n_frames: int,
+                  first: int = 0) -> np.ndarray:
+    """1-based anchor sample of each of the ``n_frames`` frames from frame
+    ``first``, floor(t_q*fs + 0.501) + 1, in exact integer arithmetic on the
+    rational grid t_q*fs = q*pnum/qden."""
     frac = Fraction(fs * frame_period_s).limit_denominator(1000)
     pnum, qden = frac.numerator, frac.denominator
-    q = np.arange(n_frames, dtype=np.int64)
+    q = np.arange(first, first + n_frames, dtype=np.int64)
     return (1000 * q * pnum + 501 * qden) // (1000 * qden) + 1
 
 
@@ -60,12 +62,13 @@ def gather_trunc_1based(x: torch.Tensor, index_1based: torch.Tensor) -> torch.Te
 
 def uniform_centered_slabs(x: torch.Tensor, fs: float, frame_period_s: float,
                            n_frames: int, max_half: int,
-                           offset: int = 0) -> torch.Tensor:
-    """(..., n_frames, 2*max_half+1) slabs: slab[..., q, j] =
+                           offset: int = 0, first: int = 0) -> torch.Tensor:
+    """(..., n_frames, 2*max_half+1) slabs of the frames from frame
+    ``first``: slab[..., q, j] =
     x[..., clip(center_q - 1 - max_half + offset + j, 0, n-1)] for rows x
     (..., n)."""
     n = x.shape[-1]
-    centers = frame_centers(fs, frame_period_s, n_frames)
+    centers = frame_centers(fs, frame_period_s, n_frames, first)
     idx = (centers[:, None] - 1 - max_half + offset
            + np.arange(2 * max_half + 1)[None, :])
     idx = torch.as_tensor(np.clip(idx, 0, n - 1), device=x.device)
@@ -91,7 +94,12 @@ def apply_adaptive_window(segment: torch.Tensor, fs: float, f0: torch.Tensor,
                           normalize_window: bool = False):
     """F0-adaptive windowing and weighted-mean removal of segments
     (F, 2*max_half+1) aligned to base_index = -max_half..max_half.
-    Returns (waveform, mask, window)."""
+    Returns (waveform, mask, window).
+
+    The sub-sample shift is the distance from the frame time to the nearest
+    sample, ``t fs - round(t fs)``, taken in ``temporal_position``'s own
+    type: D4C passes its frame times in float64, since at a minute of audio
+    a float32 ``t fs`` is a tenth of a sample off."""
     dtype, dev = segment.dtype, segment.device
     f0 = f0[:, None]
     t = temporal_position[:, None]
@@ -102,7 +110,7 @@ def apply_adaptive_window(segment: torch.Tensor, fs: float, f0: torch.Tensor,
     zero = torch.zeros((), dtype=dtype, device=dev)
     segment = segment * mask
     if sub_sample_shift:
-        frac = sdiv(t * fs - torch.floor(t * fs + 0.5), fs)
+        frac = sdiv(t * fs - torch.floor(t * fs + 0.5), fs).to(dtype)
         time_axis = sdiv(sdiv(base_index, fs), half_length) + frac
     else:
         time_axis = sdiv(sdiv(base_index, fs), half_length).expand(mask.shape)

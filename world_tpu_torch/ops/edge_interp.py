@@ -80,11 +80,11 @@ def event_engine_cuda(signals: torch.Tensor, fs: float, t_frames: torch.Tensor,
     except KernelGeometryError as e:
         raise ValueError(
             f"event engine: the geometry rows {S} x samples {n}, Q {Q} frames "
-            f"at stride {pnum}/{qden} is too large: a call holds at most "
-            f"65,535 rows, and its second pass keeps a block's crossings and "
-            f"the row's tile offsets in shared memory; split the rows or the "
-            f"signal ({e})") from e
-    counter.launches += 1
+            f"at stride {pnum}/{qden} is too large: a launch holds at most "
+            f"65,535 rows (f0.events splits the band signals it is given), "
+            f"and its second pass keeps a block's crossings and the row's "
+            f"tile offsets in shared memory ({e})") from e
+    counter.add()
     return out, m
 
 

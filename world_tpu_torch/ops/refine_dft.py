@@ -146,7 +146,7 @@ def refine_cuda(seg, phase, f0, actual_fs: float, max_half: int, S: int,
             f"{dtype} needs more shared memory a block than the device "
             f"allows: the DFT table (S) and the window (W = 2 max_half + 1) "
             f"grow as f0_floor falls ({e})") from e
-    counter.launches += 1
+    counter.add()
     return out[..., 0], out[..., 1]
 
 

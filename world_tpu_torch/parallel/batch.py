@@ -6,9 +6,19 @@ batch axis of equal-length utterances:
   * DIO -> StoneMask -> CheapTrick -> D4C -> classic synthesis
     (``_encode_classic_one``, ``_encode_decode_classic_one``);
   * the first of these for a batch (``batch_encode_decode``) and for a
-    ragged batch in length buckets (``batch_encode_decode_ragged``).
+    ragged batch in length buckets (``batch_encode_decode_ragged``), on one
+    device or with the rows sharded over a list of devices;
+  * CheapTrick with its frames sharded over a list of devices
+    (``frame_sharded_cheaptrick``).
+
+Several devices are driven by one process, one worker thread per device
+(what a ``jax.sharding.Mesh`` in one controller is): the round trips are
+bound by the host's launches, so threads are what lets the devices overlap.
+Utterances and frames are independent, so the shards exchange nothing; the
+results are gathered on the first device.
 """
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -293,50 +303,97 @@ def default_batch_max_pulses(n_samples: int, fs: int) -> int:
     return int(2 ** np.ceil(np.log2(n_samples / fs * 1000 + 8)))
 
 
-def _one_device(devices) -> torch.device:
-    """The device of ``devices``: None (the GPU), one device, or a sequence
-    of one."""
-    if devices is None or isinstance(devices, (str, torch.device)):
-        return resolve_device(devices)
-    devices = list(devices)
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"a batch over {len(devices)} devices is not ported yet: "
-            f"ROADMAP.md, Queue 1, item 19 (Multi-GPU)")
-    return resolve_device(devices[0])
+def make_devices(devices=None) -> list:
+    """The list of devices a sharded call takes (the counterpart of
+    world_tpu.parallel.batch.make_mesh): every CUDA device when None, else
+    the given device or devices.  A device may be named more than once; each
+    mention gets a shard and a worker thread."""
+    if devices is None:
+        resolve_device(None)                  # raises without a GPU
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if isinstance(devices, (str, torch.device)):
+        return [torch.device(devices)]
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("an empty list of devices")
+    return devices
+
+
+def _device_list(devices) -> list:
+    """``devices`` of a batch call as a list: None is the GPU, one device."""
+    return [resolve_device(None)] if devices is None else make_devices(devices)
+
+
+def _on_devices(fn, devices: list, shards: list) -> list:
+    """[fn(device, shard)] for each device and its shard, one worker thread
+    per device, each under its own device (the current stream a kernel is
+    launched on belongs to the thread and the device).  A worker's exception
+    is raised here."""
+    def work(dev, shard):
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                return fn(dev, shard)
+        return fn(dev, shard)
+
+    if len(devices) == 1:
+        return [work(devices[0], shards[0])]
+    with ThreadPoolExecutor(max_workers=len(devices)) as pool:
+        return list(pool.map(work, devices, shards))
 
 
 def batch_encode_decode(xs, fs: int, devices=None, frame_period: int = 5,
                         seed: int = 0, max_pulses: int = None,
                         max_candidates: int = None, max_sections: int = None,
                         check_capacity: bool = True, dtype=torch.float32,
-                        tables: dict = None) -> dict:
+                        tables=None) -> dict:
     """The Harvest/Requiem round trip of a (batch, n_samples) utterance
-    batch xs (a tensor or an array) as one rectangular call on one device
-    (``devices``: None for the GPU, or the device; more than one is not
-    ported).  Returns :func:`encode_decode_one`'s dict of tensors.
+    batch xs (a tensor or an array), as one rectangular call on each device.
+    ``devices``: None for the GPU, a device, or a list of devices
+    (:func:`make_devices`): each device gets a contiguous block of rows (the
+    rows are padded with zero rows to a multiple of the number of devices,
+    and the padding is stripped again) and runs the one-device program on
+    it, so a shard's rows are those of a one-device call on the same rows.
+    Returns :func:`encode_decode_one`'s dict of tensors, on the first
+    device.
 
     The static table caps default to the sizes the single-utterance API
     uses.  ``check_capacity`` reads the per-utterance overflow flags once
     after the batch and raises the RuntimeWarning of ``harvest()`` and
     ``decode()``.  ``tables``: :func:`harvest_requiem_tables`' dict for fs
-    and ``seed`` (built when None)."""
-    dev = _one_device(devices)
+    and ``seed``, or a list of them, one per device (built when None)."""
+    devs = _device_list(devices)
     fs = int(fs)
-    xs = (xs.to(dtype=dtype, device=dev) if isinstance(xs, torch.Tensor)
-          else torch.tensor(np.asarray(xs), dtype=dtype, device=dev))
+    xs = (xs.to(dtype=dtype) if isinstance(xs, torch.Tensor)
+          else torch.tensor(np.asarray(xs), dtype=dtype))
     if tables is None:
-        tables = harvest_requiem_tables(fs, seed, dtype, dev)
+        tables = [harvest_requiem_tables(fs, seed, dtype, d) for d in devs]
+    elif isinstance(tables, dict):
+        tables = [tables]
+    if len(tables) != len(devs):
+        raise ValueError(f"{len(tables)} table dicts for {len(devs)} devices")
     if max_pulses is None:
         max_pulses = default_batch_max_pulses(xs.shape[1], fs)
     if max_candidates is None:
         max_candidates = default_max_candidates(F0_FLOOR, F0_CEIL)
     if max_sections is None:
         max_sections = default_max_sections(xs.shape[1], fs)
-    out = encode_decode_one(xs, tables["pulse_seed"], tables["noise_seed"], fs,
-                            int(frame_period), int(max_pulses),
-                            int(max_candidates), int(max_sections),
-                            tables={k: tables[k] for k in HARVEST_TABLE_KEYS})
+    n_rows = xs.shape[0]
+    per_dev = -(-n_rows // len(devs))
+    if per_dev * len(devs) != n_rows:
+        xs = torch.cat([xs, xs.new_zeros((per_dev * len(devs) - n_rows,
+                                          xs.shape[1]))])
+
+    def shard(dev, k):
+        t = tables[k]
+        return encode_decode_one(
+            xs[k * per_dev:(k + 1) * per_dev].to(dev), t["pulse_seed"],
+            t["noise_seed"], fs, int(frame_period), int(max_pulses),
+            int(max_candidates), int(max_sections),
+            tables={name: t[name] for name in HARVEST_TABLE_KEYS})
+
+    outs = _on_devices(shard, devs, list(range(len(devs))))
+    out = outs[0] if len(outs) == 1 else {
+        k: torch.cat([o[k].to(devs[0]) for o in outs])[:n_rows] for k in outs[0]}
     if check_capacity:
         _warn_batch_capacity(out["_overflow"].cpu().numpy(), max_sections,
                              max_pulses)
@@ -363,9 +420,10 @@ def batch_encode_decode_ragged(xs, fs: int, devices=None, frame_period: int = 5,
 
     Utterances are grouped into length buckets (:func:`bucket_lengths`),
     each bucket runs through :func:`batch_encode_decode` as one rectangular
-    call, in ascending length, and the outputs are stripped back to each
-    utterance's own frames and samples.  The static tables are built once
-    and shared by all buckets.
+    call (sharded over ``devices`` when they are several), in ascending
+    length, and the outputs are stripped back to each utterance's own frames
+    and samples.  The static tables are built once per device and shared by
+    all buckets.
 
     Each utterance is analysed as if zero-padded to its bucket's length; the
     zero tail analyses as unvoiced.  Within a bucket a row takes the
@@ -373,19 +431,19 @@ def batch_encode_decode_ragged(xs, fs: int, devices=None, frame_period: int = 5,
 
     Returns a list of per-utterance dicts of numpy arrays (f0, vuv,
     spectrogram, band_aperiodicity, y), in input order."""
-    dev = _one_device(devices)
+    devs = _device_list(devices)
     fs, fp = int(fs), int(frame_period)
     np_dtype = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
     xs = [np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x,
                      np_dtype) for x in xs]
     lens = [int(x.shape[0]) for x in xs]
-    tables = harvest_requiem_tables(fs, seed, dtype, dev)
+    tables = [harvest_requiem_tables(fs, seed, dtype, d) for d in devs]
     results = [None] * len(xs)
     for L, idxs in bucket_lengths(lens, fs, bucket_quantum_s).items():
         xb = np.zeros((len(idxs), L), np_dtype)
         for r, i in enumerate(idxs):
             xb[r, :lens[i]] = xs[i]
-        out = batch_encode_decode(xb, fs, devices=dev, frame_period=fp,
+        out = batch_encode_decode(xb, fs, devices=devs, frame_period=fp,
                                   seed=seed, check_capacity=check_capacity,
                                   dtype=dtype, tables=tables)
         out = {k: out[k].cpu().numpy()
@@ -410,6 +468,43 @@ def _warn_batch_capacity(overflow, max_sections, max_pulses):
             f"max_pulses={max_pulses}) saturated for utterance(s) "
             f"{idx.tolist()}; results for those rows may degrade — "
             f"raise the caps", RuntimeWarning, stacklevel=3)
+
+
+def frame_sharded_cheaptrick(x, f0, vuv, temporal_positions, fs: int, devices,
+                             fft_size: int = None):
+    """CheapTrick of one utterance x (n,) with its frames sharded over
+    ``devices`` (:func:`make_devices`): the frames are padded to a multiple
+    of the number of devices with frames of f0 500 Hz at time 0, each device
+    analyses its block of frames against its own copy of the signal, and
+    the envelope is gathered on the first device.
+
+    Returns (envelope (n_frames, fft_size // 2 + 1), total_energy): the sum
+    of the envelope over every shard, the padding frames included, as the
+    JAX function's ``psum`` over its shards gives it."""
+    devs = make_devices(devices)
+    fs = int(fs)
+    if fft_size is None:
+        fft_size = default_fft_size(fs)
+    x = torch.as_tensor(x)
+    f0, vuv, tp = (torch.as_tensor(a).to(x.dtype)
+                   for a in (f0, vuv, temporal_positions))
+    n_frames = f0.shape[0]
+    per_dev = -(-n_frames // len(devs))
+    pad = per_dev * len(devs) - n_frames
+    f0_p = torch.cat([torch.where(vuv == 0, torch.full_like(f0, 500.0), f0),
+                      f0.new_full((pad,), 500.0)])
+    tp_p = torch.cat([tp, tp.new_zeros(pad)])
+
+    def shard(dev, k):
+        rows = slice(k * per_dev, (k + 1) * per_dev)
+        env, _, _ = cheaptrick_core(x.to(dev)[None], fs, f0_p[rows].to(dev)[None],
+                                    int(fft_size), -0.15, None, tp_p[rows].to(dev))
+        return env[0], env.sum()
+
+    outs = _on_devices(shard, devs, list(range(len(devs))))
+    env = torch.cat([e.to(devs[0]) for e, _ in outs])[:n_frames]
+    total_energy = torch.stack([s.to(devs[0]) for _, s in outs]).sum()
+    return env, total_energy
 
 
 class _TableModule(nn.Module):

@@ -33,7 +33,9 @@ def pulse_locations(temporal_positions, f0, vuv, fs: float, time_axis,
     zero = torch.zeros((), dtype=f0_i.dtype, device=f0_i.device)
     f0_i = torch.where(vuv_i, f0_i, zero)
     f0_i = torch.where(f0_i == 0, torch.full_like(f0_i, 500.0), f0_i)
-    total_phase = torch.cumsum(sdiv(2 * math.pi * f0_i, fs), dim=0)
+    # the running phase in float64 in every working type: over a minute it
+    # passes 60,000 rad, where a float32 sum places pulses samples off
+    total_phase = torch.cumsum(sdiv(2 * math.pi * f0_i, fs).double(), dim=0)
     wrap = torch.remainder(total_phase, 2 * math.pi)
     mask = torch.abs(torch.diff(wrap)) > math.pi
     at = mask.nonzero()[:max_pulses, 0]
