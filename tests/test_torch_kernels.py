@@ -531,3 +531,60 @@ def test_no_fallback_when_the_kernels_cannot_be_built(cuda, tmp_path, monkeypatc
             batch_encode_decode_ragged([x], 16000, devices=cuda)
     finally:
         _backend.kernel_library.cache_clear()
+
+
+def _harvest22_operands(device, dtype):
+    """K1's event rows (608 x 34,134, Q 4,644) and K2's operands
+    (48, 4,644, 313, 1,024) on 22.05 kHz speech: the stages of
+    ``harvest_decimated`` from tests/golden/harvest.npz's decimated signal."""
+    from pathlib import Path
+
+    from world_tpu_torch.dsp.scanops import compact_rows
+    from world_tpu_torch.f0 import harvest as H
+    from world_tpu_torch.f0.events import event_rows
+
+    g = np.load(Path(__file__).parent / "golden" / "harvest.npz")
+    fs = int(g["fs"])
+    afs = H.decimation(fs)[1]
+    tables = H.harvest_tables(fs, 71.0, 800.0, dtype, device)
+    y = torch.tensor(np.asarray(g["y_decimated"]), dtype=dtype, device=device)[None]
+    tq = torch.as_tensor(np.arange(4644) / 1000, dtype=dtype, device=device)
+    filtered = H.band_filtered(y, tables["band_bank"], tables["band_bias"])
+    k1 = (event_rows(filtered.reshape(-1, y.shape[1])), afs, tq, afs * 0.001)
+    raw = H.raw_band_candidates(y, afs, tables["band_bank"], tables["band_bias"],
+                                H.boundary_f0_list(71.0, 800.0), tq, 71.0, 800.0)
+    cands = H.overlap_candidates(H.detect_candidates(raw, H.default_max_candidates())[0])
+    compact, _ = compact_rows(cands.transpose(-1, -2), cands.transpose(-1, -2) != 0,
+                              H.C2_SLOTS)
+    max_half, S = H.refinement_geometry(afs, 71.0)
+    seg, phase, f0 = H.refinement_inputs(y, afs, tq, compact.transpose(-1, -2),
+                                         max_half)
+    return k1, (seg, phase, f0, afs, max_half, S)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_cuda_on_22khz_speech(cuda, dtype):
+    """K1 bitwise and K2 within its bars on harvest.npz's 22.05 kHz speech."""
+    from world_tpu_torch.f0.events import batched_interval_interp
+    from world_tpu_torch.ops.edge_interp import event_engine_cuda
+    from world_tpu_torch.ops.refine_dft import refine_cuda, refine_plain
+
+    k1, k2 = _harvest22_operands(cuda, dtype)
+    assert tuple(k1[0].shape) == (608, 34134)
+    assert (k2[2].shape[0], *k2[0].shape, k2[5]) == (48, 4644, 313, 1024)
+    got_f0, got_m = event_engine_cuda(*k1)
+    want_f0, want_m = batched_interval_interp(*k1)
+    assert torch.equal(got_m, want_m)
+    assert torch.equal(torch.nan_to_num(got_f0), torch.nan_to_num(want_f0))
+    got = refine_cuda(*k2, 71.0, 800.0)
+    want = refine_plain(*k2, 71.0, 800.0)
+    if dtype == torch.float64:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-12)
+        return
+    both = (got[0] > 0) & (want[0] > 0)
+    rel = ((got[0] - want[0]).abs() / want[0].clamp(min=1e-30))[both]
+    assert float(rel.max()) <= 1e-4
+    flips = int(((got[0] > 0) != (want[0] > 0)).sum())
+    assert flips <= 1e-3 * int((k2[2] > 1e-6).sum())

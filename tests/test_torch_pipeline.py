@@ -210,19 +210,8 @@ def test_x16_golden_bars_float64():
     assert np.all(np.isfinite(y)) and 0 < np.abs(y).max() <= 1.0
 
 
-def _roadmap_queue1_items():
-    """{item number: its title line} of ROADMAP.md's Queue 1."""
-    import re
-
-    text = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
-    queue = text.split("### Queue 1")[1].split("### Queue 2")[0]
-    return {int(m.group(1)): m.group(2)
-            for m in re.finditer(r"^(\d+)\. (.*)$", queue, re.M)}
-
-
 def test_unported_paths_name_their_roadmap_item():
-    """No path of world_tpu is left unported: ROADMAP.md's Queue 1 has no
-    open item (every numbered item is struck), the batch functions take a
+    """No path of world_tpu is left unported: the batch functions take a
     list of devices, and nothing in the package raises NotImplementedError
     but the facade's set_pitch (which raises bare, as the reference's and
     world_tpu's do)."""
@@ -231,11 +220,6 @@ def test_unported_paths_name_their_roadmap_item():
     import world_tpu_torch
     from world_tpu_torch import (World, batch_encode_decode,
                                  batch_encode_decode_ragged)
-
-    items = _roadmap_queue1_items()
-    assert {18, 19} <= set(items)
-    still_open = {n: t for n, t in items.items() if not t.startswith("~~")}
-    assert not still_open, still_open
 
     rng = np.random.RandomState(0)
     x = 0.1 * rng.randn(2, 1600)

@@ -187,9 +187,8 @@ def test_batch_overflow_warns_end_to_end():
         batch_encode_decode(xs, FS, devices="cpu", check_capacity=False, **caps)
 
 
-def test_more_than_one_device_names_the_roadmap_item(xs, mixed):
-    """More than one device was ROADMAP Queue 1's item 19; it is ported.
-    The ragged batch over two devices gives each row within the row bars
+def test_two_devices_give_the_one_device_rows(xs, mixed):
+    """The ragged batch over two devices gives each row within the row bars
     above of the one-device batch (a bucket's rows now run in two calls of
     one row each, and float32 sums depend on the batch's shape), and each
     device's shard of a rectangular batch is bitwise the one-device call on

@@ -686,23 +686,37 @@ def harvest_core(x: torch.Tensor, fs: int, f0_floor: float, f0_ceil: float,
     dict (built when None).  ``blocking``: the stages' blocking, a dict with
     :func:`stage_blocking`'s keys (a missing key is None, one block);
     sized by :func:`stage_blocking` when None."""
-    B, signal_length = x.shape
-    dtype, dev = x.dtype, x.device
+    if tables is None:
+        tables = harvest_tables(fs, f0_floor, f0_ceil, x.dtype, x.device)
+    y, actual_fs = downsample(x, fs, 8000, h=tables["decimator_ir"])
+    return harvest_decimated(y, actual_fs, x.shape[1], fs, f0_floor, f0_ceil,
+                             frame_period, max_candidates, max_sections,
+                             debug_outputs, tables, blocking)
+
+
+def harvest_decimated(y: torch.Tensor, actual_fs: float, signal_length: int,
+                      fs: int, f0_floor: float, f0_ceil: float,
+                      frame_period: float, max_candidates: int,
+                      max_sections: int, debug_outputs: bool = False,
+                      tables: dict = None, blocking: dict = None) -> dict:
+    """Harvest from the downsampler on: rows y (B, ny) of
+    :func:`downsample` at ``actual_fs``, from signals of ``signal_length``
+    samples at ``fs``.  Arguments and outputs as :func:`harvest_core`'s."""
+    B = y.shape[0]
+    dtype, dev = y.dtype, y.device
     num_samples = int(1000 * signal_length / fs + 1)
     basic_tp = torch.as_tensor(np.arange(num_samples) / 1000, dtype=dtype,
                                device=dev)
     bfl = boundary_f0_list(f0_floor, f0_ceil)
-
     if tables is None:
         tables = harvest_tables(fs, f0_floor, f0_ceil, dtype, dev)
-    y, actual_fs = downsample(x, fs, 8000, h=tables["decimator_ir"])
     max_half, _ = refinement_geometry(actual_fs, f0_floor)
     C = 7 * max_candidates             # overlap_candidates' rows
     C2 = min(C2_SLOTS, C)
     if blocking is None:
         blocking = stage_blocking(B, y.shape[1], num_samples, len(bfl),
                                   tables["band_bank"].shape[1], max_half, C2,
-                                  max_sections, x.element_size())
+                                  max_sections, y.element_size())
     blk = blocking.get
     raw = raw_band_candidates(y, actual_fs, tables["band_bank"],
                               tables["band_bias"], bfl, basic_tp,

@@ -4,10 +4,11 @@ train and filtered noise, overlap-added.
 Pulse times come from the wrapped phase of the interpolated f0; every
 pulse's periodic response (minimum-phase spectrum with a fractional time
 shift) and aperiodic response (noise convolved with a minimum-phase
-response) are computed for all pulses at once, then overlap-added with
-``index_add_``.  The noise is an explicit argument, a standard-normal draw
-of shape (max_pulses, max_noise), so that a run is reproducible: callers
-draw it from a ``torch.Generator`` of their own.
+response) are computed for all pulses at once, then overlap-added in a
+fixed order (:func:`..dsp.ola.scatter_ola`).  The noise is an explicit
+argument, a standard-normal draw of shape (max_pulses, max_noise), so that
+a run is reproducible: callers draw it from a ``torch.Generator`` of their
+own.
 """
 import math
 import warnings
@@ -38,6 +39,15 @@ def grid_interp(values: torch.Tensor, temporal_positions: torch.Tensor,
     return y0 + (y1 - y0) * frac
 
 
+def sample_times(y_length: int, fs: int, t0: torch.Tensor) -> torch.Tensor:
+    """The synthesis' sample-time axis t0 + n / fs, n < y_length, in float64
+    in every working type: the pulse indices are taken from it, and in
+    float32 n / fs places a pulse a sample off from 256 s of 22.05 kHz audio
+    on.  A stage that interpolates in the working type casts it."""
+    return (sdiv(torch.arange(y_length, dtype=torch.float64, device=t0.device),
+                 fs) + t0.to(torch.float64))
+
+
 def _interp(values, temporal_positions, queries, frame_period_s):
     if frame_period_s is not None:
         return grid_interp(values, temporal_positions, queries, frame_period_s)
@@ -49,12 +59,15 @@ def time_base(temporal_positions, f0, vuv, fs: float, time_axis,
               frame_period_s=None):
     """Pulse times from the wrapped phase (synthesis.py:120-140).
 
-    Returns the pulse locations (P,) in seconds and their 1-based sample
+    ``time_axis`` is :func:`sample_times`' float64 axis; the pulse indices
+    come from it, the interpolations take it in f0's type.  Returns the
+    pulse locations (P,) in seconds in f0's type and their 1-based sample
     indices (P,), the fractional time shifts (P,), the interpolated vuv
     (y_length,) and the raw pulse count, for the P = min(count, max_pulses)
     pulses kept.  ``wrap_threshold`` pi/2 is synthesis_a's detection."""
-    f0_i = _interp(f0, temporal_positions, time_axis, frame_period_s)
-    vuv_i = _interp(vuv, temporal_positions, time_axis, frame_period_s) > 0.5
+    queries = time_axis.to(f0.dtype)
+    f0_i = _interp(f0, temporal_positions, queries, frame_period_s)
+    vuv_i = _interp(vuv, temporal_positions, queries, frame_period_s) > 0.5
     zero = torch.zeros((), dtype=f0_i.dtype, device=f0_i.device)
     f0_i = torch.where(vuv_i, f0_i, zero)
     f0_i = torch.where(f0_i == 0, torch.full_like(f0_i, DEFAULT_F0), f0_i)
@@ -71,6 +84,7 @@ def time_base(temporal_positions, f0, vuv, fs: float, time_axis,
     at = at[:max_pulses]
     locs = time_axis[at]
     pli = torch.floor(locs * fs + 0.5).to(torch.int64) + 1
+    locs = locs.to(f0_i.dtype)
     y1 = wrap[pli - 1] - 2.0 * math.pi
     y2 = wrap[torch.clamp(pli, max=n)]
     shift = sdiv(-y1 / (y2 - y1), fs).to(f0_i.dtype)
@@ -96,8 +110,7 @@ def synthesis_core(f0, vuv, temporal_positions, spectrogram, aperiodicity,
                          f"{max_noise}) standard-normal draw")
     if noise_mode not in ("gaussian", "constant"):
         raise ValueError(f"noise_mode {noise_mode!r}")
-    time_axis = (sdiv(torch.arange(y_length, dtype=dtype, device=dev), fs)
-                 + temporal_positions[0])
+    time_axis = sample_times(y_length, fs, temporal_positions[0])
     wrap_threshold = math.pi if variant == "standard" else math.pi / 2
     locs, pli, shifts, vuv_i, raw_count = time_base(
         temporal_positions, f0, vuv, float(fs), time_axis, max_pulses,

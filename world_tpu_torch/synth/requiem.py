@@ -1,6 +1,6 @@
 """Requiem synthesis: excitation + spectral filtering (port of
 world_tpu/synth/requiem.py).  The velvet noise is read at explicit
-per-band offsets, pulses are overlap-added with ``index_add_``, and all
+per-band offsets, pulses are overlap-added in a fixed order, and all
 frames are filtered through batched minimum-phase spectra."""
 import math
 import warnings
@@ -14,7 +14,7 @@ from ..dsp.minphase import minimum_phase_spectrum, mirror_full
 from ..dsp.ola import scatter_ola, uniform_ola
 from ..dsp.windows import np_hanning_matlab
 from ..frames import host, uniform_frame_period_ms
-from .classic import default_max_pulses, grid_interp
+from .classic import default_max_pulses, grid_interp, sample_times
 
 
 def _interp(values, temporal_positions, time_axis, frame_period_s):
@@ -27,9 +27,11 @@ def pulse_locations(temporal_positions, f0, vuv, fs: float, time_axis,
                     max_pulses: int, frame_period_s=None):
     """time_base_generation (synthesisRequiem.py:104-118): 1-based pulse
     sample indices (max_pulses,), the kept count, the interpolated vuv and
-    the raw pulse count."""
-    f0_i = _interp(f0, temporal_positions, time_axis, frame_period_s)
-    vuv_i = _interp(vuv, temporal_positions, time_axis, frame_period_s) > 0.5
+    the raw pulse count.  ``time_axis`` is the float64 axis of
+    :func:`.classic.sample_times`; the interpolations take it in f0's type."""
+    queries = time_axis.to(f0.dtype)
+    f0_i = _interp(f0, temporal_positions, queries, frame_period_s)
+    vuv_i = _interp(vuv, temporal_positions, queries, frame_period_s) > 0.5
     zero = torch.zeros((), dtype=f0_i.dtype, device=f0_i.device)
     f0_i = torch.where(vuv_i, f0_i, zero)
     f0_i = torch.where(f0_i == 0, torch.full_like(f0_i, 500.0), f0_i)
@@ -55,15 +57,15 @@ def excitation_core(temporal_positions, f0, vuv, band_ap_db, pulse_seed,
     (noise_len, bands); noise_offsets (bands,) int."""
     dtype, dev = pulse_seed.dtype, pulse_seed.device
     fft_size = pulse_seed.shape[0]
-    time_axis = (sdiv(torch.arange(y_length, dtype=dtype, device=dev), fs)
-                 + temporal_positions[0])
+    time_axis = sample_times(y_length, fs, temporal_positions[0])
     pli, count, vuv_i, raw_count = pulse_locations(
         temporal_positions, f0, vuv, float(fs), time_axis, max_pulses,
         frame_period_s)
 
     # band aperiodicity on the sample grid (linear in 10^(dB/10))
     ap_lin = 10.0 ** sdiv(band_ap_db, 10.0)
-    interp_ap = _interp(ap_lin, temporal_positions, time_axis, frame_period_s)
+    interp_ap = _interp(ap_lin, temporal_positions, time_axis.to(dtype),
+                        frame_period_s)
 
     # aperiodic part: per-band looped velvet noise read from its offset
     noise_len = noise_seed.shape[0]
