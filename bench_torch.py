@@ -20,10 +20,12 @@ reports ``"gate": "FAIL"`` and is left out of the headline; on a cut of the
 utterance the golden does not apply and the gate is ``"n/a"``.
 
 Timing: a reading enqueues ``rounds`` round trips back to back between two
-CUDA events and pays one synchronize; the round trip syncs the host inside
-itself too (its data-dependent section loops), as the port does.  Each path
-takes ``readings`` readings in this process and reports their min, median
-and max.  On the CPU the readings are host-clock times of a CPU run.
+CUDA events and pays one synchronize.  On the GPU each round trip is the
+replay of the module's CUDA graph for its batch size (the first warm-up
+call runs eagerly, the second captures it); nothing inside it syncs the
+host.  Each path takes
+``readings`` readings in this process and reports their min, median and
+max.  On the CPU the readings are host-clock times of a CPU run.
 
 Prints ONE JSON line.
 """
@@ -102,9 +104,13 @@ def launch_counts():
 def timed_readings(fn, audio_seconds: float, readings: int, rounds: int,
                    device):
     """(stats, output of the last timed call): min/median/max of ms a call
-    and of xRT over ``readings`` readings, after one warm-up call whose
-    kernel launches are counted."""
+    and of xRT over ``readings`` readings, after two warm-up calls (a path
+    with CUDA graphs runs the first eagerly and captures on the second) and
+    one call whose kernel launches are counted."""
     counters = launch_counts()
+    fn()
+    fn()
+    sync(device)
     before = {k: c.launches for k, c in counters.items()}
     fn()
     sync(device)
@@ -118,6 +124,18 @@ def timed_readings(fn, audio_seconds: float, readings: int, rounds: int,
              "readings": readings, "rounds": rounds, "ms_readings": ms,
              "launches": launches}
     return stats, out
+
+
+def eager_round_trip(model, x):
+    """A ``HarvestRequiem``'s round trip of rows x run eagerly, never by a
+    CUDA graph: :func:`encode_decode_one` on the module's tables and caps,
+    the static code its graphs capture."""
+    from world_tpu_torch.parallel.batch import HARVEST_TABLE_KEYS, encode_decode_one
+
+    return encode_decode_one(
+        x, model.pulse_seed, model.noise_seed, model.fs, model.frame_period,
+        model.max_pulses, model.max_candidates, model.max_sections,
+        tables={k: getattr(model, k) for k in HARVEST_TABLE_KEYS})
 
 
 def golden_bars(f0, vuv, spectrogram, band_ap, g) -> dict:

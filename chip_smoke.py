@@ -20,9 +20,18 @@ Phases (each raises on failure; any failure exits non-zero):
   4. the Harvest -> CheapTrick -> D4C-Requiem -> Requiem round trip in
      float32 on the 16 kHz golden utterance through World.encode/decode,
      held to the golden bars; both kernels must have launched;
-  5. a batch of 4 utterances through encode_decode_one: row 0 must take the
-     single-stream run's decisions;
-  6. timings with CUDA events: xRT of both round trips, each kernel against
+  5. a batch of 4 utterances through HarvestRequiem (a CUDA graph per batch
+     size from its second call): row 0 must take the single-stream run's
+     decisions;
+ 18. the static round trip and its graph, float32, single and batch 4: the
+     eager static call from the upload to the output makes no host sync
+     (set_sync_debug_mode "error"), the graph's replay is bitwise the eager
+     call and itself, meets phase 4's golden bars, and launches K1 and K2
+     once; the first call (eager) and the second (capture), the pool, the
+     replay beside the eager call and its device events; a function that
+     syncs fails to capture;
+  6. timings with CUDA events: xRT of both round trips (the Harvest one as
+     a graph replay and eagerly), each kernel against
      its plain version at each geometry and at batch 4, K1's passes apart
      and its launches per call (torch.profiler),
      where the classic round trip's time goes (the stage functions of
@@ -50,9 +59,10 @@ Phases (each raises on failure; any failure exits non-zero):
      encode_w_gvn_f0 on the golden contour, save -> load;
  13. path C, ragged serving: six utterances of 0.9-4.644 s through
      batch_encode_decode_ragged in five length buckets; each row against a
-     one-utterance call at the same padded length; both kernels launch once
-     per bucket and are held against their plain versions at every
-     bucket's geometry;
+     one-utterance call at the same padded length; the first call runs
+     eagerly, the second captures each bucket's graph, and the next replays
+     them, launching both kernels once per bucket; both are held against
+     their plain versions at every bucket's geometry;
  14. long audio: check_long_audio.py's 60 s glide at 22.05 kHz in float32
      through World.encode(harvest, requiem) -> decode with that script's
      asserts, against the float64 analysis on the card, and blocked against
@@ -73,7 +83,8 @@ Phases (each raises on failure; any failure exits non-zero):
      geometry (K1 bitwise) in float32 and float64;
  17. the benchmarks: bench_torch.py, tools/bench_paths_torch.py (few
      readings, batches 1 and 4) and tools/profile_stages_torch.py at
-     4.644 s; every gate must pass and every JSON line parse.
+     4.644 s; every gate must pass, every JSON line parse, and no stage of
+     the eager round trip may sync the host.
 The last line is {"ok": true, "device": {...}}.  There is no CPU fallback.
 """
 import json
@@ -87,7 +98,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 GOLDEN_DIR = ROOT / "tests" / "golden"
 GOLDEN = GOLDEN_DIR / "harvest_16k.npz"
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
+ALL_PHASES = (1, 2, 3, 4, 5, 18, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
 
 # K1: kernel and plain version evaluate the same IEEE operations in the same
 # order, so the interpolated f0 may differ only by rounding of equal
@@ -749,22 +760,229 @@ def index_add_ola(resp, starts, y_length: int):
 
 
 def captured_ola(fn):
-    """The (responses, starts, y_length) of the first overlap-add of the
-    pulses that a call of fn makes (Requiem synthesis)."""
+    """The (responses (P, W), starts (P,), y_length, max_rank) of the first
+    row of the first overlap-add of the pulses that an eager call of fn
+    makes (Requiem synthesis)."""
     from world_tpu_torch.synth import requiem
 
-    real, got = requiem.scatter_ola, []
+    real, got = requiem.slot_ola, []
 
-    def capture(*args):
-        got.append(args)
-        return real(*args)
+    def capture(resp, starts, y_length, max_rank):
+        got.append((resp.reshape(-1, *resp.shape[-2:])[0],
+                    starts.reshape(-1, starts.shape[-1])[0], y_length, max_rank))
+        return real(resp, starts, y_length, max_rank)
 
-    requiem.scatter_ola = capture
+    requiem.slot_ola = capture
     try:
         fn()
     finally:
-        requiem.scatter_ola = real
+        requiem.slot_ola = real
     return got[0]
+
+
+def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
+                                path_launches) -> dict:
+    """Phase 18: the round trip on static shapes, eager and as a CUDA graph,
+    float32, single and batch 4, through a HarvestRequiem of its own (its
+    graphs are captured here).  Returns the numbers it printed."""
+    import traceback
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench_torch import eager_round_trip
+    from world_tpu_torch import HarvestRequiem
+    from world_tpu_torch.parallel.graphs import GraphCache, GraphCaptureError
+
+    model = HarvestRequiem(fs, xs.shape[1], dtype=torch.float32, device="cuda")
+    eager_call = lambda t: eager_round_trip(model, t)     # noqa: E731
+
+    duration = xs.shape[1] / fs
+    keys = ("f0", "vuv", "spectrogram", "band_aperiodicity", "y", "_overflow")
+    pinned = torch.tensor(xs, dtype=torch.float32).pin_memory()
+    found = {}
+    for label, n_rows in (("single", 1), ("batch4", 4)):
+        host = pinned[:n_rows]
+        eager_call(host.to("cuda"))       # kept tables, plans and kernels built
+        torch.cuda.synchronize()
+        # the eager static call from the upload to the output: first every
+        # sync it makes, by file and line, then under "error"
+        mode = torch.cuda.get_sync_debug_mode()
+        syncs = []
+
+        def record(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" in str(message):
+                syncs.append(" <- ".join(
+                    f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                    for f in traceback.extract_stack()[-8:-1][::-1]))
+
+        # (switching the mode warns by itself: the recorder is installed
+        # inside it)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = record
+                eager_call(host.to("cuda", non_blocking=True))
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize()
+        if syncs:
+            raise AssertionError(f"phase 18: the eager static round trip syncs "
+                                 f"the host {len(syncs)} times: {syncs[:20]}")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            x = host.to("cuda", non_blocking=True)
+            eager = eager_call(x)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize()
+        # the module: its first call of a batch size runs eagerly, the
+        # second captures the graph and replays it, later calls replay it
+        before = dict(model.graphs.calls)
+        took = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            took.append(time.perf_counter() - t0)
+        first_s, capture_call_s = took
+        ran = {k: n - before[k] for k, n in model.graphs.calls.items()}
+        if ran != {"eager": 1, "captured": 1, "replayed": 1}:
+            raise AssertionError(f"phase 18 {label}: the module's first two "
+                                 f"calls ran {ran}")
+        graph = model.graphs.graphs()[-1]
+        reset_counts()
+        r1 = model(x)
+        r2 = model(x)
+        torch.cuda.synchronize()
+        counts = path_launches(f"graph_{label}")
+        same_eager = [k for k in keys if not torch.equal(r1[k], eager[k])]
+        same_twice = all(torch.equal(r1[k], r2[k]) for k in keys)
+        bars = golden_bars({"f0": r1["f0"][0].cpu().numpy(),
+                            "vuv": r1["vuv"][0].cpu().numpy(),
+                            "spectrogram": r1["spectrogram"][0].T.cpu().numpy(),
+                            "aperiodicity": r1["band_aperiodicity"][0].T.cpu().numpy()},
+                           g)
+        # the replay against the eager static call: graph, eager, eager, graph
+        g1 = cuda_ms(lambda: model(x), iters=10)
+        e1 = cuda_ms(lambda: eager_call(x), iters=3)
+        e2 = cuda_ms(lambda: eager_call(x), iters=3)
+        g2 = cuda_ms(lambda: model(x), iters=10)
+        t_graph, t_eager = (g1 + g2) / 2, (e1 + e2) / 2
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model(x)
+            torch.cuda.synchronize()
+        dev_us, n_events = device_totals(prof)
+        idle = (f"{1 - dev_us / 1e3 / t_graph:.3f}" if n_events else "not measured")
+        audio = n_rows * duration
+        print(f"phase 18 static round trip float32 {label} ({n_rows} x "
+              f"{duration:.3f} s) [{card}]: eager static call from the upload to "
+              f"the output: 0 host syncs (set_sync_debug_mode error); the "
+              f"module's first call (eager) {first_s:.3f} s, second (warm-up, "
+              f"capture, replay) {capture_call_s:.3f} s, capture "
+              f"{graph.capture_s:.3f} s, pool {graph.pool_bytes / 2**20:.1f} MiB; "
+              f"replay bitwise the eager call for {len(keys) - len(same_eager)} "
+              f"of {len(keys)} outputs {same_eager or ''}, two replays bitwise "
+              f"{same_twice}; launches per replay K1 {counts['event_engine'] / 2:g}"
+              f", K2 {counts['refine_dft'] / 2:g}; row 0 against the golden: vuv "
+              f"agreement {bars[0]:.6f}, voiced F0 RMSE {bars[1]:.6g} Hz, LSD "
+              f"{bars[2]:.6g} dB, band-ap max err {bars[3]:.6g} dB; replay "
+              f"{g1:.2f}/{g2:.2f} ms = {audio / (t_graph / 1e3):.1f} xRT, eager "
+              f"static {e1:.2f}/{e2:.2f} ms = {audio / (t_eager / 1e3):.1f} xRT, "
+              f"ratio {t_eager / t_graph:.2f}; one replay under torch.profiler: "
+              f"{n_events} device events, {dev_us / 1e3:.3f} ms device time, idle "
+              f"share {idle} of the unprofiled replay")
+        if label == "single":
+            single_y = r1["y"]
+        found[label] = {"capture_s": graph.capture_s, "first_call_s": first_s,
+                        "capture_call_s": capture_call_s,
+                        "pool_bytes": graph.pool_bytes, "replay_ms": [g1, g2],
+                        "eager_ms": [e1, e2], "device_events": n_events,
+                        "device_ms": dev_us / 1e3}
+        if same_eager or not same_twice:
+            raise AssertionError(f"phase 18 {label}: the graph is not bitwise the "
+                                 f"eager static call ({same_eager}) or itself")
+        if counts != {"event_engine": 2, "refine_dft": 2}:
+            raise AssertionError(f"phase 18 {label}: K1 and K2 must launch once "
+                                 f"per replay: {counts} in two replays")
+        if not (bars[0] > 0.99 and bars[1] < 1.0 and bars[2] < 1.0 and bars[3] < 1.0):
+            raise AssertionError(f"phase 18 {label}: golden bars not met: {bars}")
+        if not all(torch.isfinite(r1["y"][b]).all() for b in range(n_rows)):
+            raise AssertionError(f"phase 18 {label}: non-finite waveform")
+    # no fallback: a function that reads the device from the host cannot be
+    # captured, and the capture raises with its shapes
+    x = pinned[:1].to("cuda")
+    try:
+        GraphCache().capture("sync", lambda t: {"y": t * float(t.abs().sum())},
+                             (x,), "cuda")
+    except GraphCaptureError as e:
+        print(f"phase 18 a capture of a function that syncs raises, as it must: "
+              f"{str(e)[:300]}")
+    else:
+        raise AssertionError("phase 18: capturing a syncing function did not raise")
+    # the card, its random generator and the round trip are still usable
+    # after the failed capture
+    draw = torch.rand(4, device="cuda")
+    if not torch.equal(model(x)["y"], single_y) or not torch.isfinite(draw).all():
+        raise AssertionError("phase 18: the round trip changed after the failed "
+                             "capture")
+    print("phase 18 static round trip and graph: ok")
+    return found
+
+
+def graph_memory(xm_t, fs, card):
+    """Phase 15's memory: what batch_encode_decode's graphs still hold after
+    the call of many rows, beside the eager call's peak on the same rows,
+    then the pools freed by ``BATCH_GRAPHS.clear()``."""
+    import gc
+
+    import torch
+
+    from world_tpu_torch.parallel.batch import (BATCH_GRAPHS, HARVEST_TABLE_KEYS,
+                                                default_batch_max_pulses,
+                                                encode_decode_one,
+                                                harvest_requiem_tables)
+    from world_tpu_torch.parallel.graphs import GRAPH_POOL_BUDGET
+    from world_tpu_torch.f0.harvest import default_max_candidates, default_max_sections
+
+    torch.cuda.synchronize()
+    held = BATCH_GRAPHS.pool_bytes()
+    n_graphs = len(BATCH_GRAPHS.graphs())
+    pool = BATCH_GRAPHS.graphs()[-1].pool_bytes
+    t = harvest_requiem_tables(fs, 0, torch.float32, "cuda")
+    n = xm_t.shape[1]
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = encode_decode_one(xm_t, t["pulse_seed"], t["noise_seed"], fs, 5,
+                            default_batch_max_pulses(n, fs),
+                            default_max_candidates(F0_FLOOR, F0_CEIL),
+                            default_max_sections(n, fs),
+                            tables={k: t[k] for k in HARVEST_TABLE_KEYS})
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    BATCH_GRAPHS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = reserved - torch.cuda.memory_reserved()
+    mib = lambda b: f"{b / 2**20:,.1f} MiB"      # noqa: E731
+    print(f"phase 15 memory [{card}]: after the call of {xm_t.shape[0]} rows "
+          f"batch_encode_decode's {n_graphs} graphs hold {mib(held)} (budget "
+          f"{mib(GRAPH_POOL_BUDGET)}; this call's graph {mib(pool)}); the eager "
+          f"call's peak on the same rows {mib(eager_peak)} (pool / peak "
+          f"{pool / eager_peak:.3f}, < 2); BATCH_GRAPHS.clear() and "
+          f"torch.cuda.empty_cache() gave back {mib(freed)} to the card")
+    # a graph's pool holds its call's peak in whole allocator segments
+    if not (held <= max(GRAPH_POOL_BUDGET, pool) and pool <= 2 * eager_peak
+            and freed >= 0.9 * held and not BATCH_GRAPHS.graphs()):
+        raise AssertionError("phase 15: the graphs' memory is not bounded or "
+                             "not given back")
 
 
 def main(phases=ALL_PHASES) -> int:
@@ -904,7 +1122,7 @@ def main(phases=ALL_PHASES) -> int:
             raise AssertionError("phase 4: output waveform not finite or all zero")
 
     model = classic = None
-    if 5 in phases or 6 in phases or 10 in phases or 15 in phases:
+    if 5 in phases or 6 in phases or 10 in phases or 15 in phases or 18 in phases:
         rng = np.random.RandomState(0)
         xs = np.stack([x16] + [x16 + 1e-3 * rng.randn(x16.shape[0])
                                for _ in range(3)])
@@ -933,6 +1151,10 @@ def main(phases=ALL_PHASES) -> int:
             raise AssertionError("phase 5: batched row 0 changed decisions")
         if not all(torch.isfinite(batch["y"][b]).all() for b in range(4)):
             raise AssertionError("phase 5: non-finite batched output")
+
+    if 18 in phases:
+        static_round_trip_and_graph(xs, fs, g, card, reset_counts,
+                                    path_launches)
 
     if 7 in phases:
         from world_tpu_torch.f0.dio import dio_stages
@@ -1204,14 +1426,26 @@ def main(phases=ALL_PHASES) -> int:
         utts = ragged_utterances(x16, fs)
         buckets = bucket_lengths([u.shape[0] for u in utts], fs, RAGGED_QUANTUM_S)
     if 13 in phases:
-        reset_counts()
-        rows = batch_encode_decode_ragged(utts, fs,
-                                          bucket_quantum_s=RAGGED_QUANTUM_S)
-        torch.cuda.synchronize()
+        # the first call runs each bucket eagerly, the second captures each
+        # bucket's graph, and the counted third replays them
+        took = []
+        for _ in range(3):
+            if len(took) == 2:
+                reset_counts()
+            t0 = time.perf_counter()
+            rows = batch_encode_decode_ragged(utts, fs,
+                                              bucket_quantum_s=RAGGED_QUANTUM_S)
+            torch.cuda.synchronize()
+            took.append(time.perf_counter() - t0)
         counts = path_launches("C_ragged")
+        audio_c = sum(u.shape[0] for u in utts) / fs
         print(f"phase 13 path C ragged batch float32: lengths "
               f"{[u.shape[0] for u in utts]} in buckets "
-              f"{ {L: len(ix) for L, ix in buckets.items()} }; launches K1 "
+              f"{ {L: len(ix) for L, ix in buckets.items()} } [{card}]; first "
+              f"call (eager) {took[0]:.3f} s = {audio_c / took[0]:.1f} xRT, second "
+              f"(capturing each bucket's graph) {took[1]:.3f} s = "
+              f"{audio_c / took[1]:.1f} xRT, third (replays) {took[2]:.3f} s = "
+              f"{audio_c / took[2]:.1f} xRT; launches of the third K1 "
               f"{counts['event_engine']}, K2 {counts['refine_dft']}")
         if len(buckets) != 5 or counts != {"event_engine": 5, "refine_dft": 5}:
             raise AssertionError(f"phase 13: one K1 and one K2 launch per bucket: "
@@ -1586,6 +1820,15 @@ def main(phases=ALL_PHASES) -> int:
 
         edge_interp.event_engine_cuda = recording_k1
         try:
+            # the first call runs eagerly and its launches are recorded first;
+            # the second captures the graph, the counted third replays it
+            took = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                batch_encode_decode(xm, fs)
+                torch.cuda.synchronize()
+                took.append(time.perf_counter() - t0)
+            first_s, capture_call_s = took
             reset_counts()
             t0 = time.perf_counter()
             out = batch_encode_decode(xm, fs)
@@ -1637,8 +1880,10 @@ def main(phases=ALL_PHASES) -> int:
               f"batch_encode_decode float32 ({MANY_ROWS * 4 * blkM['n_bands']} event "
               f"rows, band_chunk {blkM['band_chunk']}): K1 launched "
               f"{n_path} times with {launched_rows[:n_path]} rows, K2 "
-              f"{counts['refine_dft']}; {many_s:.2f} s of wall time = "
-              f"{MANY_ROWS * MANY_ROWS_SECONDS / many_s:.1f} xRT [{card}]; voiced share "
+              f"{counts['refine_dft']} (one replay); {many_s:.2f} s of wall time = "
+              f"{MANY_ROWS * MANY_ROWS_SECONDS / many_s:.1f} xRT, the first call "
+              f"(eager) {first_s:.2f} s, the second (warm-up, capture, replay) "
+              f"{capture_call_s:.2f} s [{card}]; voiced share "
               f"{float(out['vuv'].mean()):.3f}; every band asked for in one chunk: "
               f"K1 rows {split_rows}, the first held bitwise against the plain "
               f"version above; raw "
@@ -1656,11 +1901,16 @@ def main(phases=ALL_PHASES) -> int:
                 and one_only < RAW_FLIPS_SHARE * raw_split.numel()
                 and close > RAW_CLOSE_SHARE):
             raise AssertionError("phase 15: the batch of many rows")
-        del out, raw_split, raw_chunked, ym, xm_t
+        del out, raw_split, raw_chunked, ym
+        graph_memory(xm_t, fs, card)
+        del xm_t
 
         # phase 5's batch over two shards on the one card
         two = ["cuda:0", "cuda:0"]
         blkS = harvest_blocking(x16.shape[0], fs, torch.float32, n_rows=2)
+        for _ in range(2):                 # eager, then the graph's capture
+            batch_encode_decode(xs, fs, devices=two)
+        torch.cuda.synchronize()
         reset_counts()
         sharded = batch_encode_decode(xs, fs, devices=two)
         torch.cuda.synchronize()
@@ -1830,9 +2080,11 @@ def main(phases=ALL_PHASES) -> int:
         if bench["paths"]["single"]["launches"] != {"event_engine": 1, "refine_dft": 1}:
             raise AssertionError("phase 17: bench_torch's round trip must launch "
                                  "each kernel once")
-        harvest_row = prof["signals"][0]["stages"]["Harvest"]
-        if harvest_row["host_syncs"] is None or harvest_row["host_syncs"] < 1:
-            raise AssertionError("phase 17: the profile counted no host sync")
+        syncing = {k: v["host_syncs"] for k, v in prof["signals"][0]["stages"].items()
+                   if v["host_syncs"] != 0}
+        if syncing:
+            raise AssertionError(f"phase 17: stages of the eager round trip sync "
+                                 f"the host: {syncing}")
         print("phase 17 benchmarks: ok")
 
     if 6 in phases:
@@ -1846,34 +2098,51 @@ def main(phases=ALL_PHASES) -> int:
                   + f"; device kernels per call {t['device_kernels_per_call']}")
             if (t["device_kernels_per_call"] or 0) > 2:
                 raise AssertionError(f"K1 at {geo}: more than two launches per call")
-        t_single = cuda_ms(lambda: model(xs_t[:1]), iters=3)
-        t_batch = cuda_ms(lambda: model(xs_t), iters=3)
+        # the CUDA graph's replay (the module's own) beside the same static
+        # code run eagerly: graph, eager, eager, graph
+        from bench_torch import eager_round_trip
+
+        times = {}
+        for graphs in (True, False, False, True):
+            for name, xin in (("single", xs_t[:1]), ("batch-4", xs_t)):
+                call = ((lambda: model(xin)) if graphs else    # noqa: E731
+                        (lambda: eager_round_trip(model, xin)))
+                times.setdefault((name, graphs), []).append(
+                    cuda_ms(call, iters=3, warmup=2))
         print(f"phase 6 Harvest/Requiem round trip float32 (4.644 s utterance) "
-              f"[{card}]: single {t_single:.2f} ms = "
-              f"{duration / (t_single / 1e3):.2f} xRT; batch-4 {t_batch:.2f} ms = "
-              f"{4 * duration / (t_batch / 1e3):.2f} xRT")
-        from world_tpu_torch.dsp.ola import scatter_ola
+              f"[{card}]: " + "; ".join(
+                  f"{name} {'graph' if graphs else 'eager static'} "
+                  f"{'/'.join(f'{t:.2f}' for t in ts)} ms = "
+                  f"{(4 if name == 'batch-4' else 1) * duration / (np.mean(ts) / 1e3):.2f}"
+                  f" xRT" for (name, graphs), ts in times.items()))
+        from world_tpu_torch.dsp.ola import scatter_ola, slot_ola
 
         def time_ola(label, args):
-            """scatter_ola beside index_add_ on one synthesis' operands,
-            taken new, old, old, new."""
-            resp, starts, y_length = args
-            n1 = cuda_ms(lambda: scatter_ola(*args), iters=20)
-            o1 = cuda_ms(lambda: index_add_ola(*args), iters=20)
-            o2 = cuda_ms(lambda: index_add_ola(*args), iters=20)
-            n2 = cuda_ms(lambda: scatter_ola(*args), iters=20)
-            new, old = scatter_ola(*args), index_add_ola(*args)
+            """The round trip's static overlap-add (slot_ola at its rank
+            bound) beside the checked scatter_ola (32 passes) and index_add_
+            on one synthesis' operands, taken new, old, old, new."""
+            resp, starts, y_length, max_rank = args
+            static = lambda: slot_ola(resp, starts, y_length, max_rank)[0]  # noqa: E731
+            n1 = cuda_ms(static, iters=20)
+            c1 = cuda_ms(lambda: scatter_ola(resp, starts, y_length), iters=20)
+            o1 = cuda_ms(lambda: index_add_ola(resp, starts, y_length), iters=20)
+            o2 = cuda_ms(lambda: index_add_ola(resp, starts, y_length), iters=20)
+            n2 = cuda_ms(static, iters=20)
+            new, old = static(), index_add_ola(resp, starts, y_length)
             rel = float((new - old).abs().max() / old.abs().max())
             live = int((starts < y_length).sum())
             print(f"phase 6 overlap-add of the pulses float32 at {label} "
                   f"[{card}]: {tuple(resp.shape)} responses ({live} live) into "
-                  f"{y_length} samples: scatter_ola (fixed order) {n1:.4f}/"
-                  f"{n2:.4f} ms, index_add_ {o1:.4f}/{o2:.4f} ms, ratio "
+                  f"{y_length} samples: slot_ola at {max_rank} ranks (fixed "
+                  f"order) {n1:.4f}/{n2:.4f} ms, scatter_ola (32 ranks) "
+                  f"{c1:.4f} ms, index_add_ {o1:.4f}/{o2:.4f} ms, ratio "
                   f"{(n1 + n2) / (o1 + o2):.3f}; results within {rel:.3g} of "
-                  f"their scale; scatter_ola twice bitwise "
-                  f"{torch.equal(new, scatter_ola(*args))}")
+                  f"their scale; bitwise twice {torch.equal(new, static())} and "
+                  f"against scatter_ola "
+                  f"{torch.equal(new, scatter_ola(resp, starts, y_length))}")
 
-        time_ola(f"{duration:.3f} s", captured_ola(lambda: model(xs_t[:1])))
+        ola_args = captured_ola(lambda: eager_round_trip(model, xs_t[:1]))
+        time_ola(f"{duration:.3f} s", ola_args)
         saved = (edge_interp.counter.launches, refine_dft.counter.launches)
         reset_counts()
         t_classic = cuda_ms(lambda: w32.decode(w32.encode(
@@ -1975,14 +2244,17 @@ def main(phases=ALL_PHASES) -> int:
                 batch_encode_decode_ragged([u], fs,
                                            bucket_quantum_s=RAGGED_QUANTUM_S)
 
-        # ragged, one by one, one by one, ragged: the host's pace drifts
-        r1 = cuda_ms(ragged, iters=2)
-        o1 = cuda_ms(one_by_one, iters=2)
-        o2 = cuda_ms(one_by_one, iters=2)
-        r2 = cuda_ms(ragged, iters=2)
+        # ragged, one by one, one by one, ragged: the host's pace drifts.
+        # Two warm-up calls each: a signature dropped since phase 13 runs
+        # eagerly, then is captured
+        r1 = cuda_ms(ragged, iters=2, warmup=2)
+        o1 = cuda_ms(one_by_one, iters=2, warmup=2)
+        o2 = cuda_ms(one_by_one, iters=2, warmup=2)
+        r2 = cuda_ms(ragged, iters=2, warmup=2)
         t_rag, t_one = (r1 + r2) / 2, (o1 + o2) / 2
         print(f"phase 6 path C ragged batch float32 ({len(utts)} utterances, "
-              f"{audio_s:.3f} s of audio, {len(buckets)} buckets) [{card}]: "
+              f"{audio_s:.3f} s of audio, {len(buckets)} buckets) [{card}], warm: "
+              f"each signature's graph replayed (captured before): "
               f"{r1:.2f}/{r2:.2f} ms = {audio_s / (t_rag / 1e3):.2f} xRT; one by "
               f"one {o1:.2f}/{o2:.2f} ms = {audio_s / (t_one / 1e3):.2f} xRT; ratio "
               f"{t_rag / t_one:.3f}")
@@ -2018,6 +2290,34 @@ def main(phases=ALL_PHASES) -> int:
               f"{refine_dft.counter.launches}")
         time_ola(f"{GLIDE_SECONDS:g} s", ola60)
         del ola60
+        # the same 60 s through HarvestRequiem: its graph's replay beside the
+        # eager static call, and the replay's device events
+        m60 = HarvestRequiem(GLIDE_FS, x60.shape[0], dtype=torch.float32,
+                             device="cuda")
+        x60_m = torch.tensor(x60, dtype=torch.float32, device="cuda")[None]
+        m60(x60_m)                         # the first call runs eagerly
+        t0 = time.perf_counter()
+        m60(x60_m)
+        torch.cuda.synchronize()
+        first60 = time.perf_counter() - t0
+        g60 = m60.graphs.graphs()[-1]
+        gr1 = cuda_ms(lambda: m60(x60_m), iters=3)
+        ea60 = cuda_ms(lambda: eager_round_trip(m60, x60_m), iters=1)
+        gr2 = cuda_ms(lambda: m60(x60_m), iters=3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            m60(x60_m)
+            torch.cuda.synchronize()
+        us60, ev60 = device_totals(prof)
+        print(f"phase 6 HarvestRequiem float32 on the {GLIDE_SECONDS:g} s glide "
+              f"[{card}]: graph replay {gr1:.1f}/{gr2:.1f} ms = "
+              f"{GLIDE_SECONDS / ((gr1 + gr2) / 2 / 1e3):.1f} xRT, eager static "
+              f"{ea60:.1f} ms = {GLIDE_SECONDS / (ea60 / 1e3):.1f} xRT; second "
+              f"call (warm-up, capture, replay) {first60:.2f} s, capture "
+              f"{g60.capture_s:.2f} s, pool {g60.pool_bytes / 2**20:.0f} MiB; one "
+              f"replay under torch.profiler: {ev60} device events, "
+              f"{us60 / 1e3:.1f} ms device time, idle share "
+              + (f"{1 - us60 / 1e3 / ((gr1 + gr2) / 2):.3f}" if ev60 else "not measured"))
+        del m60, x60_m
         # what the blocking costs: harvest_core on the same 60 s, blocked as
         # it chooses and with every bound off, taken one, other, other, one
         from world_tpu_torch.f0 import harvest as H6
@@ -2039,10 +2339,15 @@ def main(phases=ALL_PHASES) -> int:
         # the batch of 4 on one device and over two shards of the one card,
         # taken one, two, two, one
         two = ["cuda:0", "cuda:0"]
-        d1 = cuda_ms(lambda: batch_encode_decode(xs, fs, devices="cuda:0"), iters=2)
-        s1 = cuda_ms(lambda: batch_encode_decode(xs, fs, devices=two), iters=2)
-        s2 = cuda_ms(lambda: batch_encode_decode(xs, fs, devices=two), iters=2)
-        d2 = cuda_ms(lambda: batch_encode_decode(xs, fs, devices="cuda:0"), iters=2)
+        # two warm-up calls each: eager, then the graph's capture
+        d1 = cuda_ms(lambda: batch_encode_decode(xs, fs, devices="cuda:0"), iters=2,
+                     warmup=2)
+        s1 = cuda_ms(lambda: batch_encode_decode(xs, fs, devices=two), iters=2,
+                     warmup=2)
+        s2 = cuda_ms(lambda: batch_encode_decode(xs, fs, devices=two), iters=2,
+                     warmup=2)
+        d2 = cuda_ms(lambda: batch_encode_decode(xs, fs, devices="cuda:0"), iters=2,
+                     warmup=2)
         print(f"phase 6 batch_encode_decode of 4 float32 [{card}]: one device "
               f"{d1:.2f}/{d2:.2f} ms, devices={two} {s1:.2f}/{s2:.2f} ms, ratio "
               f"{(s1 + s2) / (d1 + d2):.3f} (two worker threads on one card: the "

@@ -1,7 +1,7 @@
 """The programs around world_tpu_torch on the CPU, on a 0.5 s cut of x16:
-bench_torch.py, tools/bench_paths_torch.py, tools/profile_stages_torch.py
-and the two examples run and print what they promise; and no file of the
-port imports JAX or the JAX package."""
+bench_torch.py, tools/bench_paths_torch.py, tools/profile_stages_torch.py,
+tools/bench_stream_torch.py and the two examples run and print what they
+promise; and no file of the port imports JAX or the JAX package."""
 import ast
 import importlib.util
 import json
@@ -103,6 +103,28 @@ def test_profile_stages_torch_on_cpu(on_path, capsys):
     assert all(r["host_syncs"] is None and r["device_events"] is None
                for r in stages.values())
     assert stages["K2"]["ms"] <= stages["refine_candidates"]["ms"] <= stages["Harvest"]["ms"]
+
+
+def test_bench_stream_torch_on_cpu(on_path, capsys, tmp_path):
+    tool = _load("tools/bench_stream_torch.py")
+    out = tmp_path / "stream.json"
+    doc = tool.main(CUT + ["--calls", "3", "--max-utts", "3", "--min-seconds", "0.2",
+                           "--max-seconds", "0.5", "--readings", "1",
+                           "--out", str(out)])
+    assert _last_json(capsys) == json.loads(json.dumps(doc))
+    full = json.loads(out.read_text())
+    assert {k: v for k, v in full.items() if k != "contours"} == json.loads(
+        json.dumps(doc))
+    st = doc["stream"]
+    assert st["all"]["calls"] == 3 and st["first_half"]["calls"] == 1
+    assert len(full["contours"]) == 2 + st["utterances"]
+    assert st["all"]["audio_s"] == pytest.approx(
+        st["first_half"]["audio_s"] + st["second_half"]["audio_s"])
+    # no graphs on the CPU: every bucket runs eagerly outside BATCH_GRAPHS
+    assert st["graph_calls"] == {"eager": 0, "captured": 0, "replayed": 0}
+    assert set(doc["encode"]) == {"harvest", "harvest_fft2048"}
+    same = tool.main(["--compare", str(out), str(out)])
+    assert same["vuv_flips_total"] == 0 and same["max_abs_df0_hz"] == 0.0
 
 
 def test_examples_on_cpu(tmp_path, capsys):

@@ -13,10 +13,11 @@ Signals: ``x16``, tests/golden/harvest_16k.npz's 4.644 s at 16 kHz, and
 ``glide``, 60 s of tools/check_long_audio.py's vowel-like glide at
 22.05 kHz (this tool's own copy).  ``--seconds`` cuts either.
 
-One float32 round trip through ``HarvestRequiem`` (tables resident) runs
-as it always does; the stage functions are wrapped in place, in the
-modules that call them, so the path and its stage order are the program's
-own.  After a warm-up call, three more calls:
+One float32 round trip on ``HarvestRequiem``'s tables (resident) runs
+eagerly (``bench_torch.eager_round_trip``: a CUDA graph's replay has no
+stages to wrap); the stage functions are wrapped in place, in the modules that call
+them, so the path and its stage order are the program's own.  After a
+warm-up call, three more calls:
   1. unprofiled: each stage's milliseconds by CUDA events around it
      (inclusive of the stages inside it), and K1's and K2's launches;
   2. under ``torch.cuda.set_sync_debug_mode("warn")`` (restored after):
@@ -25,9 +26,8 @@ own.  After a warm-up call, three more calls:
      the device kernels and copies that ops inside the range launched, and
      their device time.  The idle share is 1 - device time / the
      unprofiled milliseconds.
-A stage called once per utterance (FixStep3, the smoothing, the
-syntheses) sums its calls.  On the CPU only the milliseconds (host clock)
-are measured.
+A stage called more than once sums its calls.  On the CPU only the
+milliseconds (host clock) are measured.
 
 Prints a table per signal and one JSON line; ``--out`` also writes it.
 """
@@ -226,7 +226,7 @@ def profile_signal(name: str, seconds, device) -> dict:
     with probe.installed():
         def call():
             with probe.stage("round trip"):
-                return model(xt)
+                return BT.eager_round_trip(model, xt)
 
         probe.reset("off")
         call()

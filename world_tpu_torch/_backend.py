@@ -47,15 +47,28 @@ class LaunchCounter:
     """Launches of one CUDA kernel: its wrapper adds one where it launches
     the kernel, and nowhere else (the plain version does not count).
     Wrappers on several threads (one per device) count into the same
-    ``launches``."""
+    ``launches``.
+
+    A wrapper called while its thread's stream is being captured into a
+    CUDA graph launches nothing: it adds to the thread's ``captured()``
+    tally instead, and the graph adds what it captured to ``launches`` at
+    each replay (:class:`..parallel.graphs.GraphCache`)."""
 
     def __init__(self):
         self.launches = 0
         self._lock = threading.Lock()
+        self._local = threading.local()
 
-    def add(self):
+    def add(self, n: int = 1):
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            self._local.captured = self.captured() + n
+            return
         with self._lock:
-            self.launches += 1
+            self.launches += n
+
+    def captured(self) -> int:
+        """The wrapper calls this thread has made under capture so far."""
+        return getattr(self._local, "captured", 0)
 
 
 # What one analysis stage may hold alive in temporaries before it blocks its
@@ -265,7 +278,13 @@ def launch(name: str, dtype: torch.dtype, *args):
     """Call ``world_<name>_<f32|f64>`` on the current CUDA stream and raise on
     a launch error (the C function returns the CUDA error's code):
     :class:`KernelGeometryError` where the shapes are at fault, for the
-    wrapper to name them, RuntimeError otherwise."""
+    wrapper to name them, RuntimeError otherwise.
+
+    Under CUDA graph capture the launchers' ``cudaFuncSetAttribute`` and
+    occupancy queries are legal (they touch no stream), and their
+    ``cudaGetLastError`` clears only the thread's last error: a capture
+    that a launch voided stays voided on its stream, and the launch's code
+    raises here, so the capture fails with it."""
     lib, _ = kernel_library()
     suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
     # the current stream's handle, without building a torch.cuda.Stream

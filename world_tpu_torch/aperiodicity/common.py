@@ -12,6 +12,7 @@ from ..dsp.minphase import mirror_full
 from ..dsp.scanops import shift_rows
 from ..dsp.windows import np_nuttall
 from ..frames import apply_adaptive_window, uniform_centered_slabs
+from ..tables import frame_grid, table
 
 
 def frame_slabs(x: torch.Tensor, fs: float, frame_period_ms, n_frames: int,
@@ -41,8 +42,7 @@ def frame_times(frame_period_ms, n_frames: int,
     sample at a minute of audio, which measured 1.54 dB of band aperiodicity
     on a 60 s glide (0.10 dB at 4.6 s)."""
     if frame_period_ms is not None:
-        return torch.as_tensor(np.arange(n_frames) * frame_period_ms / 1000,
-                               device=device)
+        return frame_grid(n_frames, frame_period_ms, device)
     return temporal_positions.double()
 
 
@@ -179,11 +179,12 @@ def static_group_delay_half(centroid_half, smoothed_power_half, fs, f0,
 
 def coarse_aperiodicity(group_delay_half, fs: float, fft_size: int,
                         frequency_interval: float, n_ap: int,
-                        window: np.ndarray):
+                        window: torch.Tensor):
     """Per-band aperiodicity from the group delay (d4c.py:192-209): the
-    share of power outside the (boundary+1) largest bins, in dB."""
-    dtype, dev = group_delay_half.dtype, group_delay_half.device
-    wlen = len(window)
+    share of power outside the (boundary+1) largest bins, in dB.
+    ``window``: :func:`band_window_table`."""
+    dtype = group_delay_half.dtype
+    wlen = window.shape[0]
     boundary = int(fft_size / wlen * 8 + 0.5)
     hw = wlen // 2
     gd_full = mirror_full(group_delay_half)
@@ -191,8 +192,7 @@ def coarse_aperiodicity(group_delay_half, fs: float, fft_size: int,
     for i in range(n_ap):
         center = int(np.floor(frequency_interval * (i + 1) / (fs / fft_size)))
         segs.append(gd_full[..., center - hw:center + hw + 1])
-    seg = torch.stack(segs, dim=-2) * torch.as_tensor(window, dtype=dtype,
-                                                      device=dev)
+    seg = torch.stack(segs, dim=-2) * window
     power = torch.abs(torch.fft.rfft(seg, fft_size)) ** 2
     den = power.sum(dim=-1)
     largest = torch.topk(power, boundary + 1, dim=-1, sorted=True).values
@@ -206,9 +206,18 @@ def band_window(fs: int, fft_size: int, frequency_interval: float) -> np.ndarray
     return np_nuttall(wl)
 
 
+def band_window_table(fs: int, fft_size: int, frequency_interval: float,
+                      dtype: torch.dtype, device) -> torch.Tensor:
+    """:func:`band_window` as a tensor on ``device``, kept."""
+    return table("band_window", (int(fs), int(fft_size),
+                                 float(frequency_interval)),
+                 lambda: band_window(fs, fft_size, frequency_interval), dtype,
+                 device)
+
+
 def coarse_ap_frames(x: torch.Tensor, fs: int, f0: torch.Tensor,
                      t_pos: torch.Tensor, frequency_interval: float,
-                     fft_size: int, n_ap: int, window: np.ndarray,
+                     fft_size: int, n_ap: int, window: torch.Tensor,
                      max_half: int, frame_period_ms,
                      temporal_positions: torch.Tensor = None) -> torch.Tensor:
     """estimate_one_slice (d4c.py:114-128) for every frame of rows x (B, n):

@@ -7,8 +7,9 @@ import torch
 
 from .._backend import sdiv
 from ..frames import host, like, uniform_frame_period_ms
-from .common import (band_window, coarse_ap_frames, d4c_fft_size, frame_slabs,
-                     frame_times, love_train_fft_size, love_train_vuv)
+from .common import (band_window_table, coarse_ap_frames, d4c_fft_size,
+                    frame_slabs, frame_times, love_train_fft_size,
+                    love_train_vuv)
 
 
 def frequency_interval(fs: int) -> float:
@@ -45,7 +46,7 @@ def d4c_core(x: torch.Tensor, fs: int, f0_seq: torch.Tensor,
     B, n_frames = f0_seq.shape
     dtype, dev = x.dtype, x.device
     f0_low_limit = 47.0
-    window = band_window(fs, fft_size, freq_interval)
+    window = band_window_table(fs, fft_size, freq_interval, dtype, dev)
     max_half_lt = int(1.5 * fs / 40.0 + 0.5)
     max_half = int(2.0 * fs / f0_low_limit + 0.5)
     fft_lt = love_train_fft_size(fs)

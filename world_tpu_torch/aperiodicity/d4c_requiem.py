@@ -4,8 +4,8 @@ import torch
 
 from .._backend import sdiv
 from ..frames import host, like, uniform_frame_period_ms
-from .common import (band_window, coarse_ap_frames, frame_slabs, frame_times,
-                     love_train_fft_size, love_train_vuv)
+from .common import (band_window_table, coarse_ap_frames, frame_slabs,
+                    frame_times, love_train_fft_size, love_train_vuv)
 
 
 def requiem_fft_size(fs: int) -> int:
@@ -27,7 +27,8 @@ def d4c_requiem_core(x: torch.Tensor, fs: int, f0_seq: torch.Tensor,
     B, n_frames = f0_seq.shape
     dtype = x.dtype
     f0_low_limit = 47.0
-    window = band_window(fs, fft_size, frequency_interval)
+    window = band_window_table(fs, fft_size, frequency_interval, dtype,
+                               x.device)
     max_half_lt = int(1.5 * fs / 40.0 + 0.5)
     max_half = int(2.0 * fs / f0_low_limit + 0.5)
     fft_lt = love_train_fft_size(fs)

@@ -76,20 +76,22 @@ def fir_causal(x: torch.Tensor, h: torch.Tensor,
 
 
 def band_filtered(y: torch.Tensor, bank: torch.Tensor, offsets: torch.Tensor,
-                  block: int = None) -> torch.Tensor:
+                  block: int = None, span: tuple = None) -> torch.Tensor:
     """(B, n_bands, ny) outputs of the FIR bank on rows y (B, ny), band b
     read from sample offsets[b] of its full convolution.
 
     ``block``: as in :func:`fir_bank_full`, with each band's slice taken
     inside the block loop: the full convolution of all bands, its gathered
-    copy and the gather's index never exist at the full length."""
+    copy and the gather's index never exist at the full length.  The blocks
+    read the samples from the least to the greatest offset, ``span`` (two
+    host integers; read from ``offsets``, a host sync, when None)."""
     B, y_len = y.shape
     n_bands, L = bank.shape
     if block is None or y_len <= block:
         conv = fir_bank_full(y, bank)                     # (B, n_bands, y_len+L-1)
         idx = offsets[:, None] + torch.arange(y_len, device=y.device)[None, :]
         return torch.gather(conv, 2, idx.expand(B, n_bands, y_len))
-    lo, hi = int(offsets.min()), int(offsets.max())
+    lo, hi = span if span is not None else (int(offsets.min()), int(offsets.max()))
     yp = F.pad(y, (L - 1, L - 1))
     out = torch.empty((B, n_bands, y_len), dtype=y.dtype, device=y.device)
     rel = (offsets - lo)[:, None]

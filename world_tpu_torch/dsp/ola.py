@@ -5,8 +5,10 @@ it runs, on the card too.  The uniform frame grid keeps the shift-and-fold
 form.  The irregularly spaced pulses go into 32-sample slots first, as the
 JAX package's ``slotted_ola`` does, but by rank inside the slot in place of
 its one-hot matrix product: no atomic adds, whose order changes from run
-to run.
+to run.  Every function takes leading batch axes.
 """
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -17,72 +19,105 @@ SLOT = 32
 
 def uniform_ola(resp: torch.Tensor, start0: int, hop: int,
                 y_length: int) -> torch.Tensor:
-    """Overlap-add of resp (F, W) at starts start0 + f*hop; parts outside
-    [0, y_length) are dropped.  Chunk c of frame f lands in output block
-    f + c, added in chunk order."""
-    Fr, W = resp.shape
+    """Overlap-add of resp (..., F, W) at starts start0 + f*hop; parts
+    outside [0, y_length) are dropped.  Chunk c of frame f lands in output
+    block f + c, added in chunk order."""
+    *lead, Fr, W = resp.shape
     n_chunks = -(-W // hop)
     r = F.pad(resp, (0, n_chunks * hop - W))
-    blocks = torch.zeros((Fr + n_chunks, hop), dtype=resp.dtype,
+    blocks = torch.zeros((*lead, Fr + n_chunks, hop), dtype=resp.dtype,
                          device=resp.device)
     for c in range(n_chunks):
-        blocks[c:c + Fr] += r[:, c * hop:(c + 1) * hop]
-    flat = blocks.reshape(-1)
-    out = torch.zeros(y_length, dtype=resp.dtype, device=resp.device)
+        blocks[..., c:c + Fr, :] += r[..., c * hop:(c + 1) * hop]
+    flat = blocks.reshape(*lead, -1)
+    out = torch.zeros((*lead, y_length), dtype=resp.dtype, device=resp.device)
     lo = max(0, start0)
     src_lo = lo - start0
-    n = min(y_length - lo, flat.shape[0] - src_lo)
+    n = min(y_length - lo, flat.shape[-1] - src_lo)
     if n > 0:
-        out[lo:lo + n] = flat[src_lo:src_lo + n]
+        out[..., lo:lo + n] = flat[..., src_lo:src_lo + n]
     return out
 
 
-def scatter_ola(resp: torch.Tensor, starts: torch.Tensor,
-                y_length: int) -> torch.Tensor:
-    """y[starts[p] + j] += resp[p, j] for every in-range sample, for
-    nondecreasing integer ``starts`` with at most SLOT rows starting in one
-    slot (the syntheses' pulse starts, strictly increasing, give that);
-    rows that lie wholly outside [0, y_length) contribute nothing.
+def rank_bound(f_max: float, fs: float) -> int:
+    """The most pulse starts a SLOT-sample slot can hold when no pulse
+    train is faster than ``f_max`` Hz at ``fs``.
+
+    A pulse fires at sample t where the running phase passes a multiple of
+    2 pi between t and t + 1, and the phase gains at most 2 pi f_max / fs a
+    sample.  Two pulses at t1 < t2 have a whole turn between t1 and t2 + 1,
+    so t2 + 1 - t1 >= fs / f_max: starts lie at least d = fs / f_max - 1
+    samples apart, and k of them in one slot span (k - 1) d <= SLOT - 1.
+    Hence k <= 1 + (SLOT - 1) / d.  With x = f_max / fs <= 0.177 (so that
+    32 x^2 <= 1), (SLOT - 1) x / (1 - x) < SLOT x + 1, and k is at most
+    ceil(SLOT x) + 1; the larger of the two counts is returned, never more
+    than SLOT (a phase wrap fires at most once a sample)."""
+    if 2 * f_max >= fs:
+        return SLOT
+    x = f_max / fs
+    by_spacing = 1 + math.floor((SLOT - 1) / (1 / x - 1))
+    return min(SLOT, max(math.ceil(SLOT * x) + 1, by_spacing))
+
+
+def slot_ola(resp: torch.Tensor, starts: torch.Tensor, y_length: int,
+             max_rank: int):
+    """(y (..., y_length), crowded (...)): y[..., starts[p] + j] +=
+    resp[..., p, j] for every in-range sample of resp (..., P, W), for
+    nondecreasing integer ``starts`` (..., P); rows that lie wholly outside
+    [0, y_length) contribute nothing.  Nothing is read back to the host.
 
     What ``world_tpu.dsp.ola.slotted_ola`` computes: each row is shifted to
     its offset inside its SLOT-sample slot, the rows of a slot are summed in
     their order, and the slot grid folds with :func:`uniform_ola`.  A row's
     rank inside its slot picks the pass that adds it: the rows of one rank
     sit in distinct slots, so each pass is a scatter without collisions.
-    Costs one host sync, for the count of rows of each rank."""
-    P, W = resp.shape
+    ``max_rank`` passes run (:func:`rank_bound`); every row of the pass's
+    rank adds its shifted response to its slot's grid row, every other row
+    writes a trash row.  A live row of rank ``max_rank`` or more is not
+    added and sets ``crowded`` for its batch row: the JAX function has no
+    such limit, and the flag says when the bound was passed."""
+    *lead, P, W = resp.shape
+    R = math.prod(lead)
+    resp = resp.reshape(R, P, W)
     dev = resp.device
     width = W + SLOT
     base = SLOT * (-(-W // SLOT) + 1)           # slot 0 starts at -base <= -W
     n_slots = (y_length + base) // SLOT + 2
-    s = starts.to(torch.int64) + base
+    s = starts.reshape(R, P).to(torch.int64) + base
     sid = torch.div(s, SLOT, rounding_mode="floor")
     off = s - sid * SLOT
     # a row past either end of the slot grid lies wholly outside the output
     live = (sid >= 0) & (sid < n_slots)
     p = torch.arange(P, device=dev)
-    first = torch.ones(P, dtype=torch.bool, device=dev)
-    first[1:] = sid[1:] != sid[:-1]
-    rank = p - torch.cummax(torch.where(first, p, torch.zeros_like(p)), 0).values
-    # live rows by rank (rank SLOT: more than SLOT rows in a slot), then
-    # the rows outside (SLOT + 1), each group in row order
-    key = torch.where(live, torch.clamp(rank, max=SLOT),
-                      torch.full_like(rank, SLOT + 1))
-    order = torch.argsort(key, stable=True)
-    # counted by a scatter: bincount on the card syncs once more for its size
-    counts = torch.zeros(SLOT + 2, dtype=torch.int64, device=dev).scatter_add_(
-        0, key, torch.ones_like(key)).tolist()
-    if counts[SLOT]:
+    first = torch.ones((R, P), dtype=torch.bool, device=dev)
+    first[:, 1:] = sid[:, 1:] != sid[:, :-1]
+    rank = p - torch.cummax(torch.where(first, p, torch.zeros_like(p)), -1).values
+    # each response at its offset inside a row of the slot's width
+    shifted = torch.zeros((R, P, width), dtype=resp.dtype, device=dev)
+    shifted.scatter_(-1, off[..., None] + torch.arange(W, device=dev), resp)
+    shifted = shifted.reshape(R * P, width)
+    # grid row r * (n_slots + 1) + slot; row n_slots of each is the trash
+    grid = torch.zeros((R * (n_slots + 1), width), dtype=resp.dtype, device=dev)
+    row0 = torch.arange(R, device=dev)[:, None] * (n_slots + 1)
+    at = row0 + torch.where(live, sid, n_slots)
+    trash = (row0 + n_slots).expand(R, P)
+    for r in range(max_rank):
+        rows = torch.where(live & (rank == r), at, trash).reshape(-1)
+        grid.index_put_((rows,), grid[rows] + shifted)
+    crowded = (live & (rank >= max_rank)).any(dim=-1)
+    grid = grid.view(R, n_slots + 1, width)[:, :n_slots]
+    y = uniform_ola(grid, -base, SLOT, y_length)
+    return y.reshape(*lead, y_length), crowded.reshape(lead)
+
+
+def scatter_ola(resp: torch.Tensor, starts: torch.Tensor,
+                y_length: int) -> torch.Tensor:
+    """:func:`slot_ola` at ``max_rank = SLOT`` for resp (..., P, W), checked:
+    one read of the crowded flag, and ValueError where more than SLOT rows
+    start in one slot (the syntheses' pulse starts, strictly increasing,
+    never do)."""
+    y, crowded = slot_ola(resp, starts, y_length, SLOT)
+    if bool(crowded.any()):
         raise ValueError(f"scatter_ola: more than {SLOT} rows start in one "
                          f"{SLOT}-sample slot")
-    grid = torch.zeros(n_slots * width, dtype=resp.dtype, device=dev)
-    cols = torch.arange(W, device=dev)
-    lo = 0
-    for n in counts[:SLOT]:
-        if n == 0:
-            break
-        rows = order[lo:lo + n]
-        idx = (sid[rows] * width + off[rows])[:, None] + cols
-        grid.index_put_((idx,), grid[idx] + resp[rows])
-        lo += n
-    return uniform_ola(grid.view(n_slots, width), -base, SLOT, y_length)
+    return y

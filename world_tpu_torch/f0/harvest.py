@@ -2,9 +2,13 @@
 
 Every stage takes a leading batch axis of utterances: the band filtering,
 the event engine (K1, bands x 4 event types x batch as rows), the candidate
-detection and compaction, the refinement (K2, batch folded into frames) and
-the per-frame contour stages run batched; FixStep3's chains and merge and the
-section smoothing run per utterance.
+detection and compaction, the refinement (K2, batch folded into frames), the
+per-frame contour stages, FixStep3's chains and merge and the section
+smoothing.  The contour stages keep the JAX package's static shapes: each
+utterance has ``max_sections`` voiced-section rows, masked where it has
+fewer, so that nothing is read back to the host and the shapes depend on the
+caps alone (what a CUDA graph needs, and what ``jax.jit`` needs).  Tables
+that come from the host are built once (:mod:`..tables`).
 
 Long audio and large batches run in bounded memory.  Each stage whose
 temporaries grow with batch x duration takes the JAX package's argument for
@@ -39,6 +43,7 @@ from ..dsp.scanops import compact_rows
 from ..dsp.windows import np_nuttall
 from ..frames import uniform_centered_slabs
 from ..ops.refine_dft import dft_table, refine_full
+from ..tables import cached, device_key, frame_grid, table
 from .events import four_event_interp, launch_pieces
 
 C2_SLOTS = 48           # refinement slots per frame after compaction
@@ -57,10 +62,16 @@ def boundary_f0_list(f0_floor: float, f0_ceil: float) -> np.ndarray:
          + 1) / channels_in_octave)
 
 
+def band_half_lengths(boundary_f0s: np.ndarray, actual_fs: float) -> list:
+    """Each band filter's half length; band b is read from sample
+    ``halfs[b] + 1`` of its full convolution."""
+    return [int(math.floor(actual_fs / bf * 2 + 0.5)) for bf in boundary_f0s]
+
+
 def band_filter_bank(boundary_f0s: np.ndarray, actual_fs: float):
     """Static per-band Nuttall band-pass FIRs (harvest.py:252-257): bank
     (n_bands, L) left-aligned, bias (n_bands,) output offsets."""
-    halfs = [int(math.floor(actual_fs / bf * 2 + 0.5)) for bf in boundary_f0s]
+    halfs = band_half_lengths(boundary_f0s, actual_fs)
     max_len = 2 * max(halfs) + 1
     bank = np.zeros((len(halfs), max_len))
     bias = np.zeros(len(halfs), dtype=np.int64)
@@ -119,7 +130,16 @@ def harvest_tables(fs: int, f0_floor: float, f0_ceil: float,
     """Harvest's static tables, built on the host in float64: the band FIR
     bank and its output offsets, the decimator's truncated impulse response,
     the refinement DFT table and the smoothing kernel (kept in float64: its
-    spectrum is taken in float64, as the JAX package does)."""
+    spectrum is taken in float64, as the JAX package does).  Built once per
+    (fs, f0 range, type, device) and kept (:mod:`..tables`)."""
+    device = device_key(device)
+    return dict(cached(("harvest_tables", int(fs), float(f0_floor),
+                        float(f0_ceil), dtype, device),
+                       lambda: _build_harvest_tables(fs, f0_floor, f0_ceil,
+                                                     dtype, device)))
+
+
+def _build_harvest_tables(fs, f0_floor, f0_ceil, dtype, device) -> dict:
     ratio, actual_fs = decimation(fs)
     bank, bias = band_filter_bank(boundary_f0_list(f0_floor, f0_ceil),
                                   actual_fs)
@@ -175,11 +195,16 @@ def raw_band_candidates(y: torch.Tensor, actual_fs: float, bank: torch.Tensor,
                                 boundary_f0s, temporal_positions, f0_floor,
                                 f0_ceil, band_chunk, block)
             for r0 in range(0, B, row_piece)])
-    bf_all = torch.as_tensor(boundary_f0s, dtype=y.dtype, device=y.device)
+    bf_all = table("boundary_f0s", (float(f0_floor), float(f0_ceil)),
+                   lambda: boundary_f0s, y.dtype, y.device)
+    # the bands' offsets on the host: the blocked bank reads its span from
+    # them, not from ``bias`` on the device
+    offsets = np.asarray(band_half_lengths(boundary_f0s, actual_fs)) + 1
     out = []
     for b0 in range(0, n_bands, chunk):
+        span = offsets[b0:b0 + chunk]
         filtered = band_filtered(y, bank[b0:b0 + chunk], bias[b0:b0 + chunk],
-                                 block)
+                                 block, span=(int(span.min()), int(span.max())))
         f0c, _ = four_event_interp(filtered.reshape(-1, y_len), actual_fs,
                                    temporal_positions, actual_fs * 0.001)
         del filtered
@@ -254,13 +279,15 @@ def refinement_phase(actual_fs: float, max_half: int,
     """(F, W) window phase of GetRefinedF0 (see world_tpu/f0/harvest.py:242-259):
     (base - 0.499)/fs, minus 1/fs where t*fs + base + 0.001 <= 0."""
     dtype, dev = temporal_positions.dtype, temporal_positions.device
-    base = np.arange(-max_half, max_half + 1, dtype=np.float64)
-    phase_c = torch.as_tensor((base - 0.499) / np.float64(actual_fs),
-                              dtype=dtype, device=dev)
-    inv_fs = torch.as_tensor(np.float64(1.0) / actual_fs, dtype=dtype, device=dev)
-    raw = (temporal_positions[:, None] * torch.as_tensor(actual_fs, dtype=dtype,
-                                                         device=dev)
-           + torch.as_tensor(base, dtype=dtype, device=dev)[None, :] + 0.001)
+    key = (float(actual_fs), int(max_half))
+    base = lambda: np.arange(-max_half, max_half + 1, dtype=np.float64)  # noqa: E731
+    phase_c = table("refine_phase_c", key,
+                    lambda: (base() - 0.499) / np.float64(actual_fs), dtype, dev)
+    base_t = table("refine_base", key, base, dtype, dev)
+    inv_fs = torch.full((), float(np.float64(1.0) / actual_fs), dtype=dtype,
+                        device=dev)
+    fs_t = torch.full((), float(actual_fs), dtype=dtype, device=dev)
+    raw = temporal_positions[:, None] * fs_t + base_t[None, :] + 0.001
     return phase_c[None, :] - (raw <= 0.0).to(dtype) * inv_fs
 
 
@@ -394,147 +421,197 @@ def fix_step2(f0_step1: torch.Tensor, voice_range_minimum: int = 6):
 
 
 def sections(f0: torch.Tensor, max_sections: int):
-    """Starts and ends (count,) int64 of the first ``max_sections`` voiced
-    sections of f0 (n,) under GetBoundaryList's edge forcing."""
-    _, is_start, is_end, _ = _voiced_edges(f0)
-    starts = is_start.nonzero()[:max_sections, 0]
-    ends = is_end.nonzero()[:max_sections, 0]
-    return starts, ends
+    """The voiced sections of f0 (..., n) under GetBoundaryList's edge
+    forcing, in the JAX package's static form
+    (world_tpu/f0/harvest.py::_sections): starts, ends and valid, each
+    (..., max_sections); the first ``max_sections`` sections in order, the
+    rows past a contour's own count 0 and not valid."""
+    _, is_start, is_end, i = _voiced_edges(f0)
+    where_at = i.expand(f0.shape)
+    starts, rank = compact_rows(where_at, is_start, max_sections)
+    ends, _ = compact_rows(where_at, is_end, max_sections)
+    valid = (torch.arange(max_sections, device=f0.device)
+             < rank[..., -1:])
+    return starts, ends, valid
 
 
-def _extend_chains(f0, origin, last_point, shift: int, cands, allowed_range,
+def _extend_chains(f0, origin, last_point, shift, cands, allowed_range,
                    n_steps: int):
-    """ExtendF0 from every section at once: n_steps SelectBestF0 picks.
-    Returns (positions, values, active) each (n_steps, Ns), and the shifted
-    origins (Ns,)."""
-    n = f0.shape[0]
-    C = cands.shape[0]
+    """ExtendF0 from every section end at once: n_steps SelectBestF0 picks.
+    f0 (B, n), origin and last_point (B, R), shift (R,) +1 or -1 (forward
+    from a section's end, backward from its start), cands (B, C, n).
+    Returns (positions, values, active) each (B, R, n_steps), and the
+    shifted origins (B, R).
+
+    A chain is in range while origin + shift (k + 1) has not passed
+    last_point + shift, i.e. while k + 1 <= shift (last_point - origin) + 1,
+    and runs until it leaves its range or misses 4 picks in a row."""
+    n = f0.shape[-1]
+    B, C = cands.shape[0], cands.shape[1]
+    R = origin.shape[-1]
     tiny = torch.finfo(f0.dtype).tiny
     zero = torch.zeros((), dtype=f0.dtype, device=f0.device)
-    tmp = f0[origin]
+    reach = shift * (last_point - origin) + 1
+    tmp = torch.gather(f0, -1, origin)
     misses = torch.zeros_like(origin)
-    shifted = origin.clone()
-    stopped = torch.zeros_like(origin, dtype=torch.bool)
-    cols = torch.arange(origin.shape[0], device=f0.device)
+    shifted = origin
+    running = torch.ones_like(origin, dtype=torch.bool)
+    pos = origin
     out_pos, out_val, out_act = [], [], []
     for k in range(n_steps):
-        pos = origin + shift * (k + 1)
-        in_range = pos <= last_point + 1 if shift > 0 else pos >= last_point - 1
-        active = ~stopped & in_range
-        ref = torch.clamp(tmp, min=tiny)
-        cand = cands[:, pos.clamp(0, n - 1)]                   # (C, Ns)
-        err = torch.abs(ref - cand) / ref
-        j = C - 1 - torch.argmin(torch.flip(err, (0,)), dim=0)  # last argmin
-        ok = err[j, cols] <= allowed_range
-        val = torch.where(ok & active, cand[j, cols], zero)
+        pos = pos + shift
+        active = running & (reach >= k + 1)
+        ref = torch.clamp(tmp, min=tiny)[:, None, :]
+        cand = torch.gather(cands, -1,
+                            pos.clamp(0, n - 1)[:, None, :].expand(B, C, R))
+        err = torch.abs(ref - cand) / ref                     # (B, C, R)
+        j = (C - 1 - torch.argmin(torch.flip(err, (1,)), dim=1))[:, None, :]
+        ok = torch.gather(err, 1, j)[:, 0] <= allowed_range  # last argmin
+        val = torch.where(ok & active, torch.gather(cand, 1, j)[:, 0], zero)
         hit = active & (val != 0)
         tmp = torch.where(hit, val, tmp)
         shifted = torch.where(hit, pos, shifted)
-        misses = torch.where(hit, torch.zeros_like(misses),
-                             misses + active.to(misses.dtype))
-        stopped = stopped | (misses >= 4) | ~in_range
+        misses = torch.where(hit, 0, misses + active)
+        running = active & (misses < 4)
         out_pos.append(pos)
         out_val.append(val)
         out_act.append(active)
-    return (torch.stack(out_pos), torch.stack(out_val), torch.stack(out_act),
-            shifted)
-
-
-def _place_chain(row, pos, val, act):
-    """row[s, pos[k, s]] = val[k, s] wherever act[k, s]."""
-    k_idx, s_idx = act.nonzero(as_tuple=True)
-    row[s_idx, pos[k_idx, s_idx]] = val[k_idx, s_idx]
-
-
-def _merge_section(f0_m, cur_st, cur_ed, row, st2, ed2, i, sscore, zero):
-    """One step of MergeF0 (harvest.py:442-486): merge the extended section
-    ``row`` over [st2, ed2] into the contour ``f0_m``, whose last section
-    covers [cur_st, cur_ed] (all None before the first section).  Returns
-    the new (f0_m, cur_st, cur_ed)."""
-    if f0_m is None:
-        return row, st2, ed2
-    disjoint = (st2 - cur_ed) > 0
-    f0_dis = torch.where((i >= st2) & (i <= ed2), row, f0_m)
-    contained = (cur_st <= st2) & (cur_ed >= ed2)
-    ov = (i >= st2) & (i <= cur_ed)
-    s1 = torch.where(ov, sscore(f0_m), zero).sum()
-    s2 = torch.where(ov, sscore(row), zero).sum()
-    take2_from = torch.where(s1 > s2, cur_ed, st2)
-    f0_sub = torch.where((i >= take2_from) & (i <= ed2), row, f0_m)
-    f0_ovl = torch.where(contained, f0_m, f0_sub)
-    new_ed_ovl = torch.where(contained, cur_ed, ed2)
-    return (torch.where(disjoint, f0_dis, f0_ovl),
-            torch.where(disjoint, st2, cur_st),
-            torch.where(disjoint, ed2, new_ed_ovl))
+    return (torch.stack(out_pos, -1), torch.stack(out_val, -1),
+            torch.stack(out_act, -1), shifted)
 
 
 def fix_step3(f0_step2: torch.Tensor, cands: torch.Tensor, scores: torch.Tensor,
               allowed_range: float = 0.18, max_sections: int = 256,
               section_chunk: int = None):
-    """Extend + merge voiced sections (harvest.py:357-383) for one utterance:
-    f0_step2 (n,), cands/scores (C, n).  ``section_chunk``: hold the
-    (sections, n) extended contour rows of that many sections at a time,
-    first to decide which sections are kept, then again for the kept ones in
-    merge order."""
-    n = f0_step2.shape[0]
+    """Extend + merge voiced sections (harvest.py:357-383) of one utterance,
+    f0_step2 (n,) and cands/scores (C, n), or of a batch, (B, n) and
+    (B, C, n), on the JAX package's static shapes
+    (world_tpu/f0/harvest.py::fix_step3): every utterance has
+    ``max_sections`` section rows, those past its own sections masked.
+
+    MergeF0 walks the rows sorted by extended start, the kept ones first,
+    ``max_sections`` steps for every utterance; a step whose row is not kept
+    changes nothing (the reference's ``lax.scan`` with ``lax.cond``).  Each
+    step replaces one interval of the merged contour by the row's values,
+    and SerachScore's score of every row is taken once, before the merge:
+    the score of a contour is a function of each frame's value, so the
+    merged contour's scores follow its values through the same selections.
+    ``section_chunk``: hold the (B, sections, n) extended contour rows of
+    that many sections at a time, first to decide which sections are kept,
+    then again for the rows in merge order."""
+    single = f0_step2.dim() == 1
+    if single:
+        f0_step2, cands, scores = f0_step2[None], cands[None], scores[None]
+    B, n = f0_step2.shape
+    C = cands.shape[1]
+    S = int(max_sections)
     dev, dtype = f0_step2.device, f0_step2.dtype
-    starts, ends = sections(f0_step2, max_sections)
-    if starts.shape[0] == 0:
-        return f0_step2
+    starts, ends, valid = sections(f0_step2, S)
     threshold1, threshold2 = 100, 2200.0
-    pos_f, val_f, act_f, r1 = _extend_chains(
-        f0_step2, ends, torch.clamp(ends + threshold1, max=n - 2), 1, cands,
-        allowed_range, threshold1 + 1)
-    pos_b, val_b, act_b, r0 = _extend_chains(
-        f0_step2, starts, torch.clamp(starts - threshold1, min=1), -1, cands,
-        allowed_range, threshold1 + 1)
+    n_steps = threshold1 + 1
+    # both directions at once: forward from each end, backward from each start
+    shift = torch.cat([torch.ones(S, dtype=torch.int64, device=dev),
+                       torch.full((S,), -1, dtype=torch.int64, device=dev)])
+    pos, val, act, reached = _extend_chains(
+        f0_step2, torch.cat([ends, starts], -1),
+        torch.cat([torch.clamp(ends + threshold1, max=n - 2),
+                   torch.clamp(starts - threshold1, min=1)], -1),
+        shift, cands, allowed_range, n_steps)
+    r1, r0 = reached[:, :S], reached[:, S:]
     i = torch.arange(n, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
-    n_sec = starts.shape[0]
-    chunk = n_sec if section_chunk is None else max(1, int(section_chunk))
+    chunk = S if section_chunk is None else max(1, int(section_chunk))
 
     def section_rows(sel):
-        """The extended contour rows (len(sel), n) of sections ``sel``."""
-        rows = torch.where((i >= starts[sel, None]) & (i <= ends[sel, None]),
-                           f0_step2[None, :], zero)
-        _place_chain(rows, pos_f[:, sel], val_f[:, sel], act_f[:, sel])
-        _place_chain(rows, pos_b[:, sel], val_b[:, sel], act_b[:, sel])
-        return rows
+        """The extended contour rows (B, c, n) of the sections sel (B, c).
+        Each chain is one scatter into a row with a trash column at n:
+        the steps that wrote nothing write there."""
+        pick = lambda t: torch.gather(t, 1, sel)                  # noqa: E731
+        rows = torch.zeros(sel.shape + (n + 1,), dtype=dtype, device=dev)
+        rows[..., :n] = torch.where(
+            (i >= pick(starts)[..., None]) & (i <= pick(ends)[..., None]),
+            f0_step2[:, None, :], zero)
+        steps = sel[..., None].expand(-1, -1, n_steps)
+        for half in (slice(0, S), slice(S, 2 * S)):
+            at = torch.where(torch.gather(act[:, half], 1, steps),
+                             torch.gather(pos[:, half], 1, steps), n)
+            rows.scatter_(-1, at, torch.gather(val[:, half], 1, steps))
+        return rows[..., :n]
 
-    means = []
-    for lo in range(0, n_sec, chunk):
-        sel = torch.arange(lo, min(lo + chunk, n_sec), device=dev)
+    def chunk_sel(lo):
+        return torch.arange(lo, min(lo + chunk, S), device=dev).expand(B, -1)
+
+    means, rows = [], None
+    for lo in range(0, S, chunk):
+        sel = chunk_sel(lo)
         rows = section_rows(sel)
-        in_rng = (i >= r0[sel, None]) & (i <= r1[sel, None])
-        means.append(torch.where(in_rng, rows, zero).sum(dim=1)
-                     / in_rng.sum(dim=1))
-    mean_f0 = means[0] if len(means) == 1 else torch.cat(means)
-    keeps = rdiv(threshold2, mean_f0) < (r1 - r0)
+        in_rng = ((i >= torch.gather(r0, 1, sel)[..., None])
+                  & (i <= torch.gather(r1, 1, sel)[..., None]))
+        means.append(torch.where(in_rng, rows, zero).sum(dim=-1)
+                     / in_rng.sum(dim=-1))
+    mean_f0 = means[0] if len(means) == 1 else torch.cat(means, dim=-1)
+    keeps = valid & (rdiv(threshold2, mean_f0) < (r1 - r0))
 
-    # MergeF0 (harvest.py:442-486): kept sections in order of extended start
+    # MergeF0 (harvest.py:442-486): the rows in order of extended start,
+    # the kept ones first
     order = torch.argsort(torch.where(keeps, r0, torch.full_like(r0, n + 10)),
-                          stable=True)
-    n_kept = int(keeps.sum())
-    if n_kept == 0:
-        return f0_step2
-    order = order[:n_kept]
+                          dim=-1, stable=True)
+    keep_o = torch.gather(keeps, 1, order)
+    st_o = torch.gather(r0, 1, order)
+    ed_o = torch.gather(r1, 1, order)
 
-    def sscore(contour):
-        eq = cands == contour[None, :]
-        return torch.where(eq, scores, zero).amax(dim=0)
+    # SerachScore (the max score of the candidates equal to a frame's value)
+    # of contour rows (B, c, n), a few rows at a time: their (B, rows, C, n)
+    # comparisons and selections hold at most an eighth of the budget
+    # beside the section chunk (:func:`stage_units`)
+    sub = max(1, STAGE_BYTES_BUDGET // 8
+              // (B * C * n * (1 + f0_step2.element_size())))
 
-    whole = chunk >= n_sec       # the one chunk's rows are still there
-    f0_m = cur_st = cur_ed = None
-    for lo in range(0, n_kept, chunk):
-        sel = order[lo:lo + chunk]
-        if not whole:
-            rows = section_rows(sel)
-        for k in range(sel.shape[0]):
-            s = sel[k]
-            f0_m, cur_st, cur_ed = _merge_section(
-                f0_m, cur_st, cur_ed, rows[s] if whole else rows[k], r0[s],
-                r1[s], i, sscore, zero)
-    return f0_m
+    def row_scores(rows):
+        out = []
+        for s0 in range(0, rows.shape[1], sub):
+            eq = cands[:, None] == rows[:, s0:s0 + sub, None, :]
+            out.append(torch.where(eq, scores[:, None], zero).amax(dim=-2))
+        return out[0] if len(out) == 1 else torch.cat(out, dim=1)
+
+    f0_m = torch.zeros_like(f0_step2)
+    ss_m = row_scores(f0_m[:, None])[:, 0]          # the empty contour's
+    cur_st = torch.zeros_like(st_o[:, 0])
+    cur_ed = torch.zeros_like(cur_st)
+    started = torch.zeros(B, dtype=torch.bool, device=dev)
+    for lo in range(0, S, chunk):
+        sel = order[:, lo:lo + chunk]
+        if chunk >= S:           # the one chunk's rows are still there
+            rows_o = torch.gather(rows, 1, sel[..., None].expand(-1, -1, n))
+        else:
+            rows_o = section_rows(sel)
+        ss_o = row_scores(rows_o)
+        for k in range(sel.shape[1]):
+            row, ss_row = rows_o[:, k], ss_o[:, k]
+            st2, ed2, keep = st_o[:, lo + k], ed_o[:, lo + k], keep_o[:, lo + k]
+            # the first kept row starts the contour; a later one starts a
+            # new section when it is disjoint, else it overlaps the last
+            # one (MergeF0Sub), which keeps the contour where the row lies
+            # inside it, and else takes the row from where the row's score
+            # over the overlap is the greater: from its start, or from the
+            # contour's end
+            disjoint = st2 > cur_ed
+            contained = (cur_st <= st2) & (cur_ed >= ed2)
+            ov = (i >= st2[:, None]) & (i <= cur_ed[:, None])
+            s1 = torch.where(ov, ss_m, zero).sum(dim=-1)
+            s2 = torch.where(ov, ss_row, zero).sum(dim=-1)
+            fresh = keep & (~started | disjoint)
+            extends = fresh | (keep & ~contained)
+            take_lo = torch.where(fresh, st2, torch.where(s1 > s2, cur_ed, st2))
+            take_hi = torch.where(extends, ed2, -1)
+            take = (i >= take_lo[:, None]) & (i <= take_hi[:, None])
+            f0_m = torch.where(take, row, f0_m)
+            ss_m = torch.where(take, ss_row, ss_m)
+            cur_st = torch.where(fresh, st2, cur_st)
+            cur_ed = torch.where(extends, ed2, cur_ed)
+            started = started | keep
+    out = torch.where(started[:, None], f0_m, f0_step2)
+    return out[0] if single else out
 
 
 def fix_step4(f0_step3: torch.Tensor, threshold: int = 9):
@@ -559,21 +636,25 @@ def smooth_f0(f0: torch.Tensor, max_sections: int = 256,
               kernel: torch.Tensor = None,
               section_chunk: int = None) -> torch.Tensor:
     """Per-voiced-section zero-phase biquad smoothing (harvest.py:533-559) as
-    one batched FFT convolution of the constant-extended section rows; f0
-    (n,).  ``kernel``: the (2R+1,) float64 zero-phase kernel (computed when
-    None).  ``section_chunk``: convolve that many section rows at a time;
-    sections are disjoint, so each sample gets at most one nonzero term and
-    the sum over chunks is the single sum."""
+    one batched FFT convolution of the constant-extended section rows of f0
+    (n,) or (B, n): ``max_sections`` rows an utterance, masked past its own
+    sections (world_tpu/f0/harvest.py::smooth_f0, with torch.fft for its
+    matrix FFTs).  ``kernel``: the (2R+1,) float64 zero-phase kernel (the
+    kept table when None).  ``section_chunk``: convolve that many section
+    rows at a time; sections are disjoint, so each sample gets at most one
+    nonzero term and the sum over chunks is the single sum."""
+    single = f0.dim() == 1
+    f0b = f0[None] if single else f0
     R = _SMOOTH_RADIUS
-    dtype, dev = f0.dtype, f0.device
-    padded = F.pad(f0, (R, R))
-    m = padded.shape[0]
-    starts, ends = sections(padded, max_sections)
-    if starts.shape[0] == 0:
-        return torch.zeros_like(f0)
+    S = int(max_sections)
+    dtype, dev = f0b.dtype, f0b.device
+    padded = F.pad(f0b, (R, R))
+    m = padded.shape[-1]
+    starts, ends, valid = sections(padded, S)
     N = int(2 ** np.ceil(np.log2(m + 2 * R)))
     if kernel is None:
-        kernel = torch.as_tensor(smooth_zero_phase_kernel(), device=dev)
+        kernel = table("smooth_kernel", (), smooth_zero_phase_kernel,
+                       torch.float64, dev)
     kern = torch.zeros(N, dtype=torch.float64, device=dev)
     kern[:R + 1] = kernel[R:]
     kern[-R:] = kernel[:R]
@@ -581,17 +662,21 @@ def smooth_f0(f0: torch.Tensor, max_sections: int = 256,
     gf = torch.fft.rfft(kern).to(cdtype)
     i = torch.arange(m, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
-    n_sec = starts.shape[0]
-    chunk = n_sec if section_chunk is None else max(1, int(section_chunk))
+    chunk = S if section_chunk is None else max(1, int(section_chunk))
     smoothed = None
-    for lo in range(0, n_sec, chunk):
-        st, ed = starts[lo:lo + chunk, None], ends[lo:lo + chunk, None]
-        rows = torch.where(i < st, padded[st], torch.where(i > ed, padded[ed],
-                                                           padded[None, :]))
-        out = torch.fft.irfft(torch.fft.rfft(rows, N) * gf, N)[:, :m]
-        part = torch.where((i >= st) & (i <= ed), out, zero).sum(dim=0)
+    for lo in range(0, S, chunk):
+        st, ed = starts[:, lo:lo + chunk], ends[:, lo:lo + chunk]
+        c_st = torch.gather(padded, 1, st)[..., None]
+        c_ed = torch.gather(padded, 1, ed)[..., None]
+        st, ed = st[..., None], ed[..., None]
+        rows = torch.where(i < st, c_st, torch.where(i > ed, c_ed,
+                                                     padded[:, None, :]))
+        out = torch.fft.irfft(torch.fft.rfft(rows, N) * gf, N)[..., :m]
+        keep = (i >= st) & (i <= ed) & valid[:, lo:lo + chunk, None]
+        part = torch.where(keep, out, zero).sum(dim=-2)
         smoothed = part if smoothed is None else smoothed + part
-    return smoothed[R:m - R]
+    out = smoothed[..., R:m - R]
+    return out[0] if single else out
 
 
 # ---------------------------------------------------------------------------
@@ -638,14 +723,16 @@ def stage_units(n_rows: int, n_frames: int, max_half: int, n_slots: int,
         the phase's three temporaries and the int64 segment index;
       * ``unreliable_chunk`` (remove_unreliable's ``frame_chunk``): per
         frame, three (slots, slots) error temporaries for every row;
-      * ``step3_chunk`` (fix_step3's ``section_chunk``): per section, one
-        contour row of n_frames items, the row masked to its range and two
-        boolean masks.  Sized for ``max_sections``; the stage holds no more
-        rows than it finds sections;
-      * ``smooth_chunk`` (smooth_f0's ``section_chunk``): per section, the
-        padded row, its convolution of N items and two half spectra of
-        N / 2 + 1 complex items, N the power of two past n_frames + 1200,
-        and two boolean masks."""
+      * ``step3_chunk`` (fix_step3's ``section_chunk``): per section of
+        every row, one contour row of n_frames items, the row masked to its
+        range (or its copy in merge order), its scores and two boolean
+        masks; the scores' temporaries take at most an eighth of the budget
+        beside the chunk;
+      * ``smooth_chunk`` (smooth_f0's ``section_chunk``): per section of
+        every row, the padded row, its convolution of N items and two half
+        spectra of N / 2 + 1 complex items, N the power of two past
+        n_frames + 1200, and two boolean masks.
+    Both stages hold ``max_sections`` rows an utterance, used or not."""
     W = 2 * max_half + 1
     m = n_frames + 2 * _SMOOTH_RADIUS
     N = int(2 ** np.ceil(np.log2(m + 2 * _SMOOTH_RADIUS)))
@@ -653,8 +740,9 @@ def stage_units(n_rows: int, n_frames: int, max_half: int, n_slots: int,
                              n_frames),
             "unreliable_chunk": (3 * n_rows * n_slots * n_slots * itemsize,
                                  n_frames),
-            "step3_chunk": (n_frames * (2 * itemsize + 2), max_sections),
-            "smooth_chunk": (itemsize * (m + N + 2 * (N + 2)) + 2 * m,
+            "step3_chunk": (n_rows * n_frames * (3 * itemsize + 2),
+                            max_sections),
+            "smooth_chunk": (n_rows * (itemsize * (m + N + 2 * (N + 2)) + 2 * m),
                              max_sections)}
 
 
@@ -705,8 +793,7 @@ def harvest_decimated(y: torch.Tensor, actual_fs: float, signal_length: int,
     B = y.shape[0]
     dtype, dev = y.dtype, y.device
     num_samples = int(1000 * signal_length / fs + 1)
-    basic_tp = torch.as_tensor(np.arange(num_samples) / 1000, dtype=dtype,
-                               device=dev)
+    basic_tp = frame_grid(num_samples, 1.0, dev).to(dtype)
     bfl = boundary_f0_list(f0_floor, f0_ceil)
     if tables is None:
         tables = harvest_tables(fs, f0_floor, f0_ceil, dtype, dev)
@@ -740,21 +827,17 @@ def harvest_decimated(y: torch.Tensor, actual_fs: float, signal_length: int,
     f0_base = search_f0_base(cands3, scores3)
     f0_step1 = fix_step1(f0_base, 0.008)
     f0_step2 = fix_step2(f0_step1, 6)
-    f0_step3 = torch.stack([fix_step3(f0_step2[b], cands3[b], scores3[b], 0.18,
-                                      max_sections, blk("step3_chunk"))
-                            for b in range(B)])
+    f0_step3 = fix_step3(f0_step2, cands3, scores3, 0.18, max_sections,
+                         blk("step3_chunk"))
     f0_step4 = fix_step4(f0_step3, 9)
     vuv_full = (f0_step4 != 0).to(dtype)
-    smoothed = torch.stack([smooth_f0(f0_step4[b], max_sections,
-                                      tables["smooth_kernel"],
-                                      blk("smooth_chunk"))
-                            for b in range(B)])
+    smoothed = smooth_f0(f0_step4, max_sections, tables["smooth_kernel"],
+                         blk("smooth_chunk"))
     section_overflow = torch.maximum(_n_sections(f0_step2),
                                      _n_sections(f0_step4)) > max_sections
 
     out_samples = int(1000 * signal_length / fs / frame_period + 1)
-    tp_out = torch.as_tensor(np.arange(out_samples) * frame_period / 1000,
-                             dtype=dtype, device=dev)
+    tp_out = frame_grid(out_samples, frame_period, dev).to(dtype, copy=True)
     idx = torch.clamp(matlab_round_half(tp_out * 1000),
                       max=smoothed.shape[-1] - 1).to(torch.int64)
     out = {

@@ -3,7 +3,8 @@ uniform frame grid and the F0-adaptive analysis windows.
 
 The JAX package cuts the slabs with strided patch extraction (TPU gathers
 serialize); here a slab is one ``gather`` at integer indices computed on the
-host.  Index clamping equals the reference's min/max clamp.
+device in exact integer arithmetic (nothing is uploaded).  Index clamping
+equals the reference's min/max clamp.
 """
 from fractions import Fraction
 
@@ -14,14 +15,15 @@ from ._backend import rdiv, sdiv
 
 
 def frame_centers(fs: float, frame_period_s: float, n_frames: int,
-                  first: int = 0) -> np.ndarray:
-    """1-based anchor sample of each of the ``n_frames`` frames from frame
-    ``first``, floor(t_q*fs + 0.501) + 1, in exact integer arithmetic on the
-    rational grid t_q*fs = q*pnum/qden."""
+                  first: int, device) -> torch.Tensor:
+    """1-based anchor sample (int64 on ``device``) of each of the
+    ``n_frames`` frames from frame ``first``, floor(t_q*fs + 0.501) + 1, in
+    exact integer arithmetic on the rational grid t_q*fs = q*pnum/qden."""
     frac = Fraction(fs * frame_period_s).limit_denominator(1000)
     pnum, qden = frac.numerator, frac.denominator
-    q = np.arange(first, first + n_frames, dtype=np.int64)
-    return (1000 * q * pnum + 501 * qden) // (1000 * qden) + 1
+    q = torch.arange(first, first + n_frames, dtype=torch.int64, device=device)
+    return torch.div(1000 * pnum * q + 501 * qden, 1000 * qden,
+                     rounding_mode="floor") + 1
 
 
 def uniform_frame_period_ms(temporal_positions: np.ndarray):
@@ -68,11 +70,10 @@ def uniform_centered_slabs(x: torch.Tensor, fs: float, frame_period_s: float,
     x[..., clip(center_q - 1 - max_half + offset + j, 0, n-1)] for rows x
     (..., n)."""
     n = x.shape[-1]
-    centers = frame_centers(fs, frame_period_s, n_frames, first)
-    idx = (centers[:, None] - 1 - max_half + offset
-           + np.arange(2 * max_half + 1)[None, :])
-    idx = torch.as_tensor(np.clip(idx, 0, n - 1), device=x.device)
-    return x[..., idx]
+    centers = frame_centers(fs, frame_period_s, n_frames, first, x.device)
+    idx = (centers[:, None] + (offset - 1 - max_half)
+           + torch.arange(2 * max_half + 1, device=x.device)[None, :])
+    return x[..., idx.clamp(0, n - 1)]
 
 
 def adaptive_window_values(time_axis: torch.Tensor, f0: torch.Tensor,

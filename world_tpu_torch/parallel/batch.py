@@ -12,11 +12,20 @@ batch axis of equal-length utterances:
     (``frame_sharded_cheaptrick``).
 
 Several devices are driven by one process, one worker thread per device
-(what a ``jax.sharding.Mesh`` in one controller is): the round trips are
-bound by the host's launches, so threads are what lets the devices overlap.
-Utterances and frames are independent, so the shards exchange nothing; the
-results are gathered on the first device.
+(what a ``jax.sharding.Mesh`` in one controller is).  Utterances and frames
+are independent, so the shards exchange nothing; the results are gathered on
+the first device.
+
+On the card, ``HarvestRequiem`` and each device's call of
+``batch_encode_decode`` (so each bucket of ``batch_encode_decode_ragged``)
+replay one CUDA graph per static signature from its second call on
+(:mod:`.graphs`), what ``jax.jit`` is to ``_encode_decode_one``; a
+signature's first call, and every call on the CPU, runs the same static
+code eagerly.  ``batch_encode_decode``'s graphs are held in
+``BATCH_GRAPHS`` (``BATCH_GRAPHS.clear()`` frees them); a module holds its
+own.
 """
+import functools
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 
@@ -29,16 +38,20 @@ from ..aperiodicity import d4c as D4C
 from ..aperiodicity.common import d4c_fft_size
 from ..aperiodicity.d4c_requiem import d4c_requiem_core, n_bands_ap, requiem_fft_size
 from ..f0.dio import dio_core, dio_tables, frame_positions
+from ..dsp.ola import SLOT
 from ..f0.harvest import (default_max_candidates, default_max_sections,
-                          harvest_core, harvest_tables)
+                          harvest_core, harvest_tables,
+                          smooth_zero_phase_kernel)
 from ..f0.stonemask import max_half_window, stonemask_core, table_size
 from ..f0.swipe import swipe_core, swipe_tables
 from ..ops.refine_dft import dft_table
 from ..spectral.cheaptrick import cheaptrick_core, default_fft_size
 from ..synth.classic import (default_max_pulses, max_noise_length,
                              standard_normal, synthesis_core)
-from ..synth.requiem import excitation_core, waveform_core
+from ..synth.requiem import excitation_core, overlap_passes, waveform_core
 from ..synth.seeds import get_seeds_signals
+from ..tables import cached, device_key
+from .graphs import GraphCache
 
 F0_FLOOR, F0_CEIL = 71.0, 800.0
 SWIPE_DT = 0.005
@@ -164,15 +177,29 @@ def analyze(x: torch.Tensor, fs: int, frame_period: float,
                            is_requiem, fft_size)
 
 
+@functools.lru_cache(maxsize=None)
+def round_trip_rank_bound(fs: int) -> int:
+    """The overlap-add's passes in the round trip's Requiem synthesis
+    (:func:`..synth.requiem.overlap_passes`), from the caps alone: its f0 is
+    at most the F0 ceiling (plus FixStep4's one hertz of fill), raised by
+    the smoothing's gain (the sum of its kernel's magnitudes bounds any
+    smoothed value)."""
+    gain = float(np.abs(smooth_zero_phase_kernel()).sum())
+    return overlap_passes((F0_CEIL + 1.0) * gain, fs)
+
+
 def synthesize(temporal_positions, f0, vuv, band_ap_db, spectrogram,
                pulse_seed, noise_seed, noise_offsets, fs: int, y_length: int,
-               max_pulses: int, fps: int, frame_period_s=None):
-    """Requiem synthesis of one utterance: band_ap_db (bands, frames),
-    spectrogram (bins, frames).  Returns (y (y_length,), pulse overflow)."""
+               max_pulses: int, fps: int, frame_period_s=None,
+               max_rank: int = SLOT):
+    """Requiem synthesis of f0 and vuv (..., frames), band_ap_db
+    (..., bands, frames) and spectrogram (..., bins, frames).  Returns
+    (y (..., y_length), capacity flag (...)); ``max_rank`` as in
+    :func:`..synth.requiem.excitation_core`."""
     excitation, overflow = excitation_core(
         temporal_positions, f0, vuv, band_ap_db, pulse_seed, noise_seed,
-        noise_offsets, fs, y_length, max_pulses, frame_period_s)
-    fft_size = (spectrogram.shape[0] - 1) * 2
+        noise_offsets, fs, y_length, max_pulses, frame_period_s, max_rank)
+    fft_size = (spectrogram.shape[-2] - 1) * 2
     return waveform_core(excitation, spectrogram, fs, fft_size, fps), overflow
 
 
@@ -183,7 +210,12 @@ def encode_decode_one(x: torch.Tensor, pulse_seed: torch.Tensor,
                       tables: dict = None) -> dict:
     """Full round-trip for rows x (B, n).  Returns f0, vuv (B, F),
     spectrogram (B, F, bins), band_aperiodicity (B, F, n_ap+2), y
-    (B, y_length) and the per-row capacity flag _overflow (B,)."""
+    (B, y_length) and the per-row capacity flag _overflow (B,).
+
+    The JAX package's ``_encode_decode_one`` on its static shapes: every
+    stage runs on the whole batch, sized by the caps, and nothing is read
+    back to the host, so that a CUDA graph can capture the call
+    (:class:`GraphCache`)."""
     B, sig_len = x.shape
     an = analyze(x, fs, frame_period, "harvest", True, tables=tables,
                  max_candidates=max_candidates, max_sections=max_sections)
@@ -192,18 +224,15 @@ def encode_decode_one(x: torch.Tensor, pulse_seed: torch.Tensor,
                                     device=x.device)
     y_length = output_length(sig_len, fs, frame_period)
     fps = int(frame_period / 1000 * fs)
-    ys, pulse_overflow = [], []
-    for b in range(B):
-        y, over = synthesize(an["temporal_positions"], an["f0"][b], an["vuv"][b],
-                             an["aperiodicity"][b].T, an["spectrogram"][b].T,
-                             pulse_seed, noise_seed, noise_offsets, fs, y_length,
-                             max_pulses, fps, float(frame_period) / 1000.0)
-        ys.append(y)
-        pulse_overflow.append(over)
+    y, pulse_overflow = synthesize(
+        an["temporal_positions"], an["f0"], an["vuv"],
+        an["aperiodicity"].transpose(-1, -2), an["spectrogram"].transpose(-1, -2),
+        pulse_seed, noise_seed, noise_offsets, fs, y_length, max_pulses, fps,
+        float(frame_period) / 1000.0, round_trip_rank_bound(fs))
     return {"f0": an["f0"], "vuv": an["vuv"], "spectrogram": an["spectrogram"],
-            "band_aperiodicity": an["aperiodicity"], "y": torch.stack(ys),
+            "band_aperiodicity": an["aperiodicity"], "y": y,
             "_overflow": (an["_refine_overflow"] | an["_section_overflow"]
-                          | torch.stack(pulse_overflow))}
+                          | pulse_overflow)}
 
 
 def encode_classic_one(x: torch.Tensor, fs: int, frame_period: int,
@@ -290,13 +319,20 @@ HARVEST_TABLE_KEYS = ("band_bank", "band_bias", "decimator_ir", "refine_cos",
 def harvest_requiem_tables(fs: int, seed: int, dtype: torch.dtype, device) -> dict:
     """The Harvest/Requiem round trip's static tables at the default f0
     range: Harvest's (HARVEST_TABLE_KEYS) and the Requiem seed banks
-    pulse_seed and noise_seed of ``seed``."""
-    tables = harvest_tables(fs, F0_FLOOR, F0_CEIL, dtype, device)
-    seeds = get_seeds_signals(fs, seed=seed)
-    for name in ("pulse", "noise"):
-        tables[f"{name}_seed"] = torch.tensor(seeds[name], dtype=dtype,
-                                              device=device)
-    return tables
+    pulse_seed and noise_seed of ``seed``.  Built once per (fs, seed, type,
+    device) and kept (:mod:`..tables`)."""
+    device = device_key(device)
+
+    def build():
+        tables = harvest_tables(fs, F0_FLOOR, F0_CEIL, dtype, device)
+        seeds = get_seeds_signals(fs, seed=seed)
+        for name in ("pulse", "noise"):
+            tables[f"{name}_seed"] = torch.tensor(seeds[name], dtype=dtype,
+                                                  device=device)
+        return tables
+
+    return dict(cached(("harvest_requiem_tables", int(fs), int(seed), dtype,
+                        device), build))
 
 
 def default_batch_max_pulses(n_samples: int, fs: int) -> int:
@@ -356,8 +392,10 @@ def batch_encode_decode(xs, fs: int, devices=None, frame_period: int = 5,
     Returns :func:`encode_decode_one`'s dict of tensors, on the first
     device.
 
-    The static table caps default to the sizes the single-utterance API
-    uses.  ``check_capacity`` reads the per-utterance overflow flags once
+    On a CUDA device the call replays the CUDA graph of its signature
+    (run eagerly on its first call, captured on its second; held in
+    :data:`BATCH_GRAPHS`).  The static table caps
+    default to the sizes the single-utterance API uses.  ``check_capacity`` reads the per-utterance overflow flags once
     after the batch and raises the RuntimeWarning of ``harvest()`` and
     ``decode()``.  ``tables``: :func:`harvest_requiem_tables`' dict for fs
     and ``seed``, or a list of them, one per device (built when None)."""
@@ -383,13 +421,23 @@ def batch_encode_decode(xs, fs: int, devices=None, frame_period: int = 5,
         xs = torch.cat([xs, xs.new_zeros((per_dev * len(devs) - n_rows,
                                           xs.shape[1]))])
 
+    caps = (int(frame_period), int(max_pulses), int(max_candidates),
+            int(max_sections))
+
     def shard(dev, k):
         t = tables[k]
-        return encode_decode_one(
-            xs[k * per_dev:(k + 1) * per_dev].to(dev), t["pulse_seed"],
-            t["noise_seed"], fs, int(frame_period), int(max_pulses),
-            int(max_candidates), int(max_sections),
-            tables={name: t[name] for name in HARVEST_TABLE_KEYS})
+        rows = xs[k * per_dev:(k + 1) * per_dev]
+
+        def run(x):
+            return encode_decode_one(
+                x, t["pulse_seed"], t["noise_seed"], fs, *caps,
+                tables={name: t[name] for name in HARVEST_TABLE_KEYS})
+
+        if dev.type != "cuda":
+            return run(rows.to(dev))
+        key = (device_key(dev), tuple(rows.shape), rows.dtype, fs, caps,
+               table_identity(t))
+        return BATCH_GRAPHS.run(key, run, (rows,), dev)
 
     outs = _on_devices(shard, devs, list(range(len(devs))))
     out = outs[0] if len(outs) == 1 else {
@@ -398,6 +446,27 @@ def batch_encode_decode(xs, fs: int, devices=None, frame_period: int = 5,
         _warn_batch_capacity(out["_overflow"].cpu().numpy(), max_sections,
                              max_pulses)
     return out
+
+
+# batch_encode_decode's graphs, one per (device, rows, length, type, caps,
+# tables); a ragged batch makes one signature per bucket.  ``clear()``
+# frees their pools.
+BATCH_GRAPHS = GraphCache()
+
+
+def graph_rows(n_rows: int) -> int:
+    """The rows a ragged bucket of ``n_rows`` utterances is padded to on
+    the card: the next power of two, so that a stream of calls whose
+    buckets change their rows makes few signatures (:mod:`.graphs`)."""
+    return 1 << max(0, n_rows - 1).bit_length()
+
+
+def table_identity(tables: dict) -> tuple:
+    """A table dict's identity in a graph's key: each tensor's storage, so
+    that a graph is never replayed on tables other than its own (it reads
+    them by address)."""
+    return tuple((name, t.data_ptr(), tuple(t.shape), t.dtype)
+                 for name, t in sorted(tables.items()))
 
 
 def bucket_lengths(lens, fs: int, bucket_quantum_s: float) -> dict:
@@ -427,7 +496,9 @@ def batch_encode_decode_ragged(xs, fs: int, devices=None, frame_period: int = 5,
 
     Each utterance is analysed as if zero-padded to its bucket's length; the
     zero tail analyses as unvoiced.  Within a bucket a row takes the
-    decisions of a single-utterance call at the same padded length.
+    decisions of a single-utterance call at the same padded length.  On the
+    card a bucket's rows are padded with zero rows to :func:`graph_rows`,
+    whose outputs are dropped: the rows are independent.
 
     Returns a list of per-utterance dicts of numpy arrays (f0, vuv,
     spectrogram, band_aperiodicity, y), in input order."""
@@ -438,9 +509,11 @@ def batch_encode_decode_ragged(xs, fs: int, devices=None, frame_period: int = 5,
                      np_dtype) for x in xs]
     lens = [int(x.shape[0]) for x in xs]
     tables = [harvest_requiem_tables(fs, seed, dtype, d) for d in devs]
+    on_card = any(d.type == "cuda" for d in devs)
     results = [None] * len(xs)
     for L, idxs in bucket_lengths(lens, fs, bucket_quantum_s).items():
-        xb = np.zeros((len(idxs), L), np_dtype)
+        n_rows = graph_rows(len(idxs)) if on_card else len(idxs)
+        xb = np.zeros((n_rows, L), np_dtype)
         for r, i in enumerate(idxs):
             xb[r, :lens[i]] = xs[i]
         out = batch_encode_decode(xb, fs, devices=devs, frame_period=fp,
@@ -590,7 +663,12 @@ class HarvestRequiem(_TableModule):
     refinement DFT table, the smoothing kernel and the Requiem seed banks.
 
     ``forward(x)`` takes (B, n_samples) or (n_samples,) signals of the length
-    the module was built for."""
+    the module was built for.  On the card it replays one CUDA graph per
+    batch size and type from the second call of that size on (the first
+    runs eagerly; :mod:`.graphs`), held in ``graphs``; on the CPU the same
+    static code runs eagerly.  Moving the module (``.to()``, ``.cuda()``)
+    drops its graphs; :meth:`from_numpy_state` writes the buffers in place,
+    which the graphs read at each replay."""
 
     def __init__(self, fs: int, n_samples: int, frame_period: int = 5,
                  seed: int = 0, max_pulses: int = None,
@@ -606,13 +684,30 @@ class HarvestRequiem(_TableModule):
                                else default_max_candidates(F0_FLOOR, F0_CEIL))
         self.max_sections = (max_sections if max_sections is not None
                              else default_max_sections(n_samples, fs))
+        self.graphs = GraphCache()
         self._register_tables(harvest_requiem_tables(
             self.fs, seed, dtype, resolve_device(device)))
 
-    def forward(self, x: torch.Tensor, noise_offsets: torch.Tensor = None) -> dict:
-        xb = self._batch(x)
+    def _apply(self, fn, *args, **kwargs):
+        self.graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def _round_trip(self, x: torch.Tensor, noise_offsets: torch.Tensor) -> dict:
         tables = {k: getattr(self, k) for k in HARVEST_TABLE_KEYS}
-        return encode_decode_one(xb, self.pulse_seed, self.noise_seed, self.fs,
+        return encode_decode_one(x, self.pulse_seed, self.noise_seed, self.fs,
                                  self.frame_period, self.max_pulses,
                                  self.max_candidates, self.max_sections,
                                  noise_offsets=noise_offsets, tables=tables)
+
+    def forward(self, x: torch.Tensor, noise_offsets: torch.Tensor = None) -> dict:
+        xb = self._batch(x)
+        dev = self.pulse_seed.device
+        if noise_offsets is None:
+            noise_offsets = torch.zeros(self.pulse_seed.shape[1],
+                                        dtype=torch.int64, device=dev)
+        if dev.type != "cuda":
+            return self._round_trip(xb, noise_offsets)
+        key = (device_key(dev), tuple(xb.shape), xb.dtype,
+               table_identity(dict(self.named_buffers())))
+        return self.graphs.run(key, self._round_trip,
+                               (xb, torch.as_tensor(noise_offsets)), dev)

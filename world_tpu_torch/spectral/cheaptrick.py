@@ -12,6 +12,7 @@ from ..dsp.dcfill import dc_fill_add
 from ..dsp.minphase import mirror_full
 from ..frames import (apply_adaptive_window, host as _host, like as _like,
                       uniform_frame_period_ms)
+from ..tables import frame_grid, table
 
 
 def default_fft_size(fs: int) -> int:
@@ -55,8 +56,9 @@ def _smoothing_with_recovery(smoothed_full, f0, fs, fft_size: int, q1: float):
                      torch.sin(pfq) / (pfq + is0.to(dtype)))
     cl = (1 - 2 * q1) + 2 * q1 * torch.cos(2 * math.pi * q * f0[:, None])
     idx = np.arange(fft_size)
-    sym = torch.as_tensor(np.where(idx > fft_size // 2, fft_size - idx, idx),
-                          device=dev)
+    sym = table("cheaptrick_sym", (fft_size,),
+                lambda: np.where(idx > fft_size // 2, fft_size - idx, idx),
+                torch.int64, dev)
     sl = sl[:, sym]
     cl = cl[:, sym]
     cep = torch.fft.fft(torch.log(smoothed_full))
@@ -79,8 +81,7 @@ def cheaptrick_core(x: torch.Tensor, fs: int, f0_seq: torch.Tensor,
                          f0_seq)
     f0 = f0_eff.reshape(-1)
     if frame_period_ms is not None:
-        temporal_positions = torch.as_tensor(
-            np.arange(n_frames) * frame_period_ms / 1000, device=x.device)
+        temporal_positions = frame_grid(n_frames, frame_period_ms, x.device)
     tp = temporal_positions.to(dtype).repeat(B)
     max_half = (fft_size - 2) // 2
     seg = frame_slabs(x, fs, frame_period_ms, n_frames, max_half,
