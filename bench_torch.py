@@ -95,10 +95,11 @@ def spread(values) -> dict:
 
 
 def launch_counts():
-    """The two kernels' launch counters (world_tpu_torch.ops)."""
-    from world_tpu_torch.ops import edge_interp, refine_dft
+    """The kernels' launch counters (world_tpu_torch.ops)."""
+    from world_tpu_torch.ops import edge_interp, extension_scan, refine_dft
 
-    return {"event_engine": edge_interp.counter, "refine_dft": refine_dft.counter}
+    return {"event_engine": edge_interp.counter, "refine_dft": refine_dft.counter,
+            "extension_scan": extension_scan.counter}
 
 
 def timed_readings(fn, audio_seconds: float, readings: int, rounds: int,
@@ -136,6 +137,16 @@ def eager_round_trip(model, x):
         x, model.pulse_seed, model.noise_seed, model.fs, model.frame_period,
         model.max_pulses, model.max_candidates, model.max_sections,
         tables={k: getattr(model, k) for k in HARVEST_TABLE_KEYS})
+
+
+def eager_classic_round_trip(model, x, noise):
+    """A ``DioClassic``'s round trip of rows x with the draw noise run
+    eagerly, never by a CUDA graph: :func:`encode_decode_classic_one` on the
+    module's tables, the static code its graphs capture."""
+    from world_tpu_torch.parallel.batch import encode_decode_classic_one
+
+    return encode_decode_classic_one(x, model.fs, model.frame_period, noise=noise,
+                                     tables=dict(model.named_buffers()))
 
 
 def golden_bars(f0, vuv, spectrogram, band_ap, g) -> dict:

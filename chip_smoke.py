@@ -12,7 +12,11 @@ Phases (each raises on failure; any failure exits non-zero):
   2. K1 (event engine) against its plain PyTorch version on the card, in
      float32 and float64: at Harvest's main-path shape, at the 22.05 kHz
      geometry, and at DIO's geometry on the real DIO event rows of the
-     16 kHz golden utterance and of dio.npz's decimated signal;
+     16 kHz golden utterance and of dio.npz's decimated signal; K3 (DIO's
+     extension scans), both scans, bitwise against its plain version in
+     both types on DIO's own operands of x16 (929 frames), of a batch of 4
+     and of the 60 s glide (12,001 frames), and on contours of 1-3 frame
+     sections, none voiced, voiced to the end;
   3. K2 (refinement) against its plain version, float32 and float64, on
      the main path's operands and on real frames with adversarial slot
      layouts (all 48 slots live at 71 Hz, only the last slot live, none
@@ -30,8 +34,19 @@ Phases (each raises on failure; any failure exits non-zero):
      once; the first call (eager) and the second (capture), the pool, the
      replay beside the eager call and its device events; a function that
      syncs fails to capture;
-  6. timings with CUDA events: xRT of both round trips (the Harvest one as
-     a graph replay and eagerly), each kernel against
+ 19. the classic round trip on static shapes and its graph, float32,
+     through DioClassic: x16 single and batch 4, then the 60 s glide; the
+     eager static call from the upload to the output makes no host sync,
+     the module's first call runs eagerly, its second captures, and its
+     replays are bitwise the eager call and each other (f0, vuv, envelope,
+     aperiodicity, y, flags), launch K1 once, K3 twice and K2 never, and
+     row 0 meets phase 8's bars against float64 on the card; the first
+     call, the capture, the pool, the replay beside the eager call and its
+     device events; at 60 s the classic synthesis' peak memory inside the
+     stage budget;
+  6. timings with CUDA events: xRT of both round trips (each as a graph
+     replay and eagerly), the classic stages' host syncs (all 0), each
+     kernel against
      its plain version at each geometry and at batch 4, K1's passes apart
      and its launches per call (torch.profiler),
      where the classic round trip's time goes (the stage functions of
@@ -98,7 +113,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 GOLDEN_DIR = ROOT / "tests" / "golden"
 GOLDEN = GOLDEN_DIR / "harvest_16k.npz"
-ALL_PHASES = (1, 2, 3, 4, 5, 18, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
+ALL_PHASES = (1, 2, 3, 4, 5, 18, 19, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
 
 # K1: kernel and plain version evaluate the same IEEE operations in the same
 # order, so the interpolated f0 may differ only by rounding of equal
@@ -132,6 +147,10 @@ F32_OPS_PER_S = 67e12
 # two windowed samples and 24 multiply-adds (60).
 K1_OPS_PER_SAMPLE, K1_OPS_PER_FRAME = 4, 64
 K2_OPS_PER_WINDOW_SAMPLE = 60
+# K3: the carry's test and update at every frame (4), and at each frame an
+# extension runs through, the prediction (3), one subtraction, absolute
+# value and comparison per candidate, and the relative-error test (5).
+K3_OPS_PER_FRAME, K3_OPS_PER_EXTENSION_FRAME, K3_OPS_PER_CANDIDATE = 4, 8, 3
 
 F0_FLOOR, F0_CEIL = 71.0, 800.0
 # path B's explicit fft_size: at 16 kHz it lowers Harvest's floor to
@@ -501,6 +520,162 @@ def check_k2(ops, label):
     return err
 
 
+def capture_k3(fn) -> list:
+    """The (base, flags, limits, cands, allowed_range, backward) of every K3
+    call fn makes (DIO's two scans a call), the scans run as they are."""
+    from world_tpu_torch.ops import extension_scan as K3
+
+    real, got = K3.extension_scan, []
+
+    def capture(base, flags, limits, cands, allowed_range, backward=False):
+        got.append((base.clone(), flags.clone(), limits.clone(), cands.clone(),
+                    allowed_range, backward))
+        return real(base, flags, limits, cands, allowed_range, backward)
+
+    K3.extension_scan = capture
+    try:
+        fn()
+    finally:
+        K3.extension_scan = real
+    return got
+
+
+def k3_operands(signal: np.ndarray, fs: int, dtype, n_rows: int = 1) -> list:
+    """K3's operands on the DIO path, both scans, for ``n_rows`` copies of
+    signal (the copies after the first with noise of 1e-3, as phase 5's
+    batch): captured from dio_core on the card."""
+    import torch
+    from world_tpu_torch.f0.dio import dio_core
+
+    rng = np.random.RandomState(0)
+    xs = np.stack([signal] + [signal + 1e-3 * rng.randn(signal.shape[0])
+                              for _ in range(n_rows - 1)])
+    x = torch.tensor(xs, dtype=dtype, device="cuda")
+    return capture_k3(lambda: dio_core(x, fs))
+
+
+def k3_short_section_operands(dtype) -> list:
+    """K3's operands on contours of 929 frames whose voiced sections are
+    1-3 frames long (one section's extension writes the values the next
+    one starts from), no voiced frame, voiced to the last frame and only
+    the last frame voiced; 7 candidates a frame, a fifth of them empty."""
+    import torch
+    from world_tpu_torch.f0.dio import fix_step3, fix_step4
+
+    rng = np.random.RandomState(7)
+    n, C = 929, 7
+    rows = np.zeros((4, n))
+    for s0, length in ((10, 1), (13, 2), (17, 3), (22, 1), (40, 5), (47, 1),
+                       (90, 3), (95, 2), (300, 1), (302, 1)):
+        rows[0, s0:s0 + length] = 190.0 + rng.rand(length)
+    rows[2, 700:] = 185.0 + rng.rand(n - 700)
+    rows[3, -1] = 200.0
+    cands = 180 + rng.rand(4, C, n) * 20
+    cands[rng.rand(4, C, n) < 0.2] = 0.0
+    f0 = torch.tensor(rows, dtype=dtype, device="cuda")
+    cd = torch.tensor(cands, dtype=dtype, device="cuda")
+    return capture_k3(lambda: fix_step4(fix_step3(f0, cd, 0.1), f0, cd, 0.1))
+
+
+def k3_extension_frames(args, out) -> int:
+    """The frames the scan of ``args`` runs an extension through, read off
+    its output ``out`` (the carry's rule on the host): the work this run's
+    data needs."""
+    base, flags, limits, _, _, backward = args
+    flags, limits = flags.cpu().numpy(), limits.cpu().numpy()
+    out = out.cpu().numpy()
+    n = out.shape[1]
+    count = 0
+    for b in range(out.shape[0]):
+        active, limit = False, 0
+        for p in (range(n - 1, -1, -1) if backward else range(n)):
+            in_ext = active and (p >= limit - 1 if backward else p <= limit)
+            count += in_ext
+            active = in_ext and out[b, p] != 0
+            if flags[b, p]:
+                active, limit = True, int(limits[b, p])
+    return count
+
+
+def k3_bound(args, out):
+    """K3 reads the contour, the flags, the limits and the candidates once
+    and writes the contour; its operations are the carry's at every frame
+    and the candidates' search at the frames this run extends through."""
+    base, _, _, cands, _, _ = args
+    B, n = base.shape
+    C = cands.shape[1]
+    isz = base.element_size()
+    ext = k3_extension_frames(args, out)
+    return bound(B * n * (2 * isz + 1 + 8) + cands.numel() * isz,
+                 K3_OPS_PER_FRAME * B * n
+                 + ext * (K3_OPS_PER_EXTENSION_FRAME + K3_OPS_PER_CANDIDATE * C))
+
+
+def check_k3(args, label) -> float:
+    """K3 against its plain version on one scan's operands: bitwise."""
+    import torch
+    from world_tpu_torch.ops.extension_scan import (extension_scan_cuda,
+                                                    extension_scan_plain)
+
+    got = extension_scan_cuda(*args)
+    want = extension_scan_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    equal = torch.equal(got, want)
+    base = args[0]
+    print(f"K3 {label}: {'backward' if args[5] else 'forward'} scan of "
+          f"{tuple(base.shape)} frames, {args[3].shape[1]} candidates, "
+          f"{k3_extension_frames(args, got)} frames extended: bitwise {equal}, "
+          f"max abs err {err:.3g} Hz, {int((got != base).sum())} frames written")
+    if not equal:
+        raise AssertionError(f"K3 {label}: not bitwise equal to its plain version")
+    return err
+
+
+def record_syncs(fn) -> list:
+    """Every host sync fn makes, by the stack it was made from
+    (``torch.cuda.set_sync_debug_mode("warn")``, restored after)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    mode = torch.cuda.get_sync_debug_mode()
+    syncs = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            syncs.append(" <- ".join(
+                f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                for f in traceback.extract_stack()[-8:-1][::-1]))
+
+    # (switching the mode warns by itself: the recorder is installed inside)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    return syncs
+
+
+def no_sync_call(fn):
+    """fn() under ``set_sync_debug_mode("error")``: a host sync raises."""
+    import torch
+
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    return out
+
+
 def golden_bars(dat, g):
     f0 = np.asarray(dat["f0"])
     vuv = np.asarray(dat["vuv"]) > 0
@@ -687,8 +862,9 @@ def device_totals(prof):
 def classic_stages(x16: np.ndarray, fs: int) -> dict:
     """Each stage of one float32 classic round trip on the card, by the
     stage functions encode_decode_classic_one composes: its milliseconds
-    (CUDA events around each stage, after one warm-up run) and its device
-    kernels and copies (torch.profiler, one more run)."""
+    (CUDA events around each stage, after one warm-up run), its host syncs
+    (:func:`record_syncs`, one more run) and its device kernels and copies
+    (torch.profiler, one more run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from world_tpu_torch.f0.dio import dio_core
@@ -716,12 +892,12 @@ def classic_stages(x16: np.ndarray, fs: int) -> dict:
                                           state["src"]["temporal_positions"], 5,
                                           False)
 
+    noise = standard_normal((1, max_pulses, max_noise), None, torch.float32, dev)
+
     def synthesis():
         dat = dict(state["src"], f0=state["f0_d4c"],
                    spectrogram=state["env"].transpose(1, 2),
                    aperiodicity=state["ap"].transpose(1, 2))
-        noise = standard_normal((1, max_pulses, max_noise), None, torch.float32,
-                                dev)
         PB.synthesize_classic(dat, noise, fs, x.shape[1], 5)
 
     stages = (("DIO", dio), ("StoneMask", stonemask), ("CheapTrick", cheaptrick),
@@ -738,6 +914,8 @@ def classic_stages(x16: np.ndarray, fs: int) -> dict:
     out = {name: {"ms": events[i].elapsed_time(events[i + 1])}
            for i, (name, _) in enumerate(stages)}
     for name, fn in stages:
+        syncs = record_syncs(fn)
+        out[name].update(host_syncs=len(syncs), sync_at=syncs[:5])
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
@@ -785,9 +963,6 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
     """Phase 18: the round trip on static shapes, eager and as a CUDA graph,
     float32, single and batch 4, through a HarvestRequiem of its own (its
     graphs are captured here).  Returns the numbers it printed."""
-    import traceback
-    import warnings
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -808,36 +983,12 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
         torch.cuda.synchronize()
         # the eager static call from the upload to the output: first every
         # sync it makes, by file and line, then under "error"
-        mode = torch.cuda.get_sync_debug_mode()
-        syncs = []
-
-        def record(message, category, filename, lineno, file=None, line=None):
-            if "synchroniz" in str(message):
-                syncs.append(" <- ".join(
-                    f"{Path(f.filename).name}:{f.lineno} {f.name}"
-                    for f in traceback.extract_stack()[-8:-1][::-1]))
-
-        # (switching the mode warns by itself: the recorder is installed
-        # inside it)
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings():
-                warnings.simplefilter("always")
-                warnings.showwarning = record
-                eager_call(host.to("cuda", non_blocking=True))
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.synchronize()
+        syncs = record_syncs(lambda: eager_call(host.to("cuda", non_blocking=True)))
         if syncs:
             raise AssertionError(f"phase 18: the eager static round trip syncs "
                                  f"the host {len(syncs)} times: {syncs[:20]}")
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            x = host.to("cuda", non_blocking=True)
-            eager = eager_call(x)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.synchronize()
+        x, eager = no_sync_call(lambda: (lambda t: (t, eager_call(t)))(
+            host.to("cuda", non_blocking=True)))
         # the module: its first call of a batch size runs eagerly, the
         # second captures the graph and replays it, later calls replay it
         before = dict(model.graphs.calls)
@@ -904,9 +1055,9 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
         if same_eager or not same_twice:
             raise AssertionError(f"phase 18 {label}: the graph is not bitwise the "
                                  f"eager static call ({same_eager}) or itself")
-        if counts != {"event_engine": 2, "refine_dft": 2}:
+        if counts != {"event_engine": 2, "refine_dft": 2, "extension_scan": 0}:
             raise AssertionError(f"phase 18 {label}: K1 and K2 must launch once "
-                                 f"per replay: {counts} in two replays")
+                                 f"per replay, K3 never: {counts} in two replays")
         if not (bars[0] > 0.99 and bars[1] < 1.0 and bars[2] < 1.0 and bars[3] < 1.0):
             raise AssertionError(f"phase 18 {label}: golden bars not met: {bars}")
         if not all(torch.isfinite(r1["y"][b]).all() for b in range(n_rows)):
@@ -929,6 +1080,192 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
         raise AssertionError("phase 18: the round trip changed after the failed "
                              "capture")
     print("phase 18 static round trip and graph: ok")
+    return found
+
+
+CLASSIC_KEYS = ("f0", "vuv", "temporal_positions", "spectrogram", "aperiodicity",
+                "y", "_overflow")
+
+
+def classic_graph_run(model, x, noise, label, card, reset_counts, path_launches,
+                      audio_s: float, eager_iters: int = 3, graph_iters: int = 10):
+    """One DioClassic signature from the upload to the output: the eager
+    static call's syncs (recorded, then under "error"), the module's first
+    call (eager) and second (capture), two replays counted and held bitwise
+    against the eager call and each other, then replay and eager call timed
+    graph, eager, eager, graph, and one replay's device events.  Returns
+    (the first replay, the eager call, the numbers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench_torch import eager_classic_round_trip
+
+    eager_call = lambda t: eager_classic_round_trip(model, t, noise)   # noqa: E731
+    host = x.cpu().pin_memory()
+    eager_call(host.to("cuda"))       # kept tables, plans and kernels built
+    torch.cuda.synchronize()
+    syncs = record_syncs(lambda: eager_call(host.to("cuda", non_blocking=True)))
+    if syncs:
+        raise AssertionError(f"phase 19 {label}: the eager static classic round "
+                             f"trip syncs the host {len(syncs)} times: {syncs[:20]}")
+    x, eager = no_sync_call(lambda: (lambda t: (t, eager_call(t)))(
+        host.to("cuda", non_blocking=True)))
+    before = dict(model.graphs.calls)
+    took = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        model(x, noise=noise)
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - t0)
+    ran = {k: n - before[k] for k, n in model.graphs.calls.items()}
+    if ran != {"eager": 1, "captured": 1, "replayed": 1}:
+        raise AssertionError(f"phase 19 {label}: the module's first two calls ran "
+                             f"{ran}")
+    graph = model.graphs.graphs()[-1]
+    reset_counts()
+    r1 = model(x, noise=noise)
+    r2 = model(x, noise=noise)
+    torch.cuda.synchronize()
+    counts = path_launches(f"classic_graph_{label}")
+    differ = [k for k in CLASSIC_KEYS if not torch.equal(r1[k], eager[k])]
+    twice = all(torch.equal(r1[k], r2[k]) for k in CLASSIC_KEYS)
+    g1 = cuda_ms(lambda: model(x, noise=noise), iters=graph_iters)
+    e1 = cuda_ms(lambda: eager_call(x), iters=eager_iters)
+    e2 = cuda_ms(lambda: eager_call(x), iters=eager_iters)
+    g2 = cuda_ms(lambda: model(x, noise=noise), iters=graph_iters)
+    t_graph, t_eager = (g1 + g2) / 2, (e1 + e2) / 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model(x, noise=noise)
+        torch.cuda.synchronize()
+    dev_us, n_events = device_totals(prof)
+    idle = f"{1 - dev_us / 1e3 / t_graph:.3f}" if n_events else "not measured"
+    print(f"phase 19 classic round trip float32 {label} ({x.shape[0]} x "
+          f"{x.shape[1]} samples) [{card}]: eager static call from the upload to "
+          f"the output: 0 host syncs (set_sync_debug_mode error); the module's "
+          f"first call (eager) {took[0]:.3f} s, second (warm-up, capture, replay) "
+          f"{took[1]:.3f} s, capture {graph.capture_s:.3f} s, pool "
+          f"{graph.pool_bytes / 2**20:.1f} MiB; replay bitwise the eager call for "
+          f"{len(CLASSIC_KEYS) - len(differ)} of {len(CLASSIC_KEYS)} outputs "
+          f"{differ or ''}, two replays bitwise {twice}; launches per replay K1 "
+          f"{counts['event_engine'] / 2:g}, K2 {counts['refine_dft'] / 2:g}, K3 "
+          f"{counts['extension_scan'] / 2:g}; replay {g1:.2f}/{g2:.2f} ms = "
+          f"{audio_s / (t_graph / 1e3):.1f} xRT, eager static {e1:.2f}/{e2:.2f} ms "
+          f"= {audio_s / (t_eager / 1e3):.1f} xRT, ratio {t_eager / t_graph:.2f}; "
+          f"one replay under torch.profiler: {n_events} device events, "
+          f"{dev_us / 1e3:.3f} ms device time, idle share {idle} of the "
+          f"unprofiled replay; overflow flags {r1['_overflow'].tolist()}")
+    if differ or not twice:
+        raise AssertionError(f"phase 19 {label}: the graph is not bitwise the eager "
+                             f"static call ({differ}) or itself")
+    if counts != {"event_engine": 2, "refine_dft": 0, "extension_scan": 4}:
+        raise AssertionError(f"phase 19 {label}: K1 must launch once per replay, "
+                             f"K3 twice, K2 never: {counts} in two replays")
+    if not (torch.isfinite(r1["y"]).all() and bool((r1["y"].abs().amax(-1) > 0).all())
+            and not r1["_overflow"].any()):
+        raise AssertionError(f"phase 19 {label}: non-finite, silent or "
+                             f"overflowing output")
+    return r1, eager, {"first_call_s": took[0], "capture_call_s": took[1],
+                       "capture_s": graph.capture_s, "pool_bytes": graph.pool_bytes,
+                       "replay_ms": [g1, g2], "eager_ms": [e1, e2],
+                       "device_events": n_events, "device_ms": dev_us / 1e3}
+
+
+def static_classic_and_graph(xs, fs, card, reset_counts, path_launches) -> dict:
+    """Phase 19: the classic round trip on static shapes, eager and as a
+    CUDA graph, float32, through DioClassic modules of its own: x16 single
+    and batch 4, then the 60 s glide at 22.05 kHz with the classic
+    synthesis' peak memory beside the budget.  Returns the numbers it
+    printed."""
+    import gc
+
+    import torch
+
+    from world_tpu_torch import DioClassic
+    from world_tpu_torch._backend import STAGE_BYTES_BUDGET
+    from world_tpu_torch.parallel.batch import (classic_caps, encode_classic_one,
+                                                synthesize_classic)
+    from world_tpu_torch.synth.classic import (PULSE_ITEMS_PER_SAMPLE,
+                                               pulse_blocking, standard_normal)
+    from world_tpu_torch.spectral.cheaptrick import default_fft_size
+
+    f32 = torch.float32
+    found = {}
+    n = xs.shape[1]
+    model = DioClassic(fs, n, dtype=f32, device="cuda")
+    _, mp, mn = classic_caps(n, fs, 5)
+    noise = standard_normal((4, mp, mn), torch.Generator(device="cuda").manual_seed(1),
+                            f32, "cuda")
+    x64 = torch.tensor(xs[:1], dtype=torch.float64, device="cuda")
+    ref = encode_classic_one(x64, fs, 5)
+    ref = {k: (v if k == "temporal_positions" else v[0]).cpu().numpy()
+           for k, v in ref.items()}
+    for label, n_rows in (("single", 1), ("batch4", 4)):
+        x = torch.tensor(xs[:n_rows], dtype=f32)
+        r1, _, found[label] = classic_graph_run(
+            model, x, noise[:n_rows], label, card, reset_counts, path_launches,
+            n_rows * n / fs)
+        b = classic_bars({k: (v if k == "temporal_positions" else v[0]).cpu().numpy()
+                          for k, v in r1.items()}, ref)
+        found[label]["bars"] = b
+        print(f"phase 19 {label} row 0 of the replay vs the port's float64 on the "
+              f"card: {bars_line(b)}")
+        if not bars_met(b):
+            raise AssertionError(f"phase 19 {label}: phase 8's bars not met")
+    del model, noise
+
+    # the 60 s glide: sync-free, bitwise as a replay, and the synthesis'
+    # blocks inside the budget
+    x60 = glide_signal(GLIDE_FS, GLIDE_SECONDS)
+    n60 = x60.shape[0]
+    model = DioClassic(GLIDE_FS, n60, dtype=f32, device="cuda")
+    _, mp, mn = classic_caps(n60, GLIDE_FS, 5)
+    noise = standard_normal((1, mp, mn), torch.Generator(device="cuda").manual_seed(2),
+                            f32, "cuda")
+    x = torch.tensor(x60[None], dtype=f32)
+    r1, eager, found["60s"] = classic_graph_run(
+        model, x, noise, "60s", card, reset_counts, path_launches, GLIDE_SECONDS,
+        eager_iters=1, graph_iters=2)
+    f0 = r1["f0"][0].cpu().numpy()
+    voiced = f0[f0 > 0]
+    if not (voiced.size > 0.5 * f0.size and 100.0 < np.median(voiced) < 240.0):
+        raise AssertionError("phase 19 60s: the glide's contour")
+    del r1, eager
+    xg = x.to("cuda")
+    tables = dict(model.named_buffers())
+    dat = encode_classic_one(xg, GLIDE_FS, 5, tables)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    synthesize_classic(dat, noise, GLIDE_FS, n60, 5)
+    torch.cuda.synchronize()
+    synth_peak = torch.cuda.max_memory_allocated() - base
+    fft = default_fft_size(GLIDE_FS)
+    block = pulse_blocking(1, mp, fft, 4) or mp
+    reckoned = block * PULSE_ITEMS_PER_SAMPLE * fft * 4
+    del dat
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    encode_classic_one(xg, GLIDE_FS, 5, tables)
+    torch.cuda.synchronize()
+    encode_peak = torch.cuda.max_memory_allocated() - base
+    found["60s"].update(synthesis_peak_bytes=synth_peak, block=block,
+                        reckoned_block_bytes=reckoned, encode_peak_bytes=encode_peak)
+    print(f"phase 19 60s peak device memory float32 [{card}]: classic synthesis "
+          f"{synth_peak / 2**20:.1f} MiB above what was resident, {mp} pulse slots "
+          f"in blocks of {block} (the rule reckons {reckoned / 2**20:.1f} MiB a "
+          f"block; budget {STAGE_BYTES_BUDGET / 2**20:.0f} MiB); the encode "
+          f"{encode_peak / 2**20:.1f} MiB (printed, not judged)")
+    if synth_peak > STAGE_BYTES_BUDGET:
+        raise AssertionError("phase 19: the classic synthesis at 60 s holds more "
+                             "than the budget")
+    model.graphs.clear()
+    del model, noise, xg, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 19 static classic round trip and graph: ok")
     return found
 
 
@@ -997,7 +1334,7 @@ def main(phases=ALL_PHASES) -> int:
     from world_tpu_torch.synth.classic import standard_normal
     from world_tpu_torch._backend import kernel_library, kernel_resources
     from world_tpu_torch.f0.events import batched_interval_interp
-    from world_tpu_torch.ops import edge_interp, refine_dft
+    from world_tpu_torch.ops import edge_interp, extension_scan, refine_dft
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1018,12 +1355,20 @@ def main(phases=ALL_PHASES) -> int:
                        "replaces": "world_tpu/ops/refine_dft.py:125",
                        "library_ms": None, "launches_by_path": {},
                        "geometries": {}},
+        # no Pallas kernel: the JAX package's FixStep3 scan (:179; FixStep4's
+        # is :206)
+        "extension_scan": {"name": "extension_scan", "route": "cuda",
+                           "source": "world_tpu_torch/csrc/extension_scan.cu",
+                           "replaces": "world_tpu/f0/dio.py:179",
+                           "library_ms": None, "launches_by_path": {},
+                           "geometries": {}},
     }
 
     def path_launches(path: str):
         """Read and record the launch counts of the path just driven."""
         counts = {"event_engine": edge_interp.counter.launches,
-                  "refine_dft": refine_dft.counter.launches}
+                  "refine_dft": refine_dft.counter.launches,
+                  "extension_scan": extension_scan.counter.launches}
         for name, n in counts.items():
             kernels[name]["launches_by_path"][path] = n
             kernels[name]["launches"] = sum(
@@ -1033,6 +1378,7 @@ def main(phases=ALL_PHASES) -> int:
     def reset_counts():
         edge_interp.counter.launches = 0
         refine_dft.counter.launches = 0
+        extension_scan.counter.launches = 0
 
     def hold_kernels(ops, label, k1_geo, k2_geo=None):
         """Both kernels against their plain versions on one launch's
@@ -1064,6 +1410,7 @@ def main(phases=ALL_PHASES) -> int:
               f"{k['spill_stores']} bytes, spill loads {k['spill_loads']} bytes")
 
     ops32 = dio32 = None
+    k3_ops = {}
     if 2 in phases or 3 in phases or 6 in phases:
         ops32 = main_path_operands(x16, fs, torch.float32)
         dio32 = dio_event_operands(x16, fs, n_frames_5ms, torch.float32)
@@ -1091,6 +1438,27 @@ def main(phases=ALL_PHASES) -> int:
                         "rows": list(d["rows"].shape), "Q": d["tq"].shape[0],
                         "max_abs_err": err}
         print("phase 2 K1: ok")
+        # K3 bitwise against its plain version: both scans of DIO on x16
+        # (929 frames), a batch of 4 and the 60 s glide (12,001 frames), and
+        # on short sections
+        x60_k3 = glide_signal(GLIDE_FS, GLIDE_SECONDS)
+        for dt in (torch.float32, torch.float64):
+            for geo, ops in (("dio_x16", k3_operands(x16, fs, dt)),
+                             ("dio_x16_batch4", k3_operands(x16, fs, dt, 4)),
+                             ("dio_60s", k3_operands(x60_k3, GLIDE_FS, dt)),
+                             ("short_sections", k3_short_section_operands(dt))):
+                errs = [check_k3(args, f"{str(dt)[6:]} {geo}") for args in ops]
+                if dt == torch.float32:
+                    k3_ops[geo] = ops
+                    kernels["extension_scan"]["geometries"][geo] = {
+                        "rows_frames_candidates": [*ops[0][3].shape[:1],
+                                                   ops[0][3].shape[2],
+                                                   ops[0][3].shape[1]],
+                        "max_abs_err": max(errs)}
+        kernels["extension_scan"]["max_abs_err"] = \
+            kernels["extension_scan"]["geometries"]["dio_x16"]["max_abs_err"]
+        del x60_k3
+        print("phase 2 K3: ok")
     if 3 in phases:
         for dt, ops in (("float32", ops32), ("float64", ops64)):
             err = check_k2(ops, f"{dt} main path")
@@ -1122,7 +1490,7 @@ def main(phases=ALL_PHASES) -> int:
             raise AssertionError("phase 4: output waveform not finite or all zero")
 
     model = classic = None
-    if 5 in phases or 6 in phases or 10 in phases or 15 in phases or 18 in phases:
+    if any(p in phases for p in (5, 6, 10, 15, 18, 19)):
         rng = np.random.RandomState(0)
         xs = np.stack([x16] + [x16 + 1e-3 * rng.randn(x16.shape[0])
                                for _ in range(3)])
@@ -1155,6 +1523,8 @@ def main(phases=ALL_PHASES) -> int:
     if 18 in phases:
         static_round_trip_and_graph(xs, fs, g, card, reset_counts,
                                     path_launches)
+    if 19 in phases:
+        static_classic_and_graph(xs, fs, card, reset_counts, path_launches)
 
     if 7 in phases:
         from world_tpu_torch.f0.dio import dio_stages
@@ -1192,9 +1562,9 @@ def main(phases=ALL_PHASES) -> int:
         out = w32.decode(dat)
         torch.cuda.synchronize()
         counts = path_launches("dio_classic")
-        if counts["event_engine"] == 0 or counts["refine_dft"] != 0:
-            raise AssertionError(f"the classic path must launch K1 and not K2: "
-                                 f"{counts}")
+        if counts != {"event_engine": 1, "refine_dft": 0, "extension_scan": 2}:
+            raise AssertionError(f"the classic path must launch K1 once, K3 twice "
+                                 f"and K2 never: {counts}")
         b = classic_bars(dat, ref)
         y = np.asarray(out["out"])
         print(f"phase 8 classic float32 on x16 vs the port's float64 on the card: "
@@ -1203,7 +1573,8 @@ def main(phases=ALL_PHASES) -> int:
               f"(< 1), trimmed-99% RMSE {b['f0_rmse_trimmed99']:.6g} Hz, LSD "
               f"{b['lsd']:.6g} dB (< 1), aperiodicity max err {b['ap_max_db']:.6g} "
               f"dB (< 1), y {y.shape} max|y| {np.abs(y).max():.4g}; launches K1 "
-              f"{counts['event_engine']}, K2 {counts['refine_dft']}")
+              f"{counts['event_engine']}, K2 {counts['refine_dft']}, K3 "
+              f"{counts['extension_scan']}")
         if not (b["vuv_agreement"] > 0.99 and b["f0_median_err"] < 0.01
                 and b["f0_rmse"] < 1.0 and b["lsd"] < 1.0 and b["ap_max_db"] < 1.0):
             raise AssertionError("phase 8: classic bars not met")
@@ -1226,12 +1597,13 @@ def main(phases=ALL_PHASES) -> int:
               f"stream: {flips} vuv flips, {off} frames off by > 0.5 Hz, "
               f"analysis bitwise equal: {bitwise}; y {tuple(batch['y'].shape)}, "
               f"overflow flags {batch['_overflow'].tolist()}; launches K1 "
-              f"{counts['event_engine']}, K2 {counts['refine_dft']}")
+              f"{counts['event_engine']}, K2 {counts['refine_dft']}, K3 "
+              f"{counts['extension_scan']}")
         if flips or off:
             raise AssertionError("phase 10: batched row 0 changed decisions")
-        if counts["event_engine"] == 0 or counts["refine_dft"] != 0:
-            raise AssertionError(f"phase 10: the classic batch must launch K1 and "
-                                 f"not K2: {counts}")
+        if counts != {"event_engine": 1, "refine_dft": 0, "extension_scan": 2}:
+            raise AssertionError(f"phase 10: the classic batch must launch K1 once, "
+                                 f"K3 twice and K2 never: {counts}")
         if not (torch.isfinite(batch["y"]).all() and torch.isfinite(single["y"]).all()
                 and bool((batch["y"].abs().amax(dim=1) > 0).all())):
             raise AssertionError("phase 10: non-finite or all-zero batched output")
@@ -1286,7 +1658,7 @@ def main(phases=ALL_PHASES) -> int:
               f"{s_within:.4f}")
         if not (agree > 0.97 and med < 1e-4 and within > 0.97):
             raise AssertionError("phase 11: SWIPE' bars not met")
-        if counts["event_engine"] or counts["refine_dft"]:
+        if any(counts.values()):
             raise AssertionError(f"phase 11: SWIPE' must launch no kernel: {counts}")
         if not (np.all(np.isfinite(y)) and np.abs(y).max() > 0
                 and y.shape == (expected_length(dat["temporal_positions"], fs),)
@@ -1345,7 +1717,7 @@ def main(phases=ALL_PHASES) -> int:
         torch.cuda.synchronize()
         counts = path_launches("B_conversion_prosody")
         # encode x 2 by Harvest (K1 + K2 each), x 2 by DIO (K1 each)
-        if counts != {"event_engine": 4, "refine_dft": 2}:
+        if counts != {"event_engine": 4, "refine_dft": 2, "extension_scan": 4}:
             raise AssertionError(f"phase 12: path B's launches: {counts}")
 
         lsd = mcep_lsd(spec, rec)
@@ -1447,7 +1819,8 @@ def main(phases=ALL_PHASES) -> int:
               f"{audio_c / took[1]:.1f} xRT, third (replays) {took[2]:.3f} s = "
               f"{audio_c / took[2]:.1f} xRT; launches of the third K1 "
               f"{counts['event_engine']}, K2 {counts['refine_dft']}")
-        if len(buckets) != 5 or counts != {"event_engine": 5, "refine_dft": 5}:
+        if len(buckets) != 5 or counts != {"event_engine": 5, "refine_dft": 5,
+                                           "extension_scan": 0}:
             raise AssertionError(f"phase 13: one K1 and one K2 launch per bucket: "
                                  f"{counts} for {len(buckets)} buckets")
         for i, u in enumerate(utts):
@@ -1531,7 +1904,8 @@ def main(phases=ALL_PHASES) -> int:
               f"{blkL32['k1_launches']}), K2 {counts['refine_dft']} (expected "
               f"{blkL32['k2_launches']})")
         if counts != {"event_engine": blkL32["k1_launches"],
-                      "refine_dft": blkL32["k2_launches"]} or counts["event_engine"] < 2:
+                      "refine_dft": blkL32["k2_launches"],
+                      "extension_scan": 0} or counts["event_engine"] < 2:
             raise AssertionError(f"phase 14: one K1 launch per band chunk and one "
                                  f"K2 launch per frame chunk: {counts}")
         print(f"phase 14 long audio float32, {GLIDE_SECONDS:g} s glide at {GLIDE_FS} "
@@ -1775,7 +2149,8 @@ def main(phases=ALL_PHASES) -> int:
         if not (np.all(np.isfinite(f0)) and voiced.size > 0.5 * f0.size
                 and 100.0 < np.median(voiced) < 240.0
                 and counts == {"event_engine": blkX["k1_launches"],
-                               "refine_dft": blkX["k2_launches"]}):
+                               "refine_dft": blkX["k2_launches"],
+                               "extension_scan": 0}):
             raise AssertionError(f"phase 14: Harvest at {LONG_SECONDS:g} s, blocked")
         hv_u, secs_u, peak_u, _ = runs["unblocked"]
         if hv_u is None:
@@ -1948,7 +2323,8 @@ def main(phases=ALL_PHASES) -> int:
               f"{sharded['y'].device}")
         if not (flips == 0 and df0 < 1e-3 and rel < 1e-2 and ddb < 0.05
                 and counts == {"event_engine": 2 * blkS["k1_launches"],
-                               "refine_dft": 2 * blkS["k2_launches"]}):
+                               "refine_dft": 2 * blkS["k2_launches"],
+                               "extension_scan": 0}):
             raise AssertionError("phase 15: the sharded batch")
         # both kernels at the geometry a shard of two rows launches them at
         opsS32 = main_path_operands(xs[:2], fs, torch.float32, blocking=blkS)
@@ -2030,7 +2406,7 @@ def main(phases=ALL_PHASES) -> int:
         if not (vuv_agree > 0.99 and rmse < 1.0):
             raise AssertionError("phase 16: the 22.05 kHz contour misses the "
                                  "golden bars")
-        if counts != {"event_engine": 1, "refine_dft": 1}:
+        if counts != {"event_engine": 1, "refine_dft": 1, "extension_scan": 0}:
             raise AssertionError(f"phase 16: one K1 and one K2 launch: {counts}")
         y64, tab64 = decimated22(torch.float64)
         ops22_64 = decimated_operands(y64, afs22, HARVEST22_LENGTH, fs22, tab64)
@@ -2077,7 +2453,8 @@ def main(phases=ALL_PHASES) -> int:
         print(f"phase 17 gates: {gates}")
         if set(gates.values()) != {"PASS"}:
             raise AssertionError(f"phase 17: a gate failed: {gates}")
-        if bench["paths"]["single"]["launches"] != {"event_engine": 1, "refine_dft": 1}:
+        if bench["paths"]["single"]["launches"] != {"event_engine": 1, "refine_dft": 1,
+                                                    "extension_scan": 0}:
             raise AssertionError("phase 17: bench_torch's round trip must launch "
                                  "each kernel once")
         syncing = {k: v["host_syncs"] for k, v in prof["signals"][0]["stages"].items()
@@ -2143,22 +2520,43 @@ def main(phases=ALL_PHASES) -> int:
 
         ola_args = captured_ola(lambda: eager_round_trip(model, xs_t[:1]))
         time_ola(f"{duration:.3f} s", ola_args)
-        saved = (edge_interp.counter.launches, refine_dft.counter.launches)
+        saved = (edge_interp.counter.launches, refine_dft.counter.launches,
+                 extension_scan.counter.launches)
         reset_counts()
         t_classic = cuda_ms(lambda: w32.decode(w32.encode(
             fs, x16, f0_method="dio", is_requiem=False)), iters=3)
         per_call = edge_interp.counter.launches / 4
-        t_cbatch = cuda_ms(lambda: classic(xs_t, noise=noise), iters=3)
         print(f"phase 6 classic round trip float32 (4.644 s utterance) [{card}]: "
-              f"single {t_classic:.2f} ms = {duration / (t_classic / 1e3):.2f} xRT "
-              f"(World.encode/decode); batch-4 {t_cbatch:.2f} ms = "
-              f"{4 * duration / (t_cbatch / 1e3):.2f} xRT (DioClassic); K1 launches "
-              f"per single round trip {per_call:g}, K2 "
-              f"{refine_dft.counter.launches / 4:g}")
+              f"World.encode/decode (eager) {t_classic:.2f} ms = "
+              f"{duration / (t_classic / 1e3):.2f} xRT; launches per call K1 "
+              f"{per_call:g}, K2 {refine_dft.counter.launches / 4:g}, K3 "
+              f"{extension_scan.counter.launches / 4:g}")
+        # DioClassic's replay beside the same static code run eagerly: graph,
+        # eager, eager, graph (each signature captured by its warm-up)
+        from bench_torch import eager_classic_round_trip
+
+        ctimes = {}
+        for graphs in (True, False, False, True):
+            for name, n_rows in (("single", 1), ("batch-4", 4)):
+                xin, nz = xs_t[:n_rows], noise[:n_rows]
+                call = ((lambda: classic(xin, noise=nz)) if graphs else  # noqa: E731
+                        (lambda: eager_classic_round_trip(classic, xin, nz)))
+                ctimes.setdefault((name, graphs), []).append(
+                    cuda_ms(call, iters=3, warmup=2))
+        print(f"phase 6 classic round trip float32 (4.644 s utterance) [{card}]: "
+              + "; ".join(
+                  f"{name} {'graph' if graphs else 'eager static'} "
+                  f"{'/'.join(f'{t:.2f}' for t in ts)} ms = "
+                  f"{(4 if name == 'batch-4' else 1) * duration / (np.mean(ts) / 1e3):.2f}"
+                  f" xRT" for (name, graphs), ts in ctimes.items()))
         stages = classic_stages(x16, fs)
         print(f"phase 6 classic stages float32 [{card}]: "
               + ", ".join(f"{k} {v['ms']:.2f} ms ({v['device_events']} device "
-                          f"events)" for k, v in stages.items()))
+                          f"events, {v['host_syncs']} host syncs)"
+                          for k, v in stages.items()))
+        if any(v["host_syncs"] for v in stages.values()):
+            raise AssertionError(f"phase 6: a classic stage syncs the host: "
+                                 f"{ {k: v['sync_at'] for k, v in stages.items()} }")
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2372,9 +2770,23 @@ def main(phases=ALL_PHASES) -> int:
                  k1_case("dio_fft2048", dioB32),
                  k2_case("harvest_8k", o), k2_case("harvest_8k_batch4", b4, 2),
                  k2_case("bucket_1s", opsC32), k2_case("harvest_fft2048", opsB32, 2)]
+        # K3: the forward scan of each geometry (the round trip runs it and
+        # the backward one, of the same shapes)
+        for geo, plain_iters in (("dio_x16", 2), ("dio_x16_batch4", 2),
+                                 ("dio_60s", 1)):
+            if geo not in k3_ops:
+                sig, sfs, rows = ((x60, GLIDE_FS, 1) if geo == "dio_60s"
+                                  else (x16, fs, 4 if "batch4" in geo else 1))
+                k3_ops[geo] = k3_operands(sig, sfs, torch.float32, rows)
+            args = k3_ops[geo][0]
+            out = extension_scan.extension_scan_cuda(*args)
+            cases.append(("extension_scan", geo, args, k3_bound(args, out),
+                          plain_iters))
         fns = {"event_engine": (edge_interp.event_engine_cuda,
                                 batched_interval_interp),
-               "refine_dft": (refine_dft.refine_cuda, refine_dft.refine_plain)}
+               "refine_dft": (refine_dft.refine_cuda, refine_dft.refine_plain),
+               "extension_scan": (extension_scan.extension_scan_cuda,
+                                  extension_scan.extension_scan_plain)}
         for name, geo, args, (b_ms, b_by), plain_iters in cases:
             kern, plain = fns[name]
             # plain, kernel, kernel, plain: report the mean of each pair
@@ -2386,16 +2798,17 @@ def main(phases=ALL_PHASES) -> int:
             entry = kernels[name]["geometries"].setdefault(geo, {})
             entry.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
                          bound_by=b_by, host_us=h_us)
-            if geo == "harvest_8k":
+            if geo == ("dio_x16" if name == "extension_scan" else "harvest_8k"):
                 kernels[name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                                      bound_ms=b_ms, bound_by=b_by)
             print(f"phase 6 {name} float32 at {geo} [{card}]: kernel "
                   f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by}), share of bound "
-                  f"{b_ms / ((k1 + k2) / 2):.3f}; the wrapper's host time "
+                  f"{b_ms:.4g} ms ({b_by}), share of bound "
+                  f"{b_ms / ((k1 + k2) / 2):.3g}; the wrapper's host time "
                   f"{h_us:.1f} us a call")
         del b4
-        edge_interp.counter.launches, refine_dft.counter.launches = saved
+        (edge_interp.counter.launches, refine_dft.counter.launches,
+         extension_scan.counter.launches) = saved
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

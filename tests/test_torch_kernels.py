@@ -588,3 +588,34 @@ def test_kernels_cuda_on_22khz_speech(cuda, dtype):
     assert float(rel.max()) <= 1e-4
     flips = int(((got[0] > 0) != (want[0] > 0)).sum())
     assert flips <= 1e-3 * int((k2[2] > 1e-6).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_cuda_matches_plain(cuda, dtype):
+    """DIO's two scans on dio.npz's step-2 contour and mutated candidates,
+    three rows (the contour, none voiced, sections of 1-3 frames): the
+    kernel is bitwise its plain version, one launch a scan."""
+    from pathlib import Path
+
+    from world_tpu_torch.f0.dio import fix_step3, fix_step4
+    from world_tpu_torch.ops import extension_scan as K3
+
+    g = np.load(Path(__file__).parent / "golden" / "dio.npz")
+    n = g["f0_step2"].shape[0]
+    short = np.zeros(n)
+    for s0, length in ((10, 1), (13, 2), (17, 3), (22, 1), (40, 5), (47, 1)):
+        short[s0:s0 + length] = 190.0 + s0 / 100
+    f0 = torch.tensor(np.stack([g["f0_step2"], np.zeros(n), short]), dtype=dtype,
+                      device=cuda)
+    cands = torch.tensor(np.stack([g["f0_candidates_mutated"]] * 3), dtype=dtype,
+                         device=cuda)
+    before = K3.counter.launches
+    step3 = fix_step3(f0, cands, 0.1)
+    step4 = fix_step4(step3, f0, cands, 0.1)
+    assert K3.counter.launches == before + 2
+    plain3 = fix_step3(f0.cpu(), cands.cpu(), 0.1)
+    assert torch.equal(step3.cpu(), plain3)
+    assert torch.equal(step4.cpu(), fix_step4(plain3, f0.cpu(), cands.cpu(), 0.1))
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(step4[0].cpu().numpy(), g["f0_step4"])

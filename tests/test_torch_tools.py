@@ -68,7 +68,8 @@ def test_bench_torch_on_cpu(on_path, capsys):
         assert p["gate"] == "n/a" and p["readings"] == 2
         assert p["xrt"]["min"] <= p["xrt"]["median"] <= p["xrt"]["max"]
         assert set(p["ms_per_call"]) == {"min", "median", "max"}
-        assert p["launches"] == {"event_engine": 0, "refine_dft": 0}
+        assert p["launches"] == {"event_engine": 0, "refine_dft": 0,
+                                 "extension_scan": 0}
     assert doc["value"] == max(p["xrt"]["median"] for p in doc["paths"].values())
 
 
@@ -84,6 +85,13 @@ def test_bench_paths_torch_on_cpu(on_path, capsys, tmp_path):
     gates = {k: p["gate"] for k, p in doc["paths"].items()}
     assert gates == {"dio_encode": "PASS", "classic_roundtrip": "PASS",
                      "harvest_roundtrip": "n/a", "swipe_f0": "PASS"}, gates
+    # the classic paths also run eagerly on the same static code
+    for name in ("dio_encode", "classic_roundtrip"):
+        eager = doc["paths"][name]["eager"]
+        assert eager["gate"] == "PASS" and eager["launches"] == doc["paths"][name][
+            "launches"]
+    assert doc["paths"]["classic_roundtrip"]["launches"] == {
+        "event_engine": 0, "refine_dft": 0, "extension_scan": 0}
     assert set(doc["batch_sweep"]) == {"1", "2"}
     for B, row in doc["batch_sweep"].items():
         assert row["gate"] == "PASS"

@@ -11,9 +11,12 @@ Run from the repository root:
 
 Paths, in float32 on tests/golden/harvest_16k.npz's x16 (4.644 s at 16 kHz),
 each with its static tables resident:
-  * dio_encode: DIO -> StoneMask -> CheapTrick -> D4C (``encode_classic_one``);
-  * classic_roundtrip: the same, then classic synthesis (``DioClassic``, one
-    noise draw from a generator on the device);
+  * dio_encode: DIO -> StoneMask -> CheapTrick -> D4C (``encode_classic_one``)
+    replayed as a CUDA graph (a ``GraphCache`` on ``DioClassic``'s tables);
+  * classic_roundtrip: the same, then classic synthesis (``DioClassic``, a
+    graph replay, one noise draw from a generator on the device);
+    each of the two also run eagerly on the same static code, under
+    ``eager`` (on the CPU both run eagerly);
   * harvest_roundtrip: Harvest -> CheapTrick -> D4C-Requiem -> Requiem
     (``HarvestRequiem``, bench_torch.py's widths);
   * swipe_f0: SWIPE' ``get_f0`` (``SwipeF0``, pitch-strength threshold 0.3).
@@ -81,14 +84,21 @@ def waveform_ok(y) -> bool:
     return bool(torch.isfinite(y).all()) and bool((y.abs().amax(dim=-1) > 0).all())
 
 
-def run_path(name, fn, gate, audio_s, args, device) -> dict:
+def run_path(name, fn, gate, audio_s, args, device, eager=None) -> dict:
+    """The path's timed readings and gate; ``eager``, where given, is the
+    same static code run eagerly, timed and gated the same way, under
+    ``eager``."""
     stats, out = BT.timed_readings(fn, audio_s, args.readings, args.rounds, device)
     verdict, detail = gate(out)
     print(f"{name:18s} {stats['xrt']['median']:10.2f} xRT (min "
           f"{stats['xrt']['min']:.2f}, max {stats['xrt']['max']:.2f}), "
           f"{stats['ms_per_call']['median']:.2f} ms a call, gate {verdict}",
           flush=True)
-    return dict(stats, gate=verdict, gate_detail=detail)
+    entry = dict(stats, gate=verdict, gate_detail=detail)
+    if eager is not None:
+        entry["eager"] = run_path(f"{name} eager", eager, gate, audio_s, args,
+                                  device)
+    return entry
 
 
 def parse(argv):
@@ -112,7 +122,9 @@ def main(argv=None) -> dict:
 
     from world_tpu_torch import DioClassic, HarvestRequiem, SwipeF0
     from world_tpu_torch.parallel.batch import (classic_caps, classic_tables,
-                                                encode_classic_one)
+                                                encode_classic_one, replays,
+                                                table_identity)
+    from world_tpu_torch.parallel.graphs import GraphCache
     from world_tpu_torch.synth.classic import standard_normal
 
     device = torch.device(args.device)
@@ -126,13 +138,18 @@ def main(argv=None) -> dict:
     x64 = x32.double()
     paths = {}
 
-    tab32, tab64 = (classic_tables(fs, dt, device) for dt in (f32, f64))
-    ref_dio = encode_classic_one(x64, fs, FP, tab64)
-    paths["dio_encode"] = run_path(
-        "dio_encode", lambda: encode_classic_one(x32, fs, FP, tab32),
-        lambda out: classic_gate(out, ref_dio), audio_s, args, device)
-
     classic = DioClassic(fs, x.shape[0], FP, dtype=f32, device=device)
+    tab32 = dict(classic.named_buffers())
+    ref_dio = encode_classic_one(x64, fs, FP, classic_tables(fs, f64, device))
+    encode = lambda x: encode_classic_one(x, fs, FP, tab32)     # noqa: E731
+    encode_graphs = GraphCache()
+    key = (str(device), tuple(x32.shape), table_identity(tab32))
+    paths["dio_encode"] = run_path(
+        "dio_encode", (lambda: encode_graphs.run(key, encode, (x32,), device))
+        if replays(device) else (lambda: encode(x32)),
+        lambda out: classic_gate(out, ref_dio), audio_s, args, device,
+        eager=lambda: encode(x32))
+
     classic64 = DioClassic(fs, x.shape[0], FP, dtype=f64, device=device)
     _, max_pulses, max_noise = classic_caps(x.shape[0], fs, FP)
     noise = standard_normal((1, max_pulses, max_noise),
@@ -147,7 +164,8 @@ def main(argv=None) -> dict:
 
     paths["classic_roundtrip"] = run_path(
         "classic_roundtrip", lambda: classic(x32, noise=noise), classic_check,
-        audio_s, args, device)
+        audio_s, args, device,
+        eager=lambda: BT.eager_classic_round_trip(classic, x32, noise))
 
     caps = BT.BENCH_CAPS if full else {}
     model = HarvestRequiem(fs, x.shape[0], FP, dtype=f32, device=device, **caps)
@@ -191,7 +209,9 @@ def main(argv=None) -> dict:
         "dtype": "float32",
         "timing": "readings of `rounds` calls enqueued back to back (the batch "
                   "sweep: rounds // B, at least 1), CUDA events and one "
-                  "synchronize a reading; min/median/max over readings",
+                  "synchronize a reading; min/median/max over readings; on the "
+                  "card every path but swipe_f0 is a CUDA graph's replay, and "
+                  "the classic paths' `eager` the same static code run eagerly",
         "gates": {"harvest_roundtrip": "golden " + json.dumps(BT.GATE_BARS),
                   "dio_encode, classic_roundtrip": "port float64 on the same "
                   "device " + json.dumps(CLASSIC_BARS),

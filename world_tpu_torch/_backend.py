@@ -228,6 +228,10 @@ def _build_and_load():
         # f0_floor, f0_ceil, out, stream
         fn.argtypes = [P, P, P, I, I, I, I, I, P, P, D, D, D, P, P]
         fn.restype = I
+        fn = getattr(lib, f"world_extension_scan_{suffix}")
+        # base, flags, limits, cands, rows, C, n, backward, allowed, out, stream
+        fn.argtypes = [P, P, P, P, I, I, I, I, D, P, P]
+        fn.restype = I
     return lib, seconds
 
 

@@ -7,6 +7,7 @@ import torch
 
 from .._backend import sdiv
 from ..frames import host, like, uniform_frame_period_ms
+from ..tables import table
 from .common import (band_window_table, coarse_ap_frames, d4c_fft_size,
                     frame_slabs, frame_times, love_train_fft_size,
                     love_train_vuv)
@@ -72,9 +73,11 @@ def d4c_core(x: torch.Tensor, fs: int, f0_seq: torch.Tensor,
                       -coarse,
                       torch.full((rows, 1), -0.000000000001, dtype=dtype,
                                  device=dev)], dim=1)
-    j, w = band_to_bin_weights(fs, n_ap, freq_interval, fft_size_for_spectrum)
-    j = torch.as_tensor(j, device=dev)
-    w = torch.as_tensor(w, dtype=dtype, device=dev)
+    key = (int(fs), int(n_ap), float(freq_interval), int(fft_size_for_spectrum))
+    j = table("d4c_band_to_bin_index", key,
+              lambda: band_to_bin_weights(*key)[0], torch.int64, dev)
+    w = table("d4c_band_to_bin_weight", key,
+              lambda: band_to_bin_weights(*key)[1], dtype, dev)
     y0, y1 = vals[:, j], vals[:, j + 1]
     ap_db = y0 + (y1 - y0) * w
     aperiodicity = 10.0 ** sdiv(ap_db, 20.0)

@@ -22,7 +22,7 @@ from .parallel.batch import (analyze, f0_contour, floor_of_fft_size,
 from .spectral.cheaptrick import cheaptrick, default_fft_size
 from .synth.classic import synthesis
 from .synth.requiem import synthesis_requiem
-from .synth.seeds import get_seeds_signals
+from .synth.seeds import seed_tables
 
 logger = logging.getLogger(__name__)
 
@@ -198,8 +198,8 @@ class World:
         ``seed``, its excitation seed bank, and ``noise_offsets``, one
         velvet-noise read cursor per band."""
         if dat.get("is_requiem"):
-            y = synthesis_requiem(dat, dat, get_seeds_signals(int(dat["fs"]),
-                                                              seed=seed),
+            y = synthesis_requiem(dat, dat, seed_tables(int(dat["fs"]), seed,
+                                                        self.dtype, self.device),
                                   noise_offsets=noise_offsets, dtype=self.dtype,
                                   device=self.device)
         else:

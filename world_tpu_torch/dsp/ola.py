@@ -59,6 +59,62 @@ def rank_bound(f_max: float, fs: float) -> int:
     return min(SLOT, max(math.ceil(SLOT * x) + 1, by_spacing))
 
 
+class SlotGrid:
+    """The slot grid of :func:`slot_ola` for rows starting at ``starts``
+    (R, P), filled a block of rows at a time (:meth:`add`), then folded
+    (:meth:`result`).  Each grid row takes its rows in rank order, block
+    after block, so any blocking gives :func:`slot_ola`'s bits: a caller
+    whose responses are too large to hold at once computes them in blocks."""
+
+    def __init__(self, starts: torch.Tensor, y_length: int, W: int,
+                 dtype: torch.dtype):
+        R, P = starts.shape
+        dev = starts.device
+        self.y_length, self.W, self.R = y_length, W, R
+        self.width = W + SLOT
+        self.base = SLOT * (-(-W // SLOT) + 1)       # slot 0 starts at -base <= -W
+        self.n_slots = (y_length + self.base) // SLOT + 2
+        s = starts.to(torch.int64) + self.base
+        sid = torch.div(s, SLOT, rounding_mode="floor")
+        self.off = s - sid * SLOT
+        # a row past either end of the slot grid lies wholly outside the output
+        self.live = (sid >= 0) & (sid < self.n_slots)
+        p = torch.arange(P, device=dev)
+        first = torch.ones((R, P), dtype=torch.bool, device=dev)
+        first[:, 1:] = sid[:, 1:] != sid[:, :-1]
+        self.rank = p - torch.cummax(torch.where(first, p, torch.zeros_like(p)),
+                                     -1).values
+        # grid row r * (n_slots + 1) + slot; row n_slots of each is the trash
+        self.grid = torch.zeros((R * (self.n_slots + 1), self.width), dtype=dtype,
+                                device=dev)
+        row0 = torch.arange(R, device=dev)[:, None] * (self.n_slots + 1)
+        self.at = row0 + torch.where(self.live, sid, self.n_slots)
+        self.trash = (row0 + self.n_slots).expand(R, P)
+
+    def add(self, resp: torch.Tensor, p0: int, max_rank: int):
+        """Add resp (R, k, W), the responses of rows p0 .. p0 + k - 1."""
+        k = resp.shape[1]
+        cols = slice(p0, p0 + k)
+        # each response at its offset inside a row of the slot's width
+        shifted = torch.zeros((self.R, k, self.width), dtype=resp.dtype,
+                              device=resp.device)
+        shifted.scatter_(-1, self.off[:, cols, None]
+                         + torch.arange(self.W, device=resp.device), resp)
+        shifted = shifted.reshape(self.R * k, self.width)
+        live, rank = self.live[:, cols], self.rank[:, cols]
+        at, trash = self.at[:, cols], self.trash[:, cols]
+        for r in range(max_rank):
+            rows = torch.where(live & (rank == r), at, trash).reshape(-1)
+            self.grid.index_put_((rows,), self.grid[rows] + shifted)
+
+    def result(self, max_rank: int):
+        """(y (R, y_length), crowded (R,)): the folded grid, and where a live
+        row of rank ``max_rank`` or more was left out."""
+        crowded = (self.live & (self.rank >= max_rank)).any(dim=-1)
+        grid = self.grid.view(self.R, self.n_slots + 1, self.width)[:, :self.n_slots]
+        return uniform_ola(grid, -self.base, SLOT, self.y_length), crowded
+
+
 def slot_ola(resp: torch.Tensor, starts: torch.Tensor, y_length: int,
              max_rank: int):
     """(y (..., y_length), crowded (...)): y[..., starts[p] + j] +=
@@ -78,35 +134,9 @@ def slot_ola(resp: torch.Tensor, starts: torch.Tensor, y_length: int,
     such limit, and the flag says when the bound was passed."""
     *lead, P, W = resp.shape
     R = math.prod(lead)
-    resp = resp.reshape(R, P, W)
-    dev = resp.device
-    width = W + SLOT
-    base = SLOT * (-(-W // SLOT) + 1)           # slot 0 starts at -base <= -W
-    n_slots = (y_length + base) // SLOT + 2
-    s = starts.reshape(R, P).to(torch.int64) + base
-    sid = torch.div(s, SLOT, rounding_mode="floor")
-    off = s - sid * SLOT
-    # a row past either end of the slot grid lies wholly outside the output
-    live = (sid >= 0) & (sid < n_slots)
-    p = torch.arange(P, device=dev)
-    first = torch.ones((R, P), dtype=torch.bool, device=dev)
-    first[:, 1:] = sid[:, 1:] != sid[:, :-1]
-    rank = p - torch.cummax(torch.where(first, p, torch.zeros_like(p)), -1).values
-    # each response at its offset inside a row of the slot's width
-    shifted = torch.zeros((R, P, width), dtype=resp.dtype, device=dev)
-    shifted.scatter_(-1, off[..., None] + torch.arange(W, device=dev), resp)
-    shifted = shifted.reshape(R * P, width)
-    # grid row r * (n_slots + 1) + slot; row n_slots of each is the trash
-    grid = torch.zeros((R * (n_slots + 1), width), dtype=resp.dtype, device=dev)
-    row0 = torch.arange(R, device=dev)[:, None] * (n_slots + 1)
-    at = row0 + torch.where(live, sid, n_slots)
-    trash = (row0 + n_slots).expand(R, P)
-    for r in range(max_rank):
-        rows = torch.where(live & (rank == r), at, trash).reshape(-1)
-        grid.index_put_((rows,), grid[rows] + shifted)
-    crowded = (live & (rank >= max_rank)).any(dim=-1)
-    grid = grid.view(R, n_slots + 1, width)[:, :n_slots]
-    y = uniform_ola(grid, -base, SLOT, y_length)
+    grid = SlotGrid(starts.reshape(R, P), y_length, W, resp.dtype)
+    grid.add(resp.reshape(R, P, W), 0, max_rank)
+    y, crowded = grid.result(max_rank)
     return y.reshape(*lead, y_length), crowded.reshape(lead)
 
 

@@ -31,3 +31,17 @@ def shift_rows(slab: torch.Tensor, shift: torch.Tensor, width: int) -> torch.Ten
         width, device=slab.device)[None, :]
     got = torch.gather(slab, -1, idx.clamp(max=n - 1))
     return torch.where(idx < n, got, torch.zeros_like(got))
+
+
+def running_sum(t: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum(t, dim=-1)`` summed in a fixed order on every device.
+    On the card PyTorch scans a tensor that is a single row with CUB's
+    decoupled look-back, whose floating-point sums follow the order in which
+    its blocks finish: past one tile a row's bits change from run to run.
+    Two or more rows take the row-wise scan, whose order is fixed, so a
+    single row is scanned beside a copy of itself.  On the CPU both scans
+    are sequential and give the same bits."""
+    if t.numel() != t.shape[-1]:
+        return torch.cumsum(t, dim=-1)
+    row = t.reshape(1, -1)
+    return torch.cumsum(row.expand(2, -1), dim=-1)[0].reshape(t.shape)

@@ -5,25 +5,29 @@ filters are one FIR bank (the reference multiplies three spectra at the
 full signal length, which equals one linear convolution with host-combined
 taps), the four event types of every band go to K1 as rows, and the
 contour fixer runs batched.  Its two sequential passes, FixStep3 and
-FixStep4, extend every voiced section at once: the Python loop runs over
-extension steps, not over frames.
+FixStep4, are the JAX package's frame scans, one K3 launch each on the card
+(:mod:`..ops.extension_scan`).  Nothing reads the device from the host, and
+the tables the stages take are kept (:mod:`..tables`), so that a round trip
+can be captured into a CUDA graph.
 
 Long audio and large batches: the band stage takes ``band_chunk`` and
 ``block`` as Harvest's does (:func:`..dsp.fir.band_blocking` sizes them in
 :func:`dio_core`), so that the bank's unfolded columns, its output and the
 event rows stay inside a budget of bytes.
 """
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._backend import F64_EPS
 from ..dsp.fir import band_blocking, band_filtered
 from ..dsp.iir import decimate_world, world_decimator_impulse
 from ..dsp.rounding import round_half_even_decimals
 from ..dsp.windows import np_hanning_matlab, np_nuttall
+from ..ops import extension_scan as K3
+from ..tables import cached, device_key, frame_grid, table
 from .events import four_event_stats, launch_pieces
 
 
@@ -53,26 +57,43 @@ def band_bank(boundary_f0s: np.ndarray, actual_fs: float):
     lens = [int(actual_fs / bf / 2 + 0.5) * 4 for bf in boundary_f0s]
     combined = [np.convolve(lcf, np_nuttall(n)) for n in lens]
     bank = np.zeros((len(lens), max(len(c) for c in combined)))
-    offsets = np.zeros(len(lens), dtype=np.int64)
-    for i, (c, n) in enumerate(zip(combined, lens)):
+    for i, c in enumerate(combined):
         bank[i, :len(c)] = c
-        offsets[i] = int(np.argmax(np_nuttall(n))) + 1 + cutoff
-    return bank, offsets
+    return bank, band_offsets(tuple(boundary_f0s), actual_fs)
+
+
+@functools.lru_cache(maxsize=64)
+def band_offsets(boundary_f0s: tuple, actual_fs: float) -> np.ndarray:
+    """Each band's read offset (n_bands,) on the host: the blocked bank
+    reads its span from them, not from the device's copy."""
+    _, cutoff = low_cut_taps(actual_fs)
+    out = np.array([int(np.argmax(np_nuttall(int(actual_fs / bf / 2 + 0.5) * 4)))
+                    + 1 + cutoff for bf in boundary_f0s], dtype=np.int64)
+    out.flags.writeable = False
+    return out
 
 
 def dio_tables(fs: int, f0_floor: float, f0_ceil: float,
                channels_in_octave: int, target_fs: int, dtype: torch.dtype,
                device) -> dict:
     """DIO's static tables, built on the host in float64: the band bank and
-    its offsets and the decimation filter's truncated impulse response."""
-    bank, offsets = band_bank(boundary_f0_list(f0_floor, f0_ceil,
-                                               channels_in_octave),
-                              float(target_fs))
-    as_t = lambda a, dt: torch.tensor(np.asarray(a), dtype=dt, device=device)  # noqa: E731
-    return {"dio_bank": as_t(bank, dtype),
-            "dio_offsets": as_t(offsets, torch.int64),
-            "dio_decimator_ir": as_t(world_decimator_impulse(int(fs / target_fs)),
-                                     dtype)}
+    its offsets and the decimation filter's truncated impulse response.
+    Built once per (rate, f0 range, type, device) and kept (:mod:`..tables`)."""
+    device = device_key(device)
+
+    def build():
+        bank, offsets = band_bank(boundary_f0_list(f0_floor, f0_ceil,
+                                                   channels_in_octave),
+                                  float(target_fs))
+        as_t = lambda a, dt: torch.tensor(np.asarray(a), dtype=dt, device=device)  # noqa: E731
+        return {"dio_bank": as_t(bank, dtype),
+                "dio_offsets": as_t(offsets, torch.int64),
+                "dio_decimator_ir": as_t(world_decimator_impulse(int(fs / target_fs)),
+                                         dtype)}
+
+    return dict(cached(("dio_tables", int(fs), float(f0_floor), float(f0_ceil),
+                        int(channels_in_octave), int(target_fs), dtype, device),
+                       build))
 
 
 # ---------------------------------------------------------------------------
@@ -101,11 +122,14 @@ def candidates_and_stability(y: torch.Tensor, actual_fs: float, f0_floor: float,
                 for r0 in range(0, B, row_piece)]
         return (torch.cat([d[0] for d in done]), torch.cat([d[1] for d in done]))
     stride = actual_fs * frame_period / 1000.0
-    bf_all = torch.as_tensor(boundary_f0s, dtype=y.dtype, device=y.device)
+    bfl = tuple(float(f) for f in boundary_f0s)
+    bf_all = table("dio_boundary_f0s", bfl, lambda: bfl, y.dtype, y.device)
+    host_offsets = band_offsets(bfl, float(actual_fs))
     f0s, stabs = [], []
     for b0 in range(0, n_bands, chunk):
+        span = host_offsets[b0:b0 + chunk]
         filtered = band_filtered(y, bank[b0:b0 + chunk], offsets[b0:b0 + chunk],
-                                 block)
+                                 block, span=(int(span.min()), int(span.max())))
         f0c, dev, _ = four_event_stats(filtered.reshape(-1, y_len), actual_fs,
                                        temporal_positions, stride)
         del filtered
@@ -125,17 +149,6 @@ def candidates_and_stability(y: torch.Tensor, actual_fs: float, f0_floor: float,
 # ---------------------------------------------------------------------------
 # contour fixing (dio.py:216-326)
 # ---------------------------------------------------------------------------
-
-def select_best_f0(current_f0, past_f0, candidates, allowed_range: float):
-    """select_best_f0 (dio.py:297-310) for K chains: the candidate nearest
-    the linear prediction, 0 when its relative error exceeds allowed_range.
-    current_f0, past_f0 (K,); candidates (C, K)."""
-    reference = (current_f0 * 3 - past_f0) / 2
-    errors = torch.abs(reference[None, :] - candidates)
-    best = torch.gather(candidates, 0, torch.argmin(errors, dim=0)[None, :])[0]
-    ok = torch.abs(1 - best / (reference + F64_EPS)) <= allowed_range
-    return torch.where(ok, best, torch.zeros_like(best))
-
 
 def fix_step1(f0_cands: torch.Tensor, voice_range_minimum: int,
               allowed_range: float):
@@ -192,96 +205,25 @@ def _section_edges(f0: torch.Tensor):
     return is_start, is_end, next_after, prev_before
 
 
-def extend_sections(base: torch.Tensor, cands: torch.Tensor,
-                    origin: torch.Tensor, last: torch.Tensor,
-                    allowed_range: float) -> torch.Tensor:
-    """The forward extension scan of FixStep3 (dio.py:264-277) for every
-    section at once.
-
-    base (B, n) is the contour; cands (B, C, n); origin (B, n) marks each
-    section's last frame e, and last (B, n) holds, at e, the last frame its
-    chain may write.  The chain from e picks select_best_f0 at e+1, e+2, ...
-    from the two values before it, writes each pick, and stops after a
-    zero pick or past its last frame.  The scan in the JAX package carries
-    one state through every frame; a chain starts where a section ends, from
-    the contour as the earlier chain left it.  The picks of the chains are
-    computed together, one extension step per loop iteration; when a section
-    is so short (<= 3 frames) that the earlier chain wrote the two values a
-    chain starts from, the chains are recomputed from the new start values
-    until nothing changes, which gives the scan's result exactly."""
-    B, n = base.shape
-    dev, dtype = base.device, base.dtype
-    zero = torch.zeros((), dtype=dtype, device=dev)
-    b_idx, e_idx = origin.nonzero(as_tuple=True)           # in scan order
-    K = e_idx.shape[0]
-    if K == 0:
-        return base
-    stop = last[b_idx, e_idx]
-    # a later section's end takes the scan over: stop there
-    nxt_same = torch.cat([b_idx[1:] == b_idx[:-1],
-                          torch.zeros(1, dtype=torch.bool, device=dev)])
-    nxt_e = torch.cat([e_idx[1:], e_idx[-1:]])
-    stop = torch.where(nxt_same, torch.minimum(stop, nxt_e), stop)
-    n_steps = int((stop - e_idx).max())
-    short = bool((nxt_same & (stop >= nxt_e - 1)).any())
-    cols = b_idx[None, :].expand(cands.shape[1], K)
-    crow = torch.arange(cands.shape[1], device=dev)[:, None].expand(-1, K)
-
-    def chains(out):
-        prev1 = out[b_idx, e_idx]
-        prev2 = torch.where(e_idx >= 1, out[b_idx, (e_idx - 1).clamp(min=0)], zero)
-        active = torch.ones(K, dtype=torch.bool, device=dev)
-        pos_l, val_l, act_l = [], [], []
-        for k in range(1, n_steps + 1):
-            pos = e_idx + k
-            active = active & (pos <= stop)
-            if not bool(active.any()):
-                break
-            cand = cands[cols, crow, pos.clamp(max=n - 1)[None, :].expand_as(cols)]
-            val = select_best_f0(prev1, prev2, cand, allowed_range)
-            pos_l.append(pos)
-            val_l.append(val)
-            act_l.append(active)
-            active = active & (val != 0)
-            prev2, prev1 = prev1, val
-        res = base.clone()
-        if pos_l:
-            pos, val, act = (torch.stack(pos_l), torch.stack(val_l),
-                             torch.stack(act_l))
-            k_i, s_i = act.nonzero(as_tuple=True)
-            res[b_idx[s_i], pos[k_i, s_i]] = val[k_i, s_i]
-        return res
-
-    out = chains(base)
-    while short:
-        again = chains(out)
-        if torch.equal(again, out):
-            break
-        out = again
-    return out
-
-
 def fix_step3(f0_step2, cands, allowed_range: float):
     """Extend each voiced section forward (dio.py:264-277) up to one frame
-    past the next section's start, or to the last frame."""
+    past the next section's start, or to the last frame: the JAX package's
+    forward scan (K3 on the card)."""
     n = f0_step2.shape[-1]
     _, is_end, next_after, _ = _section_edges(f0_step2)
     limit = torch.where(next_after >= n + 10, torch.full_like(next_after, n - 1),
                         next_after + 1)
-    return extend_sections(f0_step2, cands, is_end, limit, allowed_range)
+    return K3.extension_scan(f0_step2, is_end, limit, cands, allowed_range)
 
 
 def fix_step4(f0_step3, f0_step2, cands, allowed_range: float):
     """Extend each voiced section of f0_step2 backward (dio.py:281-293)
     over f0_step3, down to one frame before the previous section's end, or
-    to frame 0: FixStep3's scan on the reversed contour."""
-    n = f0_step3.shape[-1]
+    to frame 0: the JAX package's backward scan (K3 on the card)."""
     is_start, _, _, prev_before = _section_edges(f0_step2)
     limit = torch.where(prev_before < 0, torch.ones_like(prev_before), prev_before)
-    flip = lambda t: torch.flip(t, (-1,))                   # noqa: E731
-    out = extend_sections(flip(f0_step3), flip(cands), flip(is_start),
-                          flip(n - limit), allowed_range)
-    return flip(out)
+    return K3.extension_scan(f0_step3, is_start, limit, cands, allowed_range,
+                             backward=True)
 
 
 def fix_f0_contour(f0_candidates: torch.Tensor, frame_period: float,
@@ -309,6 +251,19 @@ def frame_positions(signal_length: int, fs: int, frame_period: float) -> np.ndar
     return np.arange(num_samples) * frame_period / 1000
 
 
+def _band_tables(boundary_f0s, actual_fs: float, dtype, device):
+    """The band bank and its offsets at ``actual_fs``, kept."""
+    device = device_key(device)
+
+    def build():
+        bank, offsets = band_bank(boundary_f0s, actual_fs)
+        return (torch.tensor(bank, dtype=dtype, device=device),
+                torch.tensor(offsets, device=device))
+
+    return cached(("dio_band_tables", tuple(float(f) for f in boundary_f0s),
+                   float(actual_fs), dtype, device), build)
+
+
 def dio_stages(y: torch.Tensor, actual_fs: float, f0_floor: float,
                f0_ceil: float, channels_in_octave: int, frame_period: float,
                allowed_range: float, n_frames: int, bank: torch.Tensor = None,
@@ -321,11 +276,8 @@ def dio_stages(y: torch.Tensor, actual_fs: float, f0_floor: float,
     dtype, dev = y.dtype, y.device
     bfl = boundary_f0_list(f0_floor, f0_ceil, channels_in_octave)
     if bank is None:
-        np_bank, np_off = band_bank(bfl, actual_fs)
-        bank = torch.as_tensor(np_bank, dtype=dtype, device=dev)
-        offsets = torch.as_tensor(np_off, device=dev)
-    tp = torch.as_tensor(np.arange(n_frames) * frame_period / 1000, dtype=dtype,
-                         device=dev)
+        bank, offsets = _band_tables(bfl, actual_fs, dtype, dev)
+    tp = frame_grid(n_frames, frame_period, dev).to(dtype)
     raw_f0, raw_stab = candidates_and_stability(
         y, actual_fs, f0_floor, f0_ceil, bfl, tp, frame_period, bank, offsets,
         band_chunk, block)

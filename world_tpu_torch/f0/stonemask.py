@@ -19,6 +19,7 @@ from ..dsp.rounding import matlab_round_half, round_matlab
 from ..frames import gather_trunc_1based
 from ..ops import prod_diff
 from ..ops.refine_dft import dft_table
+from .. import tables
 
 
 def max_half_window(fs: int, f0_floor: float) -> int:
@@ -99,7 +100,8 @@ def stonemask_core(x: torch.Tensor, fs: int, temporal_positions: torch.Tensor,
 
     base_index = torch.arange(-max_half, max_half + 1, dtype=geo, device=dev)
     mask = torch.abs(base_index)[None, :] <= half[:, None]
-    base_time = torch.as_tensor(base_times(fs_f, max_half), dtype=geo, device=dev)
+    base_time = tables.table("stonemask_base_time", (fs_f, int(max_half)),
+                             lambda: base_times(fs_f, max_half), geo, dev)
     index_raw = matlab_round_half((t[:, None] + base_time[None, :]) * fs_f)
     window_time = sdiv(index_raw - 1, fs_f) - t[:, None]
     w1 = (2 * math.pi) * window_time / wlt[:, None]

@@ -17,6 +17,7 @@ import torch
 
 from .._backend import F64_EPS, resolve_device
 from ..dsp.windows import np_hanning_matlab
+from ..tables import cached, device_key, table
 
 DLOG2P, DERBS, K_WINDOW = 1 / 96, 0.1, 2
 
@@ -105,14 +106,21 @@ def static_config(fs: int, plim) -> dict:
 def swipe_tables(fs: int, plim, dtype: torch.dtype, device) -> dict:
     """SWIPE's static tables as tensors: ``pc`` and ``log2pc`` (candidates,)
     and, for octave i, ``A{i}`` (bins, nERB), ``K{i}`` (its candidates, nERB),
-    ``mu{i}`` and ``win{i}``."""
-    cfg = static_config(fs, plim)
-    as_t = lambda a: torch.tensor(a, dtype=dtype, device=device)   # noqa: E731
-    tables = {"pc": as_t(cfg["pc"]), "log2pc": as_t(cfg["log2pc"])}
-    for i, oc in enumerate(cfg["per_octave"]):
-        for name in ("A", "K", "mu", "win"):
-            tables[f"{name}{i}"] = as_t(oc[name])
-    return tables
+    ``mu{i}`` and ``win{i}``.  Built once per (fs, range, type, device) and
+    kept (:mod:`..tables`)."""
+    device = device_key(device)
+    plim = tuple(float(p) for p in plim)
+
+    def build():
+        cfg = static_config(fs, plim)
+        as_t = lambda a: torch.tensor(a, dtype=dtype, device=device)   # noqa: E731
+        tables = {"pc": as_t(cfg["pc"]), "log2pc": as_t(cfg["log2pc"])}
+        for i, oc in enumerate(cfg["per_octave"]):
+            for name in ("A", "K", "mu", "win"):
+                tables[f"{name}{i}"] = as_t(oc[name])
+        return tables
+
+    return dict(cached(("swipe_tables", int(fs), plim, dtype, device), build))
 
 
 def frame_times(n_samples: int, fs: int, dt: float) -> np.ndarray:
@@ -142,7 +150,10 @@ def swipe_core(x: torch.Tensor, fs: int, plim=(71.0, 800.0), dt: float = 0.005,
         tables = swipe_tables(fs, plim, dtype, dev)
     n_cand = len(cfg["pc"])
     t = frame_times(n, fs, dt)
-    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)   # noqa: E731
+    # the host geometry of this length, kept as the tables are
+    geo = (int(fs), tuple(float(p) for p in plim), int(n), float(dt))
+    as_t = lambda name, key, build, dt=dtype: table(   # noqa: E731
+        f"swipe_{name}", key, build, dt, dev)
     S = torch.zeros((B, n_cand, t.shape[0]), dtype=dtype, device=dev)
     nan = torch.full((), float("nan"), dtype=dtype, device=dev)
 
@@ -157,11 +168,13 @@ def swipe_core(x: torch.Tensor, fs: int, plim=(71.0, 800.0), dt: float = 0.005,
         den = torch.where(den == 0, torch.full_like(den, F64_EPS), den)
         Si = (L / den) @ tables[f"K{i}"].T                     # (B, frames, cands_i)
 
-        pos, frac, outside = time_interpolation(n_frames, w, dn, float(fs), t)
-        pos = torch.as_tensor(pos, device=dev)
-        frac = as_t(frac)[:, None]
+        interp = lambda k: lambda: time_interpolation(   # noqa: E731
+            n_frames, w, dn, float(fs), t)[k]
+        pos = as_t("pos", geo + (i,), interp(0), torch.int64)
+        frac = as_t("frac", geo + (i,), interp(1))[:, None]
+        outside = as_t("outside", geo + (i,), interp(2), torch.bool)
         Si_t = Si[:, pos] * (1 - frac) + Si[:, pos + 1] * frac
-        Si_t = torch.where(torch.as_tensor(outside, device=dev)[:, None], nan, Si_t)
+        Si_t = torch.where(outside[:, None], nan, Si_t)
 
         # the candidate subsets are contiguous ranges (interval conditions
         # on the monotone octave distance d, swipe.py:45-62)
@@ -180,7 +193,8 @@ def swipe_core(x: torch.Tensor, fs: int, plim=(71.0, 800.0), dt: float = 0.005,
 
     # abscissae ntc = (tc/tc[1] - 1) 2 pi with tc = 1/pc: constant ratios
     r = 2.0 ** (1.0 / 96)
-    x0_, x1_, x2_ = as_t([(r - 1) * 2 * np.pi, 0.0, (1 / r - 1) * 2 * np.pi])
+    x0_, x1_, x2_ = as_t("parabola", (), lambda: [(r - 1) * 2 * np.pi, 0.0,
+                                                  (1 / r - 1) * 2 * np.pi])
     denom = (x0_ - x1_) * (x0_ - x2_) * (x1_ - x2_)
     a_c = (x2_ * (y1 - y0) + x1_ * (y0 - y2) + x0_ * (y2 - y1)) / denom
     b_c = (x2_ ** 2 * (y0 - y1) + x1_ ** 2 * (y2 - y0) + x0_ ** 2 * (y1 - y2)) / denom
@@ -188,7 +202,7 @@ def swipe_core(x: torch.Tensor, fs: int, plim=(71.0, 800.0), dt: float = 0.005,
     # fine grid over [log2 pc[i-1], log2 pc[i+1]] in steps of 1/12/64 (17 points)
     step = 1.0 / 12 / 64
     n_fine = int(np.floor((2.0 / 96) / step)) + 1
-    klog = as_t(np.arange(n_fine) * step)
+    klog = as_t("fine_grid", (), lambda: np.arange(n_fine) * step)
     nftc = (torch.pow(2.0, 1.0 / 96 - klog) - 1.0) * 2 * np.pi
     pval = (a_c[..., None] * nftc ** 2 + b_c[..., None] * nftc + y1[..., None])
     kbest = torch.argmax(pval, dim=-1)
@@ -200,7 +214,8 @@ def swipe_core(x: torch.Tensor, fs: int, plim=(71.0, 800.0), dt: float = 0.005,
     zero = torch.zeros((), dtype=dtype, device=dev)
     f0 = torch.where(ok, p, zero)
     f0 = torch.where(torch.isnan(f0), zero, f0)
-    return {"temporal_positions": as_t(t), "f0": f0, "vuv": (f0 > 0).to(dtype)}
+    return {"temporal_positions": as_t("times", geo, lambda: t), "f0": f0,
+            "vuv": (f0 > 0).to(dtype)}
 
 
 def swipe(fs: int, x, plim=(71, 800), dt: float = 0.005,

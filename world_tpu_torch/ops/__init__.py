@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels' wrappers: K1 (edge_interp, the event
-engine) and K2 (refine_dft, Harvest refinement), and the arithmetic their
-plain versions share with the rest of the package."""
+engine), K2 (refine_dft, Harvest refinement) and K3 (extension_scan, DIO's
+FixStep3 and FixStep4), and the arithmetic their plain versions share with
+the rest of the package."""
 import torch
 
 

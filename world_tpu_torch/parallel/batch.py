@@ -16,14 +16,14 @@ Several devices are driven by one process, one worker thread per device
 are independent, so the shards exchange nothing; the results are gathered on
 the first device.
 
-On the card, ``HarvestRequiem`` and each device's call of
+On the card, ``HarvestRequiem``, ``DioClassic`` and each device's call of
 ``batch_encode_decode`` (so each bucket of ``batch_encode_decode_ragged``)
 replay one CUDA graph per static signature from its second call on
-(:mod:`.graphs`), what ``jax.jit`` is to ``_encode_decode_one``; a
-signature's first call, and every call on the CPU, runs the same static
-code eagerly.  ``batch_encode_decode``'s graphs are held in
-``BATCH_GRAPHS`` (``BATCH_GRAPHS.clear()`` frees them); a module holds its
-own.
+(:mod:`.graphs`), what ``jax.jit`` is to ``_encode_decode_one`` and
+``_encode_decode_classic_one``; a signature's first call, and every call on
+the CPU, runs the same static code eagerly.  ``batch_encode_decode``'s
+graphs are held in ``BATCH_GRAPHS`` (``BATCH_GRAPHS.clear()`` frees them); a
+module holds its own.
 """
 import functools
 import warnings
@@ -47,9 +47,9 @@ from ..f0.swipe import swipe_core, swipe_tables
 from ..ops.refine_dft import dft_table
 from ..spectral.cheaptrick import cheaptrick_core, default_fft_size
 from ..synth.classic import (default_max_pulses, max_noise_length,
-                             standard_normal, synthesis_core)
-from ..synth.requiem import excitation_core, overlap_passes, waveform_core
-from ..synth.seeds import get_seeds_signals
+                             pulse_rank_bound, standard_normal, synthesis_core)
+from ..synth.requiem import excitation_core, waveform_core
+from ..synth.seeds import seed_tables
 from ..tables import cached, device_key
 from .graphs import GraphCache
 
@@ -180,12 +180,12 @@ def analyze(x: torch.Tensor, fs: int, frame_period: float,
 @functools.lru_cache(maxsize=None)
 def round_trip_rank_bound(fs: int) -> int:
     """The overlap-add's passes in the round trip's Requiem synthesis
-    (:func:`..synth.requiem.overlap_passes`), from the caps alone: its f0 is
+    (:func:`..synth.classic.pulse_rank_bound`), from the caps alone: its f0 is
     at most the F0 ceiling (plus FixStep4's one hertz of fill), raised by
     the smoothing's gain (the sum of its kernel's magnitudes bounds any
     smoothed value)."""
     gain = float(np.abs(smooth_zero_phase_kernel()).sum())
-    return overlap_passes((F0_CEIL + 1.0) * gain, fs)
+    return pulse_rank_bound((F0_CEIL + 1.0) * gain, fs)
 
 
 def synthesize(temporal_positions, f0, vuv, band_ap_db, spectrogram,
@@ -261,24 +261,26 @@ def classic_caps(sig_len: int, fs: int, frame_period: int):
     return y_length, max_pulses, max_noise_length(fs)
 
 
+@functools.lru_cache(maxsize=None)
+def classic_rank_bound(fs: int) -> int:
+    """The overlap-add's passes in the round trip's classic synthesis, from
+    the caps alone: its f0 is at most StoneMask's 1.2 times the F0 ceiling
+    (:func:`classic_caps`), 500 Hz where unvoiced."""
+    return pulse_rank_bound(F0_CEIL * 1.2, fs)
+
+
 def synthesize_classic(dat: dict, noise: torch.Tensor, fs: int, sig_len: int,
                        frame_period: int):
-    """Classic pulse/noise synthesis (synthesis.py:21-82) of each row of
-    :func:`encode_classic_one`'s dat, row b from the standard-normal draw
-    noise[b] of shape :func:`classic_caps`.  Returns y (B, y_length) and
-    the pulse overflow flags (B,)."""
+    """Classic pulse/noise synthesis (synthesis.py:21-82) of every row of
+    :func:`encode_classic_one`'s dat at once, row b from the standard-normal
+    draw noise[b] of shape :func:`classic_caps`.  Returns y (B, y_length)
+    and the per-row capacity flags (B,)."""
     y_length, max_pulses, max_noise = classic_caps(sig_len, fs, frame_period)
-    fft_size = default_fft_size(fs)
-    ys, overflow = [], []
-    for b in range(dat["f0"].shape[0]):
-        y, over = synthesis_core(
-            dat["f0"][b], dat["vuv"][b], dat["temporal_positions"],
-            dat["spectrogram"][b], dat["aperiodicity"][b], noise[b], fs,
-            y_length, fft_size, max_pulses, max_noise, "gaussian", "standard",
-            float(frame_period) / 1000.0)
-        ys.append(y)
-        overflow.append(over)
-    return torch.stack(ys), torch.tensor(overflow, device=noise.device)
+    return synthesis_core(
+        dat["f0"], dat["vuv"], dat["temporal_positions"], dat["spectrogram"],
+        dat["aperiodicity"], noise, fs, y_length, default_fft_size(fs),
+        max_pulses, max_noise, "gaussian", "standard",
+        float(frame_period) / 1000.0, classic_rank_bound(fs))
 
 
 def encode_decode_classic_one(x: torch.Tensor, fs: int, frame_period: int,
@@ -291,7 +293,11 @@ def encode_decode_classic_one(x: torch.Tensor, fs: int, frame_period: int,
     ``noise`` is the standard-normal draw (B, max_pulses, max_noise) of
     :func:`classic_caps`; when None it is drawn from ``generator`` (seeded
     0 on x's device when None).  Returns the encode outputs, y
-    (B, y_length) and the per-row pulse overflow flag _overflow (B,)."""
+    (B, y_length) and the per-row capacity flag _overflow (B,).
+
+    The JAX package's ``_encode_decode_classic_one`` on its static shapes:
+    given its noise, nothing on the round trip is read back to the host, so
+    that a CUDA graph can capture it (:class:`DioClassic`)."""
     B, sig_len = x.shape
     dat = encode_classic_one(x, fs, frame_period, tables)
     if noise is None:
@@ -304,12 +310,18 @@ def encode_decode_classic_one(x: torch.Tensor, fs: int, frame_period: int,
 
 def classic_tables(fs: int, dtype: torch.dtype, device) -> dict:
     """The classic round trip's static tables: DIO's band bank, its offsets
-    and its decimator's impulse response, and StoneMask's DFT table."""
-    tables = dio_tables(fs, F0_FLOOR, F0_CEIL, 2, 4000, dtype, device)
-    cos_tab, sin_tab = dft_table(table_size(max_half_window(fs, F0_FLOOR)),
-                                 dtype, device)
-    tables.update(stonemask_cos=cos_tab, stonemask_sin=sin_tab)
-    return tables
+    and its decimator's impulse response, and StoneMask's DFT table.  Built
+    once per (fs, type, device) and kept (:mod:`..tables`)."""
+    device = device_key(device)
+
+    def build():
+        tables = dio_tables(fs, F0_FLOOR, F0_CEIL, 2, 4000, dtype, device)
+        cos_tab, sin_tab = dft_table(table_size(max_half_window(fs, F0_FLOOR)),
+                                     dtype, device)
+        tables.update(stonemask_cos=cos_tab, stonemask_sin=sin_tab)
+        return tables
+
+    return dict(cached(("classic_tables", int(fs), dtype, device), build))
 
 
 HARVEST_TABLE_KEYS = ("band_bank", "band_bias", "decimator_ir", "refine_cos",
@@ -325,10 +337,8 @@ def harvest_requiem_tables(fs: int, seed: int, dtype: torch.dtype, device) -> di
 
     def build():
         tables = harvest_tables(fs, F0_FLOOR, F0_CEIL, dtype, device)
-        seeds = get_seeds_signals(fs, seed=seed)
-        for name in ("pulse", "noise"):
-            tables[f"{name}_seed"] = torch.tensor(seeds[name], dtype=dtype,
-                                                  device=device)
+        for name, bank in seed_tables(fs, seed, dtype, device).items():
+            tables[f"{name}_seed"] = bank
         return tables
 
     return dict(cached(("harvest_requiem_tables", int(fs), int(seed), dtype,
@@ -433,7 +443,7 @@ def batch_encode_decode(xs, fs: int, devices=None, frame_period: int = 5,
                 x, t["pulse_seed"], t["noise_seed"], fs, *caps,
                 tables={name: t[name] for name in HARVEST_TABLE_KEYS})
 
-        if dev.type != "cuda":
+        if not replays(dev):
             return run(rows.to(dev))
         key = (device_key(dev), tuple(rows.shape), rows.dtype, fs, caps,
                table_identity(t))
@@ -459,6 +469,12 @@ def graph_rows(n_rows: int) -> int:
     the card: the next power of two, so that a stream of calls whose
     buckets change their rows makes few signatures (:mod:`.graphs`)."""
     return 1 << max(0, n_rows - 1).bit_length()
+
+
+def replays(device: torch.device) -> bool:
+    """Whether calls on ``device`` go through a :class:`GraphCache`: on the
+    card; on the CPU the static code runs eagerly."""
+    return device.type == "cuda"
 
 
 def table_identity(tables: dict) -> tuple:
@@ -638,7 +654,16 @@ class DioClassic(_TableModule):
     StoneMask DFT table.
 
     ``forward(x, noise=None, generator=None)`` takes (B, n_samples) or
-    (n_samples,) signals of the length the module was built for."""
+    (n_samples,) signals of the length the module was built for, and the
+    noise draw (B, max_pulses, max_noise) of :func:`classic_caps`, drawn from
+    ``generator`` (seeded 0 on the module's device when None) before the
+    round trip when it is None.  On the card it replays one CUDA graph per
+    batch size and type from the second call of that size on (the first
+    runs eagerly; :mod:`.graphs`), held in ``graphs``; the draw is an input
+    the replay copies in, so a replay with the same draw gives the eager
+    call's bits.  On the CPU the same static code runs eagerly.  Moving the
+    module drops its graphs; :meth:`from_numpy_state` writes the buffers in
+    place, which the graphs read at each replay."""
 
     def __init__(self, fs: int, n_samples: int, frame_period: int = 5,
                  dtype=torch.float32, device=None):
@@ -646,15 +671,40 @@ class DioClassic(_TableModule):
         self.fs = int(fs)
         self.n_samples = int(n_samples)
         self.frame_period = int(frame_period)
+        self.graphs = GraphCache()
         self._register_tables(classic_tables(self.fs, dtype,
                                              resolve_device(device)))
 
+    def _apply(self, fn, *args, **kwargs):
+        self.graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def _round_trip(self, x: torch.Tensor, noise: torch.Tensor) -> dict:
+        return encode_decode_classic_one(x, self.fs, self.frame_period,
+                                         noise=noise,
+                                         tables=dict(self.named_buffers()))
+
     def forward(self, x: torch.Tensor, noise: torch.Tensor = None,
                 generator: torch.Generator = None) -> dict:
-        return encode_decode_classic_one(self._batch(x), self.fs,
-                                         self.frame_period, noise=noise,
-                                         generator=generator,
-                                         tables=dict(self.named_buffers()))
+        xb = self._batch(x)
+        dev = self.dio_bank.device
+        if noise is None:
+            _, max_pulses, max_noise = classic_caps(self.n_samples, self.fs,
+                                                    self.frame_period)
+            noise = standard_normal((xb.shape[0], max_pulses, max_noise),
+                                    generator, xb.dtype, dev)
+        if not replays(dev):
+            return self._round_trip(xb, noise)
+        return self.graphs.run(self.signature(xb, noise), self._round_trip,
+                               (xb, noise), dev)
+
+    def signature(self, xb: torch.Tensor, noise: torch.Tensor) -> tuple:
+        """The key of the graph a call replays: the device, the rows, the
+        length and type of the signals, the caps (the draw's shape) and its
+        type, and the tables' identity."""
+        return (device_key(self.dio_bank.device), tuple(xb.shape), xb.dtype,
+                tuple(noise.shape), noise.dtype,
+                table_identity(dict(self.named_buffers())))
 
 
 class HarvestRequiem(_TableModule):
@@ -705,7 +755,7 @@ class HarvestRequiem(_TableModule):
         if noise_offsets is None:
             noise_offsets = torch.zeros(self.pulse_seed.shape[1],
                                         dtype=torch.int64, device=dev)
-        if dev.type != "cuda":
+        if not replays(dev):
             return self._round_trip(xb, noise_offsets)
         key = (device_key(dev), tuple(xb.shape), xb.dtype,
                table_identity(dict(self.named_buffers())))

@@ -1,8 +1,9 @@
 """One CUDA graph per static signature: the port's ``jax.jit``.
 
-The Harvest/Requiem round trip runs on static shapes with no host sync
-(:func:`.batch.encode_decode_one`), so one call can be captured into a CUDA
-graph and replayed: the host then issues one launch for the whole round
+The Harvest/Requiem and the classic round trips run on static shapes with
+no host sync (:func:`.batch.encode_decode_one`,
+:func:`.batch.encode_decode_classic_one`), so one call can be captured into
+a CUDA graph and replayed: the host then issues one launch for the whole round
 trip instead of thousands.  A :class:`GraphCache` keeps one graph per
 signature (the caller's key: device, shapes, caps, type, the tables'
 identity):
@@ -42,7 +43,7 @@ import torch
 
 from .. import tables
 from .._backend import STAGE_BYTES_BUDGET
-from ..ops import edge_interp, refine_dft
+from ..ops import edge_interp, extension_scan, refine_dft
 
 # the pool bytes a cache's graphs hold together: 4 GiB, a twentieth of an
 # 80 GB card, holds the 60 s round trip's graph (2.6 GiB) or a ragged
@@ -52,7 +53,8 @@ GRAPH_POOL_BUDGET = 4 * STAGE_BYTES_BUDGET
 SEEN_SIZE = 256
 
 _COUNTERS = {"event_engine": edge_interp.counter,
-             "refine_dft": refine_dft.counter}
+             "refine_dft": refine_dft.counter,
+             "extension_scan": extension_scan.counter}
 # one capture at a time in the process: the warm-up and the capture of two
 # worker threads on one card would share the allocator's capture state
 _CAPTURE_LOCK = threading.Lock()

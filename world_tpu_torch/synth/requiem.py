@@ -13,12 +13,12 @@ import torch
 from .._backend import resolve_device, sdiv
 from ..dsp.interp import interp1_extrap
 from ..dsp.minphase import minimum_phase_spectrum, mirror_full
-from ..dsp.ola import SLOT, rank_bound, slot_ola, uniform_ola
-from ..dsp.scanops import compact_rows
+from ..dsp.ola import SLOT, slot_ola, uniform_ola
+from ..dsp.scanops import compact_rows, running_sum
 from ..dsp.windows import np_hanning_matlab
 from ..frames import host, uniform_frame_period_ms
 from ..tables import table
-from .classic import default_max_pulses, grid_interp, sample_times
+from .classic import default_max_pulses, grid_interp, pulse_rank_bound, sample_times
 
 
 def _interp(values, temporal_positions, time_axis, frame_period_s):
@@ -44,7 +44,7 @@ def pulse_locations(temporal_positions, f0, vuv, fs: float, time_axis,
     f0_i = torch.where(f0_i == 0, torch.full_like(f0_i, 500.0), f0_i)
     # the running phase in float64 in every working type: over a minute it
     # passes 60,000 rad, where a float32 sum places pulses samples off
-    total_phase = torch.cumsum(sdiv(2 * math.pi * f0_i, fs).double(), dim=-1)
+    total_phase = running_sum(sdiv(2 * math.pi * f0_i, fs).double())
     wrap = torch.remainder(total_phase, 2 * math.pi)
     mask = torch.abs(torch.diff(wrap, dim=-1)) > math.pi
     locs, rank = compact_rows(time_axis[:-1].expand(mask.shape), mask,
@@ -55,14 +55,6 @@ def pulse_locations(temporal_positions, f0, vuv, fs: float, time_axis,
     return pli, count, vuv_i, raw_count
 
 
-def overlap_passes(f0_max: float, fs: int) -> int:
-    """The rank passes of the pulses' overlap-add (:func:`..dsp.ola.slot_ola`)
-    for a contour no higher than ``f0_max`` Hz: the bound of
-    :func:`..dsp.ola.rank_bound` on its fastest pulse train, which is
-    500 Hz where unvoiced."""
-    return rank_bound(max(float(f0_max), 500.0), fs)
-
-
 def excitation_core(temporal_positions, f0, vuv, band_ap_db, pulse_seed,
                     noise_seed, noise_offsets, fs: int, y_length: int,
                     max_pulses: int, frame_period_s=None, max_rank: int = SLOT):
@@ -71,7 +63,8 @@ def excitation_core(temporal_positions, f0, vuv, band_ap_db, pulse_seed,
     (fft, bands); noise_seed (noise_len, bands); noise_offsets (bands,) int.
     The flag is set where the pulses pass ``max_pulses`` or a slot of the
     overlap-add holds more than ``max_rank`` of them (:func:`..dsp.ola.
-    slot_ola`; :func:`overlap_passes` gives the bound of an f0 range)."""
+    slot_ola`; :func:`.classic.pulse_rank_bound` gives the bound of an f0
+    range)."""
     dtype, dev = pulse_seed.dtype, pulse_seed.device
     fft_size = pulse_seed.shape[0]
     time_axis = sample_times(y_length, fs, temporal_positions[0])
@@ -142,7 +135,8 @@ def synthesis_requiem(source_object: dict, filter_object: dict,
     """Waveform of a source/filter dict pair (API of
     world_tpu.synth.requiem.synthesis_requiem) on ``device`` (the GPU unless
     the CPU is asked for), on any ascending frame grid.  ``seeds_signals``
-    is :func:`..synth.seeds.get_seeds_signals`' dict; ``noise_offsets`` is
+    is :func:`..synth.seeds.get_seeds_signals`' dict of arrays or
+    :func:`..synth.seeds.seed_tables`' of tensors; ``noise_offsets`` is
     one velvet-noise read cursor per band (zeros when None)."""
     dev = resolve_device(device)
     as_t = lambda a: torch.tensor(np.asarray(host(a), dtype=np.float64),   # noqa: E731
@@ -151,8 +145,11 @@ def synthesis_requiem(source_object: dict, filter_object: dict,
     tp = np.asarray(host(source_object["temporal_positions"]), dtype=np.float64)
     fs = int(filter_object["fs"])
     spectrogram = as_t(filter_object["spectrogram"])
-    pulse_seed = as_t(seeds_signals["pulse"])
-    noise_seed = as_t(seeds_signals["noise"])
+    # banks given as tensors (seeds.seed_tables) stay where they are
+    seed = lambda a: (a.to(dtype=dtype, device=dev)        # noqa: E731
+                      if isinstance(a, torch.Tensor) else as_t(a))
+    pulse_seed = seed(seeds_signals["pulse"])
+    noise_seed = seed(seeds_signals["noise"])
     if noise_offsets is None:
         noise_offsets = np.zeros(pulse_seed.shape[1], np.int64)
     offsets = torch.as_tensor(np.asarray(host(noise_offsets), np.int64), device=dev)
@@ -164,7 +161,7 @@ def synthesis_requiem(source_object: dict, filter_object: dict,
         as_t(tp), as_t(f0), as_t(source_object["vuv"]),
         as_t(source_object["aperiodicity"]), pulse_seed, noise_seed, offsets,
         fs, y_length, max_pulses, None if fp_ms is None else fp_ms / 1000.0,
-        overlap_passes(np.max(f0, initial=0.0), fs))   # the contour is on the host
+        pulse_rank_bound(np.max(f0, initial=0.0), fs))   # the contour is on the host
     if bool(overflow):
         warnings.warn(f"synthesis_requiem: pulse count exceeded max_pulses="
                       f"{max_pulses}; trailing pulses were dropped — raise "

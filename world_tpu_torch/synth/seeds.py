@@ -8,6 +8,7 @@ import functools
 import numpy as np
 
 from ..dsp.windows import np_hanning_matlab
+from ..tables import table
 
 
 def _short_velvet_noise(n: int, rng: np.random.RandomState) -> np.ndarray:
@@ -77,3 +78,13 @@ def get_seeds_signals(fs: int, fft_size: int = None, noise_length: int = None,
         noise_length = int(2 ** np.ceil(np.log2(fs / 2)))
     pulse, noise = _seeds(int(fs), int(fft_size), int(noise_length), int(seed))
     return {"pulse": pulse, "noise": noise}
+
+
+def seed_tables(fs: int, seed: int, dtype, device) -> dict:
+    """:func:`get_seeds_signals`' two banks at the default sizes as tensors
+    of ``dtype`` on ``device``, uploaded once per (fs, seed, type, device)
+    and kept (:mod:`..tables`)."""
+    return {name: table(f"requiem_{name}_seed", (int(fs), int(seed)),
+                        lambda name=name: get_seeds_signals(fs, seed=seed)[name],
+                        dtype, device)
+            for name in ("pulse", "noise")}

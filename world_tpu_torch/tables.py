@@ -58,8 +58,8 @@ def table(name: str, key: tuple, build, dtype: torch.dtype, device) -> torch.Ten
     uploaded once per (name, key, dtype, device)."""
     device = device_key(device)
     return cached((name, key, dtype, device),
-                  lambda: torch.as_tensor(np.asarray(build()), dtype=dtype,
-                                          device=device))
+                  lambda: torch.tensor(np.asarray(build()), dtype=dtype,
+                                       device=device))
 
 
 def frame_grid(n_frames: int, frame_period_ms: float, device) -> torch.Tensor:
