@@ -619,3 +619,39 @@ def test_k3_cuda_matches_plain(cuda, dtype):
     assert torch.equal(step4.cpu(), fix_step4(plain3, f0.cpu(), cands.cpu(), 0.1))
     if dtype == torch.float64:
         np.testing.assert_array_equal(step4[0].cpu().numpy(), g["f0_step4"])
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k4_k5_cuda_match_plain(cuda, dtype):
+    """Harvest's FixStep3 kernels on the adversarial section layouts
+    (chip_smoke.fix_step3_layouts) in chunks of 1, 3 and all 16 rows, and
+    on x16's Harvest: K4 and K5 bitwise their plain versions, K4 once a
+    call and K5 once a chunk."""
+    from pathlib import Path
+
+    from world_tpu_torch.ops import fix_step3 as K45
+
+    cs = _chip_smoke()
+    before = (K45.extend_counter.launches, K45.merge_counter.launches)
+    ext, mer = cs.step3_layout_operands(dtype)
+    assert (K45.extend_counter.launches - before[0],
+            K45.merge_counter.launches - before[1]) == (3, 16 + 6 + 1)
+    g = np.load(Path(__file__).parent / "golden" / "harvest_16k.npz")
+    e16, m16 = cs.step3_operands(np.asarray(g["x16"]), int(g["fs"]), dtype)
+    assert len(e16) == len(m16) == 1 and e16[0][1].shape == (1, 512)
+    for args in ext + e16:
+        cs.check_k4(args, f"{dtype} test")
+    for args in mer + m16:
+        cs.check_k5(args, f"{dtype} test")

@@ -299,11 +299,27 @@ def test_synthesis_has_static_shapes():
     assert out.shape == (B, y_length)
 
 
+def _stub_step3(monkeypatch):
+    """K4 and K5 stand in as shapes: K4 returns empty outputs of its own
+    shapes, K5 the state it was given."""
+    from world_tpu_torch.ops import fix_step3 as K45
+
+    def k4(f0, origin, last_point, shift, cands, allowed_range, n_steps):
+        steps = origin.shape + (n_steps,)
+        return (torch.empty(steps, dtype=torch.int64, device=f0.device),
+                torch.empty(steps, dtype=f0.dtype, device=f0.device),
+                torch.empty(steps, dtype=torch.bool, device=f0.device),
+                torch.empty_like(origin))
+
+    monkeypatch.setattr(K45, "extend_chains", k4)
+    monkeypatch.setattr(K45, "merge_sections", lambda *args: args[5:])
+
+
 def test_round_trip_has_static_shapes(monkeypatch):
     """encode_decode_one from the decimator to the waveform on meta
-    tensors, with the two kernels standing in as shapes (each returns
-    empty outputs of its own shape): nothing else on the round trip reads
-    the data."""
+    tensors, with the four kernels of the path (K1, K2, and FixStep3's K4
+    and K5) standing in as shapes (each returns empty outputs of its own
+    shape): nothing else on the round trip reads the data."""
     from world_tpu_torch import encode_decode_one
     from world_tpu_torch.f0 import harvest as H
     from world_tpu_torch.ops import edge_interp
@@ -320,6 +336,7 @@ def test_round_trip_has_static_shapes(monkeypatch):
 
     monkeypatch.setattr(edge_interp, "interval_interp", k1)
     monkeypatch.setattr(H, "refine_full", k2)
+    _stub_step3(monkeypatch)
     t = harvest_requiem_tables(16000, 0, torch.float32, META)
     x = _meta(2, 8000, dtype=torch.float32)
     out = encode_decode_one(x, t["pulse_seed"], t["noise_seed"], 16000, 5,

@@ -69,7 +69,8 @@ def test_bench_torch_on_cpu(on_path, capsys):
         assert p["xrt"]["min"] <= p["xrt"]["median"] <= p["xrt"]["max"]
         assert set(p["ms_per_call"]) == {"min", "median", "max"}
         assert p["launches"] == {"event_engine": 0, "refine_dft": 0,
-                                 "extension_scan": 0}
+                                 "extension_scan": 0, "extend_chains": 0,
+                                 "merge_sections": 0}
     assert doc["value"] == max(p["xrt"]["median"] for p in doc["paths"].values())
 
 
@@ -91,7 +92,8 @@ def test_bench_paths_torch_on_cpu(on_path, capsys, tmp_path):
         assert eager["gate"] == "PASS" and eager["launches"] == doc["paths"][name][
             "launches"]
     assert doc["paths"]["classic_roundtrip"]["launches"] == {
-        "event_engine": 0, "refine_dft": 0, "extension_scan": 0}
+        "event_engine": 0, "refine_dft": 0, "extension_scan": 0,
+        "extend_chains": 0, "merge_sections": 0}
     assert set(doc["batch_sweep"]) == {"1", "2"}
     for B, row in doc["batch_sweep"].items():
         assert row["gate"] == "PASS"
@@ -152,3 +154,14 @@ def test_examples_on_cpu(tmp_path, capsys):
     assert feats["lfbank_shape"][1] == 32
     assert feats["lsd_db"] < 8.0, feats
     assert "MCEP-40 round-trip LSD" in capsys.readouterr().out
+
+
+def test_bench_harvest_torch_needs_the_card(on_path, monkeypatch):
+    """tools/bench_harvest_torch.py measures on the GPU only: without one it
+    refuses, and a CPU number is never printed under its names."""
+    import torch
+
+    tool = _load("tools/bench_harvest_torch.py")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tool.main(["--readings", "1"])

@@ -19,7 +19,9 @@ stages to wrap); the stage functions are wrapped in place, in the modules that c
 them, so the path and its stage order are the program's own.  After a
 warm-up call, three more calls:
   1. unprofiled: each stage's milliseconds by CUDA events around it
-     (inclusive of the stages inside it), and K1's and K2's launches;
+     (inclusive of the stages inside it), and the launches of K1, K2 and
+     FixStep3's K4 and K5 (launched through ctypes, these four are not
+     among the profiler's device events below);
   2. under ``torch.cuda.set_sync_debug_mode("warn")`` (restored after):
      the host syncs inside each stage, one warning each;
   3. under torch.profiler, each stage inside a ``record_function`` range:
@@ -60,6 +62,8 @@ STAGES = (
     ("  FixStep1", "world_tpu_torch.f0.harvest", "fix_step1"),
     ("  FixStep2", "world_tpu_torch.f0.harvest", "fix_step2"),
     ("  FixStep3", "world_tpu_torch.f0.harvest", "fix_step3"),
+    ("    K4 chains", "world_tpu_torch.ops.fix_step3", "extend_chains"),
+    ("    K5 merge", "world_tpu_torch.ops.fix_step3", "merge_sections"),
     ("  FixStep4", "world_tpu_torch.f0.harvest", "fix_step4"),
     ("  smoothing", "world_tpu_torch.f0.harvest", "smooth_f0"),
     ("CheapTrick", "world_tpu_torch.parallel.batch", "spectral_envelope"),
@@ -68,6 +72,10 @@ STAGES = (
     ("waveform", "world_tpu_torch.parallel.batch", "waveform_core"),
 )
 GLIDE_FS, GLIDE_SECONDS = 22050, 60.0
+# the kernels whose launches the table counts, by bench_torch.launch_counts'
+# names: K1, K2, and FixStep3's K4 and K5
+KERNELS = {"event_engine": "K1", "refine_dft": "K2", "extend_chains": "K4",
+           "merge_sections": "K5"}
 
 
 def glide_signal(fs: int, seconds: float) -> np.ndarray:
@@ -179,8 +187,7 @@ class Probe:
                 ms = sum(a.elapsed_time(b) for a, b, _ in recs)
             else:
                 ms = sum((b - a) * 1e3 for a, b, _ in recs)
-            launches = {k: sum(r[2][k] for r in recs) for k in ("event_engine",
-                                                               "refine_dft")}
+            launches = {k: sum(r[2][k] for r in recs) for k in KERNELS}
             out[label] = {"calls": len(recs), "ms": ms, "launches": launches}
         return out
 
@@ -272,15 +279,16 @@ def profile_signal(name: str, seconds, device) -> dict:
     print(f"\n{name}: {audio_s:.3f} s at {fs} Hz, float32, round trip "
           f"{total:.2f} ms = {audio_s / (total / 1e3):.2f} xRT")
     print(f"{'stage':24s} {'calls':>5s} {'ms':>9s} {'share':>6s} {'syncs':>6s} "
-          f"{'dev ev':>7s} {'dev ms':>8s} {'idle':>6s} {'K1':>3s} {'K2':>3s}")
+          f"{'dev ev':>7s} {'dev ms':>8s} {'idle':>6s} "
+          + " ".join(f"{k:>3s}" for k in KERNELS.values()))
     fmt = lambda v, f: "-" if v is None else format(v, f)     # noqa: E731
     for label in labels:
         r = rows[label.strip()]
         print(f"{label:24s} {r['calls']:5d} {r['ms']:9.2f} "
               f"{r['ms'] / total:6.3f} {fmt(r['host_syncs'], 'd'):>6s} "
               f"{fmt(r['device_events'], 'd'):>7s} {fmt(r['device_ms'], '.3f'):>8s} "
-              f"{fmt(r['idle_share'], '.3f'):>6s} {r['launches']['event_engine']:3d} "
-              f"{r['launches']['refine_dft']:3d}")
+              f"{fmt(r['idle_share'], '.3f'):>6s} "
+              + " ".join(f"{r['launches'][k]:3d}" for k in KERNELS))
     return {"signal": name, "fs": fs, "seconds": audio_s, "stages": rows}
 
 

@@ -232,6 +232,16 @@ def _build_and_load():
         # base, flags, limits, cands, rows, C, n, backward, allowed, out, stream
         fn.argtypes = [P, P, P, P, I, I, I, I, D, P, P]
         fn.restype = I
+        fn = getattr(lib, f"world_extend_chains_{suffix}")
+        # f0, origin, last, shift, cands, B, R, C, n, n_steps, allowed,
+        # pos, val, act, shifted, stream
+        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, D, P, P, P, P, P]
+        fn.restype = I
+        fn = getattr(lib, f"world_merge_sections_{suffix}")
+        # rows, ss, st, ed, keep, B, c, n, f0_m, ss_m, cur_st, cur_ed,
+        # started, stream
+        fn.argtypes = [P, P, P, P, P, I, I, I, P, P, P, P, P, P]
+        fn.restype = I
     return lib, seconds
 
 

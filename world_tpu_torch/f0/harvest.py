@@ -42,6 +42,7 @@ from ..dsp.rounding import matlab_round_half
 from ..dsp.scanops import compact_rows
 from ..dsp.windows import np_nuttall
 from ..frames import uniform_centered_slabs
+from ..ops import fix_step3 as step3_kernels
 from ..ops.refine_dft import dft_table, refine_full
 from ..tables import cached, device_key, frame_grid, table
 from .events import four_event_interp, launch_pieces
@@ -435,51 +436,6 @@ def sections(f0: torch.Tensor, max_sections: int):
     return starts, ends, valid
 
 
-def _extend_chains(f0, origin, last_point, shift, cands, allowed_range,
-                   n_steps: int):
-    """ExtendF0 from every section end at once: n_steps SelectBestF0 picks.
-    f0 (B, n), origin and last_point (B, R), shift (R,) +1 or -1 (forward
-    from a section's end, backward from its start), cands (B, C, n).
-    Returns (positions, values, active) each (B, R, n_steps), and the
-    shifted origins (B, R).
-
-    A chain is in range while origin + shift (k + 1) has not passed
-    last_point + shift, i.e. while k + 1 <= shift (last_point - origin) + 1,
-    and runs until it leaves its range or misses 4 picks in a row."""
-    n = f0.shape[-1]
-    B, C = cands.shape[0], cands.shape[1]
-    R = origin.shape[-1]
-    tiny = torch.finfo(f0.dtype).tiny
-    zero = torch.zeros((), dtype=f0.dtype, device=f0.device)
-    reach = shift * (last_point - origin) + 1
-    tmp = torch.gather(f0, -1, origin)
-    misses = torch.zeros_like(origin)
-    shifted = origin
-    running = torch.ones_like(origin, dtype=torch.bool)
-    pos = origin
-    out_pos, out_val, out_act = [], [], []
-    for k in range(n_steps):
-        pos = pos + shift
-        active = running & (reach >= k + 1)
-        ref = torch.clamp(tmp, min=tiny)[:, None, :]
-        cand = torch.gather(cands, -1,
-                            pos.clamp(0, n - 1)[:, None, :].expand(B, C, R))
-        err = torch.abs(ref - cand) / ref                     # (B, C, R)
-        j = (C - 1 - torch.argmin(torch.flip(err, (1,)), dim=1))[:, None, :]
-        ok = torch.gather(err, 1, j)[:, 0] <= allowed_range  # last argmin
-        val = torch.where(ok & active, torch.gather(cand, 1, j)[:, 0], zero)
-        hit = active & (val != 0)
-        tmp = torch.where(hit, val, tmp)
-        shifted = torch.where(hit, pos, shifted)
-        misses = torch.where(hit, 0, misses + active)
-        running = active & (misses < 4)
-        out_pos.append(pos)
-        out_val.append(val)
-        out_act.append(active)
-    return (torch.stack(out_pos, -1), torch.stack(out_val, -1),
-            torch.stack(out_act, -1), shifted)
-
-
 def fix_step3(f0_step2: torch.Tensor, cands: torch.Tensor, scores: torch.Tensor,
               allowed_range: float = 0.18, max_sections: int = 256,
               section_chunk: int = None):
@@ -512,11 +468,11 @@ def fix_step3(f0_step2: torch.Tensor, cands: torch.Tensor, scores: torch.Tensor,
     # both directions at once: forward from each end, backward from each start
     shift = torch.cat([torch.ones(S, dtype=torch.int64, device=dev),
                        torch.full((S,), -1, dtype=torch.int64, device=dev)])
-    pos, val, act, reached = _extend_chains(
-        f0_step2, torch.cat([ends, starts], -1),
+    pos, val, act, reached = step3_kernels.extend_chains(
+        f0_step2.contiguous(), torch.cat([ends, starts], -1),
         torch.cat([torch.clamp(ends + threshold1, max=n - 2),
                    torch.clamp(starts - threshold1, min=1)], -1),
-        shift, cands, allowed_range, n_steps)
+        shift, cands.contiguous(), allowed_range, n_steps)
     r1, r0 = reached[:, :S], reached[:, S:]
     i = torch.arange(n, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
@@ -576,40 +532,20 @@ def fix_step3(f0_step2: torch.Tensor, cands: torch.Tensor, scores: torch.Tensor,
 
     f0_m = torch.zeros_like(f0_step2)
     ss_m = row_scores(f0_m[:, None])[:, 0]          # the empty contour's
-    cur_st = torch.zeros_like(st_o[:, 0])
-    cur_ed = torch.zeros_like(cur_st)
-    started = torch.zeros(B, dtype=torch.bool, device=dev)
+    state = (f0_m, ss_m, torch.zeros(B, dtype=torch.int64, device=dev),
+             torch.zeros(B, dtype=torch.int64, device=dev),
+             torch.zeros(B, dtype=torch.bool, device=dev))
     for lo in range(0, S, chunk):
         sel = order[:, lo:lo + chunk]
         if chunk >= S:           # the one chunk's rows are still there
             rows_o = torch.gather(rows, 1, sel[..., None].expand(-1, -1, n))
         else:
-            rows_o = section_rows(sel)
-        ss_o = row_scores(rows_o)
-        for k in range(sel.shape[1]):
-            row, ss_row = rows_o[:, k], ss_o[:, k]
-            st2, ed2, keep = st_o[:, lo + k], ed_o[:, lo + k], keep_o[:, lo + k]
-            # the first kept row starts the contour; a later one starts a
-            # new section when it is disjoint, else it overlaps the last
-            # one (MergeF0Sub), which keeps the contour where the row lies
-            # inside it, and else takes the row from where the row's score
-            # over the overlap is the greater: from its start, or from the
-            # contour's end
-            disjoint = st2 > cur_ed
-            contained = (cur_st <= st2) & (cur_ed >= ed2)
-            ov = (i >= st2[:, None]) & (i <= cur_ed[:, None])
-            s1 = torch.where(ov, ss_m, zero).sum(dim=-1)
-            s2 = torch.where(ov, ss_row, zero).sum(dim=-1)
-            fresh = keep & (~started | disjoint)
-            extends = fresh | (keep & ~contained)
-            take_lo = torch.where(fresh, st2, torch.where(s1 > s2, cur_ed, st2))
-            take_hi = torch.where(extends, ed2, -1)
-            take = (i >= take_lo[:, None]) & (i <= take_hi[:, None])
-            f0_m = torch.where(take, row, f0_m)
-            ss_m = torch.where(take, ss_row, ss_m)
-            cur_st = torch.where(fresh, st2, cur_st)
-            cur_ed = torch.where(extends, ed2, cur_ed)
-            started = started | keep
+            rows_o = section_rows(sel).contiguous()
+        part = slice(lo, lo + chunk)
+        state = step3_kernels.merge_sections(
+            rows_o, row_scores(rows_o), st_o[:, part].contiguous(),
+            ed_o[:, part].contiguous(), keep_o[:, part].contiguous(), *state)
+    f0_m, started = state[0], state[4]
     out = torch.where(started[:, None], f0_m, f0_step2)
     return out[0] if single else out
 

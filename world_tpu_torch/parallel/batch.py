@@ -210,7 +210,10 @@ def encode_decode_one(x: torch.Tensor, pulse_seed: torch.Tensor,
                       tables: dict = None) -> dict:
     """Full round-trip for rows x (B, n).  Returns f0, vuv (B, F),
     spectrogram (B, F, bins), band_aperiodicity (B, F, n_ap+2), y
-    (B, y_length) and the per-row capacity flag _overflow (B,).
+    (B, y_length) and the per-row capacity flag _overflow (B,), the or of
+    _refine_overflow and _section_overflow (Harvest's) and _pulse_overflow
+    (more pulses than max_pulses, or a pulse past the overlap-add's rank
+    bound).
 
     The JAX package's ``_encode_decode_one`` on its static shapes: every
     stage runs on the whole batch, sized by the caps, and nothing is read
@@ -232,7 +235,10 @@ def encode_decode_one(x: torch.Tensor, pulse_seed: torch.Tensor,
     return {"f0": an["f0"], "vuv": an["vuv"], "spectrogram": an["spectrogram"],
             "band_aperiodicity": an["aperiodicity"], "y": y,
             "_overflow": (an["_refine_overflow"] | an["_section_overflow"]
-                          | pulse_overflow)}
+                          | pulse_overflow),
+            "_refine_overflow": an["_refine_overflow"],
+            "_section_overflow": an["_section_overflow"],
+            "_pulse_overflow": pulse_overflow}
 
 
 def encode_classic_one(x: torch.Tensor, fs: int, frame_period: int,
@@ -374,12 +380,17 @@ def _on_devices(fn, devices: list, shards: list) -> list:
     """[fn(device, shard)] for each device and its shard, one worker thread
     per device, each under its own device (the current stream a kernel is
     launched on belongs to the thread and the device).  A worker's exception
-    is raised here."""
+    is raised here.  A worker waits for its stream's work before it returns:
+    the caller reads the outputs on streams of its own, and nothing else
+    orders them after the worker's kernels."""
     def work(dev, shard):
-        if dev.type == "cuda":
-            with torch.cuda.device(dev):
-                return fn(dev, shard)
-        return fn(dev, shard)
+        if dev.type != "cuda":
+            return fn(dev, shard)
+        with torch.cuda.device(dev):
+            out = fn(dev, shard)
+            if len(devices) > 1:
+                torch.cuda.current_stream(dev).synchronize()
+            return out
 
     if len(devices) == 1:
         return [work(devices[0], shards[0])]

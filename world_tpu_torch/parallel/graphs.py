@@ -43,7 +43,7 @@ import torch
 
 from .. import tables
 from .._backend import STAGE_BYTES_BUDGET
-from ..ops import edge_interp, extension_scan, refine_dft
+from ..ops import edge_interp, extension_scan, fix_step3, refine_dft
 
 # the pool bytes a cache's graphs hold together: 4 GiB, a twentieth of an
 # 80 GB card, holds the 60 s round trip's graph (2.6 GiB) or a ragged
@@ -54,7 +54,9 @@ SEEN_SIZE = 256
 
 _COUNTERS = {"event_engine": edge_interp.counter,
              "refine_dft": refine_dft.counter,
-             "extension_scan": extension_scan.counter}
+             "extension_scan": extension_scan.counter,
+             "extend_chains": fix_step3.extend_counter,
+             "merge_sections": fix_step3.merge_counter}
 # one capture at a time in the process: the warm-up and the capture of two
 # worker threads on one card would share the allocator's capture state
 _CAPTURE_LOCK = threading.Lock()
