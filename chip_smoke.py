@@ -23,10 +23,12 @@ Phases (each raises on failure; any failure exits non-zero):
      live, all at 800 Hz, 48 distinct long windows, a random half live);
  20. K4 and K5 (Harvest FixStep3's chains and merge) bitwise against their
      plain versions in float32 and float64, on the operands the Harvest
-     path gives them at x16, a batch of 4, the 60 s glide (several section
-     chunks), harvest.npz's 22.05 kHz frames, phase 15's 110 rows and path
-     C's buckets, and on adversarial section layouts in chunks of 1, 3 and
-     all rows (fix_step3_layouts);
+     path gives them at x16, a batch of 4, the 60 s glide (the keeps' means
+     in several section chunks, K5 once), harvest.npz's 22.05 kHz frames,
+     phase 15's 110 rows and path C's buckets, and on adversarial section
+     layouts (fix_step3_layouts; the keeps' means in chunks of 1, 3 and all
+     rows, K5's merge in ranges of 1, 3 and all steps a launch); K5 once a
+     FixStep3 call;
   4. the Harvest -> CheapTrick -> D4C-Requiem -> Requiem round trip in
      float32 on the 16 kHz golden utterance through World.encode/decode,
      held to the golden bars; K1, K2, K4 and K5 must have launched;
@@ -40,7 +42,7 @@ Phases (each raises on failure; any failure exits non-zero):
      and K5 once; the first call (eager) and the second (capture), the
      pool, the replay beside the eager call and its device events;
      FixStep3 alone, eagerly and as a graph's replay, makes at most 300
-     launches (K4 once, K5 once per section chunk); then the same at 60 s
+     launches (K4 and K5 once each); then the same at 60 s
      (at most 2,000 launches in FixStep3); a function that syncs fails to
      capture;
  19. the classic round trip on static shapes and its graph, float32,
@@ -167,9 +169,11 @@ K2_OPS_PER_WINDOW_SAMPLE = 60
 K3_OPS_PER_FRAME, K3_OPS_PER_EXTENSION_FRAME, K3_OPS_PER_CANDIDATE = 4, 8, 3
 # K4: at each active step of a chain, the floor of the reference and the
 # carry's update (6), and per candidate a subtraction, an absolute value, a
-# division and a comparison (4).  K5: two additions per frame of a deciding
-# overlap (counted by merge_trace).
+# division and a comparison (4).  K5: at each frame of a deciding overlap,
+# per candidate its comparisons with the contour's and the row's values (2),
+# and the two float64 additions of the sums (2; counted by merge_trace).
 K4_OPS_PER_STEP, K4_OPS_PER_CANDIDATE = 6, 4
+K5_OPS_PER_CANDIDATE, K5_OPS_PER_FRAME = 2, 2
 # Harvest FixStep3's adversarial section layouts (fix_step3_layouts): frames,
 # candidates a frame, and the section rows they are run with
 STEP3_N, STEP3_C, STEP3_SECTIONS = 600, 6, 16
@@ -340,12 +344,12 @@ def harvest_blocking(n_samples: int, fs: int, dtype, n_rows: int = 1,
     chunks = lambda n, c: 1 if c is None else -(-n // c)   # noqa: E731
     # the bands of one K1 launch: the chunk by bytes, cut to K1's row limit
     _, k1_bands = launch_pieces(n_rows, bank.shape[0], blk["band_chunk"])
-    # FixStep3: K4 once, K5 once per chunk of section rows
-    k5_launches = chunks(H.default_max_sections(n_samples, fs), blk["step3_chunk"])
+    # FixStep3: K4 and K5 once each; the keeps' means in chunks of section rows
+    means_chunks = chunks(H.default_max_sections(n_samples, fs), blk["step3_chunk"])
     return dict(blk, y_len=y_len, n_frames=n_frames, n_bands=bank.shape[0],
                 k1_bands=k1_bands, k1_launches=chunks(bank.shape[0], k1_bands),
                 k2_launches=chunks(n_frames, blk["refine_chunk"]),
-                k5_launches=k5_launches)
+                step3_means_chunks=means_chunks)
 
 
 def main_path_operands(x16: np.ndarray, fs: int, dtype, f0_floor: float = F0_FLOOR,
@@ -755,7 +759,7 @@ def capture_step3(fn) -> tuple:
 
 def step3_operands(x: np.ndarray, fs: int, dtype) -> tuple:
     """K4's and K5's operands on the Harvest path for utterances x, (n,) or
-    (B, n), as harvest_core blocks them (K5 once per section chunk)."""
+    (B, n), as harvest_core blocks them (K4 and K5 once each)."""
     import torch
     from world_tpu_torch.f0 import harvest as H
 
@@ -766,8 +770,9 @@ def step3_operands(x: np.ndarray, fs: int, dtype) -> tuple:
 
 
 def step3_layout_operands(dtype) -> tuple:
-    """K4's and K5's operands of fix_step3_layouts() as one batch, its
-    sections in chunks of 1, 3 and all STEP3_SECTIONS."""
+    """K4's and K5's operands of fix_step3_layouts() as one batch, the
+    keeps' means in section chunks of 1, 3 and all STEP3_SECTIONS (K4 and
+    K5 once a call)."""
     import torch
     from world_tpu_torch.f0.harvest import fix_step3
 
@@ -805,62 +810,125 @@ def check_k4(args, label) -> float:
     return err
 
 
-def check_k5(args, label) -> float:
-    """K5 against its plain version on one chunk's operands: bitwise, the
-    carried state after the chunk."""
+def check_k5(args, label, chunk: int = None) -> float:
+    """K5 against its plain version on one launch's operands: bitwise, the
+    carried state after the merge.  With ``chunk``, K5 merges ranges of
+    that many steps, one launch each, each taking the state the last left."""
     import torch
     from world_tpu_torch.ops.fix_step3 import merge_plain, merge_sections_cuda
 
-    got = merge_sections_cuda(*args[:5], *(t.clone() for t in args[5:]))
+    got = tuple(t.clone() for t in args[11:])
+    c = args[7].shape[1]
+    step = c if chunk is None else chunk
+    for lo in range(0, c, step):
+        got = merge_sections_cuda(*args[:7], *(a[:, lo:lo + step].contiguous()
+                                               for a in args[7:11]), *got)
     want = merge_plain(*args)
     torch.cuda.synchronize()
     equal = all(torch.equal(g, w) for g, w in zip(got, want))
     err = float((got[0] - want[0]).abs().max())
-    rows = args[0]
-    print(f"K5 {label}: {rows.shape[0]} x {rows.shape[1]} section rows of "
-          f"{rows.shape[2]} frames, {int(args[4].sum())} kept: bitwise {equal}, "
-          f"max abs err {err:.3g} Hz")
+    cands = args[1]
+    print(f"K5 {label}: {cands.shape[0]} x {c} steps over {cands.shape[2]} "
+          f"frames, {cands.shape[1]} candidates, {int(args[10].sum())} kept, "
+          f"{-(-c // step)} launch(es): bitwise {equal}, max abs err {err:.3g} Hz")
     if not equal:
         raise AssertionError(f"K5 {label}: not bitwise equal to its plain version")
     return err
 
 
-def merge_trace(args) -> list:
+def merge_trace(args, reads: dict = None) -> list:
     """The steps of one K5 launch, replayed on the host: for each kept step
     (batch row, step, branch, frames summed, frames copied), the branch
     "start", "disjoint", "contained", or MergeF0Sub's "s1>s2", "s1<s2" or
-    "s1=s2" (the sums in float64, over [st2, cur_ed]), and the frames the
-    copy over [take_lo, ed2] touches."""
-    rows, ss, st, ed, keep, _, ss_m, cur_st, cur_ed, started = (
+    "s1=s2" (SerachScore of the contour and of the row summed in float64
+    over [st2, cur_ed]), and the frames the copy over [take_lo, ed2]
+    touches.  ``reads``, a dict, gets what the launch must read, summed
+    over the utterances: the distinct frames of its deciding overlaps where
+    the row and the contour differ (``overlap_frames``; where they agree,
+    their scores add the same to both sums), the distinct (candidate,
+    frame) scores equal to a value there (``score_hits``), the distinct
+    frames whose row value it needs (``row_frames``, ``chain_frames`` of
+    them from a chain), the frames it writes (``copied_frames``), its kept
+    steps (``kept_steps``) and the frames it scores, overlaps repeated
+    (``scored_frames``)."""
+    (f0, cands, scores, starts, ends, val, act, order, st, ed, keep, f0_m,
+     cur_st, cur_ed, started) = (
         a.double().cpu().numpy() if a.dtype.is_floating_point else a.cpu().numpy()
         for a in args)
-    n = rows.shape[2]
+    B, C, n = cands.shape
+    S, n_steps = starts.shape[1], val.shape[2]
+    i = np.arange(n)
+    counts = dict.fromkeys(("overlap_frames", "score_hits", "row_frames",
+                            "chain_frames", "copied_frames", "kept_steps",
+                            "scored_frames"), 0)
     trace = []
-    for b in range(rows.shape[0]):
-        m, cs, ce, on = (ss_m[b].copy(), int(cur_st[b]), int(cur_ed[b]),
+
+    def sscore(b, v, a, z):
+        eq = cands[b, :, a:z + 1] == v[None, a:z + 1]
+        return np.where(eq, scores[b, :, a:z + 1], 0.0).max(axis=0), eq
+
+    for b in range(B):
+        m, cs, ce, on = (f0_m[b].copy(), int(cur_st[b]), int(cur_ed[b]),
                          bool(started[b]))
-        for k in range(rows.shape[1]):
+        ov_at = np.zeros(n, bool)
+        hits = np.zeros((C, n), bool)
+        row_at = np.zeros(n, bool)
+        chain_at = np.zeros(n, bool)
+        copy_at = np.zeros(n, bool)
+        for k in range(order.shape[1]):
             if not keep[b, k]:
                 continue
+            counts["kept_steps"] += 1
             s2_, e2 = int(st[b, k]), int(ed[b, k])
+            sec = int(order[b, k])
+            sst, sed = int(starts[b, sec]), int(ends[b, sec])
+            kf, kb = i - sed - 1, sst - i - 1
+            in_f = (kf >= 0) & (kf < n_steps)
+            in_b = (kb >= 0) & (kb < n_steps)
+            from_f = in_f & act[b, sec, kf.clip(0, n_steps - 1)]
+            from_b = in_b & act[b, S + sec, kb.clip(0, n_steps - 1)]
+            row = np.where((i >= sst) & (i <= sed), f0[b], np.where(
+                from_f, val[b, sec, kf.clip(0, n_steps - 1)], np.where(
+                    from_b, val[b, S + sec, kb.clip(0, n_steps - 1)], 0.0)))
             fresh = not on or s2_ > ce
             extends = fresh or not (cs <= s2_ and ce >= e2)
             lo, summed = s2_, 0
             kind = ("start" if not on else "disjoint" if fresh
                     else "contained" if not extends else None)
+            step_at = np.zeros(n, bool)       # the frames of this row it reads
             if kind is None:
                 a, z = max(s2_, 0), min(ce, n - 1)
                 summed = max(0, z - a + 1)
-                s1, s2 = m[a:z + 1].sum(), ss[b, k, a:z + 1].sum()
+                s1 = s2 = 0.0
+                if summed:
+                    g1, eq1 = sscore(b, m, a, z)
+                    g2, eq2 = sscore(b, row, a, z)
+                    s1, s2 = g1.sum(), g2.sum()
+                    differ = np.zeros(n, bool)
+                    differ[a:z + 1] = ~(m[a:z + 1] == row[a:z + 1])
+                    ov_at |= differ
+                    step_at[a:z + 1] = True
+                    hits[:, a:z + 1] |= (eq1 | eq2) & differ[None, a:z + 1]
+                    counts["scored_frames"] += int(differ.sum())
                 kind = "s1>s2" if s1 > s2 else "s1<s2" if s1 < s2 else "s1=s2"
                 lo = ce if s1 > s2 else s2_
             copied = 0
             if extends:
                 a, z = max(lo, 0), min(e2, n - 1)
                 copied = max(0, z - a + 1)
-                m[a:z + 1] = ss[b, k, a:z + 1]
+                m[a:z + 1] = row[a:z + 1]
+                step_at[a:z + 1] = copy_at[a:z + 1] = True
+            row_at |= step_at
+            chain_at |= step_at & (from_f | from_b) & ~((i >= sst) & (i <= sed))
             trace.append((b, k, kind, summed, copied))
             cs, ce, on = (s2_ if fresh else cs), (e2 if extends else ce), True
+        counts["overlap_frames"] += int(ov_at.sum())
+        counts["score_hits"] += int(hits.sum())
+        counts["row_frames"] += int(row_at.sum())
+        counts["chain_frames"] += int(chain_at.sum())
+        counts["copied_frames"] += int(copy_at.sum())
+    if reads is not None:
+        reads.update(counts)
     return trace
 
 
@@ -883,17 +951,27 @@ def k4_bound(args, out):
 
 
 def k5_bound(args):
-    """K5 reads each kept row and its scores where it copies them and writes
-    the contour and its scores there, sums the two scores over each
-    deciding overlap, and reads the chunk's starts, ends and flags once."""
-    rows = args[0]
-    B, c, _ = rows.shape
-    isz = rows.element_size()
-    trace = merge_trace(args)
-    copied = sum(t[4] for t in trace)
-    summed = sum(t[3] for t in trace)
-    return bound(4 * copied * isz + 2 * summed * isz + B * c * 17 + B * 17,
-                 2 * summed)
+    """K5 reads, once each: the candidates of every frame of its deciding
+    overlaps where the row and the contour differ (C items a frame) and the
+    scores of those equal to the contour's or the row's value there, the
+    contour over those frames, each row value it needs (f0, or a chain's
+    value and flag), and each kept step's section, bounds and flag with the
+    section's start and end (41 bytes, and the flag of the first step not
+    kept); it writes the contour where it copies and the carried state (17
+    bytes an utterance, read too).  Its operations: at each such frame of
+    each deciding overlap (repeated where overlaps repeat), two comparisons
+    a candidate and two float64 additions (merge_trace counts them all)."""
+    cands = args[1]
+    B, C, _ = cands.shape
+    isz = cands.element_size()
+    r = {}
+    merge_trace(args, r)
+    n_bytes = (r["overlap_frames"] * (C + 1) * isz + r["score_hits"] * isz
+               + r["row_frames"] * isz + r["chain_frames"]
+               + r["copied_frames"] * isz + r["kept_steps"] * 41 + B
+               + 2 * B * 17)
+    return bound(n_bytes, r["scored_frames"] * (K5_OPS_PER_CANDIDATE * C
+                                                + K5_OPS_PER_FRAME))
 
 
 def record_syncs(fn) -> list:
@@ -1246,8 +1324,9 @@ def fix_step3_launches(args, label, card) -> dict:
     replay of a CUDA graph of its own: the device events of each under
     torch.profiler (K4 and K5 added from their counters where the profiler
     does not list them), K4's and K5's launches, and the milliseconds of
-    each by CUDA events.  K4 must launch once and K5 once per section chunk
-    in both; FixStep3 may make at most STEP3_MAX_LAUNCHES[len] launches."""
+    each by CUDA events.  K4 and K5 must launch once each in both (the
+    keeps' means may run in several section chunks); FixStep3 may make at
+    most STEP3_MAX_LAUNCHES[len] launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1256,7 +1335,7 @@ def fix_step3_launches(args, label, card) -> dict:
     from world_tpu_torch.parallel.graphs import GraphCache
 
     f0, cands, scores, allowed, S, chunk = args
-    chunks = 1 if chunk is None else -(-S // max(1, chunk))
+    means_chunks = 1 if chunk is None else -(-S // max(1, chunk))
     fn = lambda f, c, sc: {"f0": H.fix_step3(f, c, sc, allowed, S, chunk)}  # noqa: E731
     inputs = (f0, cands, scores)
     graph = GraphCache().capture("fix_step3", fn, inputs, f0.device)
@@ -1280,16 +1359,16 @@ def fix_step3_launches(args, label, card) -> dict:
                        "k4": k4, "k5": k5, "ms": cuda_ms(call, iters=5)}
     limit = STEP3_MAX_LAUNCHES[label]
     print(f"FixStep3 alone, float32, {label} ({tuple(f0.shape)} frames, {S} "
-          f"section rows in {chunks} chunk(s)) [{card}]: "
+          f"section rows, the keeps' means in {means_chunks} chunk(s)) [{card}]: "
           + "; ".join(f"{mode}: {v['launches']} launches ({v['device_events']} "
                       f"device events under torch.profiler, K4 {v['k4']}, K5 "
                       f"{v['k5']}), {v['ms']:.3f} ms"
                       for mode, v in found.items())
           + f"; at most {limit}")
     for mode, v in found.items():
-        if v["k4"] != 1 or v["k5"] != chunks or v["launches"] > limit:
-            raise AssertionError(f"FixStep3 {label} {mode}: {v}; K4 once, K5 "
-                                 f"{chunks} times, at most {limit} launches")
+        if v["k4"] != 1 or v["k5"] != 1 or v["launches"] > limit:
+            raise AssertionError(f"FixStep3 {label} {mode}: {v}; K4 and K5 once "
+                                 f"each, at most {limit} launches")
     return found
 
 
@@ -1398,7 +1477,7 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
         blk = harvest_blocking(xs.shape[1], fs, torch.float32, n_rows)
         if counts != {"event_engine": 2 * blk["k1_launches"],
                       "refine_dft": 2 * blk["k2_launches"], "extension_scan": 0,
-                      "extend_chains": 2, "merge_sections": 2 * blk["k5_launches"]}:
+                      "extend_chains": 2, "merge_sections": 2}:
             raise AssertionError(f"phase 18 {label}: K1, K2, K4 and K5 must launch "
                                  f"once per replay, K3 never: {counts} in two "
                                  f"replays")
@@ -1408,7 +1487,7 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
             raise AssertionError(f"phase 18 {label}: non-finite waveform")
     # the 60 s glide: the eager static call from the upload to the output
     # makes no host sync, the replay is bitwise the eager call and itself,
-    # K4 launches once a replay and K5 once per section chunk, and FixStep3
+    # K4 and K5 launch once a replay, and FixStep3
     # stays within its launches
     x60 = glide_signal(GLIDE_FS, GLIDE_SECONDS)
     blk60 = harvest_blocking(x60.shape[0], GLIDE_FS, torch.float32)
@@ -1441,8 +1520,9 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
           f"{same_eager or ''}, two replays bitwise {same_twice}; launches per "
           f"replay K1 {counts['event_engine'] / 2:g}, K2 "
           f"{counts['refine_dft'] / 2:g}, K4 {counts['extend_chains'] / 2:g}, K5 "
-          f"{counts['merge_sections'] / 2:g} (section chunks "
-          f"{blk60['k5_launches']}); one replay under torch.profiler: {n_events} "
+          f"{counts['merge_sections'] / 2:g} (the keeps' means in "
+          f"{blk60['step3_means_chunks']} section chunks); one replay under "
+          f"torch.profiler: {n_events} "
           f"device events, {dev_us / 1e3:.1f} ms device time (with FixStep3 as "
           f"loops: {LOOP_REPLAY_EVENTS['60s']} device events)")
     found["60s"] = {"device_events": n_events, "device_ms": dev_us / 1e3,
@@ -1452,7 +1532,7 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
                              f"static call ({same_eager}) or itself")
     if counts != {"event_engine": 2 * blk60["k1_launches"],
                   "refine_dft": 2 * blk60["k2_launches"], "extension_scan": 0,
-                  "extend_chains": 2, "merge_sections": 2 * blk60["k5_launches"]}:
+                  "extend_chains": 2, "merge_sections": 2}:
         raise AssertionError(f"phase 18 60s: launches in two replays {counts}")
     del m60, x60c, eager60, r1, r2
     # no fallback: a function that reads the device from the host cannot be
@@ -1922,14 +2002,29 @@ def main(phases=ALL_PHASES) -> int:
             geos += [(f"bucket_{L}", lambda L=L, ix=ix: step3_operands(
                 bucket(L, ix), fs, dt)) for L, ix in buckets20.items()]
             for geo, get in geos:
-                ext, mer = get()
+                got = []
+                step3_args = capture_fix_step3_inputs(lambda: got.append(get()))
+                ext, mer = got[0]
                 label = f"{str(dt)[6:]} {geo}"
                 e4 = max(check_k4(a, label) for a in ext)
-                e5 = max(check_k5(a, f"{label} chunk {k + 1} of {len(mer)}")
-                         for k, a in enumerate(mer))
-                if geo == "harvest_60s" and len(mer) < 2:
-                    raise AssertionError(f"phase 20: the 60 s merge ran in "
-                                         f"{len(mer)} section chunk, not several")
+                # the layouts' merges also in ranges of 1 and 3 steps a launch,
+                # the state carried between them
+                e5 = max(check_k5(a, f"{label} call {k + 1} of {len(mer)}", chunk)
+                         for k, a in enumerate(mer)
+                         for chunk in ((None, 1, 3) if geo == "layouts" else (None,)))
+                if len(mer) != len(step3_args):
+                    raise AssertionError(f"phase 20 {geo}: K5 launched {len(mer)} "
+                                         f"times in {len(step3_args)} FixStep3 "
+                                         f"calls, not once a call")
+                if geo == "harvest_60s":
+                    S, chunk = step3_args[0][4], step3_args[0][5]
+                    means = 1 if chunk is None else -(-S // chunk)
+                    print(f"phase 20 {label}: the keeps' means in {means} section "
+                          f"chunks of {chunk} of {S} rows, K5 {len(mer)} launch")
+                    if means < 2 or len(mer) != 1:
+                        raise AssertionError(f"phase 20: the 60 s keeps' means ran "
+                                             f"in {means} chunk(s), K5 {len(mer)} "
+                                             f"times: several and once expected")
                 if dt == torch.float32:
                     if geo in ("harvest_x16", "harvest_x16_batch4", "harvest_60s"):
                         step3_ops[geo] = (ext, mer)
@@ -1938,8 +2033,10 @@ def main(phases=ALL_PHASES) -> int:
                             ext[0][1].numel(), ext[0][6], ext[0][4].shape[1]],
                         "max_abs_err": e4}
                     kernels["merge_sections"]["geometries"][geo] = {
-                        "rows_sections_frames": list(mer[0][0].shape),
-                        "chunks": len(mer), "max_abs_err": e5}
+                        "rows_steps_frames_candidates": [
+                            mer[0][1].shape[0], mer[0][7].shape[1],
+                            mer[0][1].shape[2], mer[0][1].shape[1]],
+                        "kept": int(mer[0][10].sum()), "max_abs_err": e5}
                 del ext, mer
         del x60_s3
         for name in ("extend_chains", "merge_sections"):
@@ -2390,15 +2487,16 @@ def main(phases=ALL_PHASES) -> int:
               + f"; launches K1 {counts['event_engine']} (expected "
               f"{blkL32['k1_launches']}), K2 {counts['refine_dft']} (expected "
               f"{blkL32['k2_launches']}), K4 {counts['extend_chains']} (1), K5 "
-              f"{counts['merge_sections']} (expected {blkL32['k5_launches']}, one "
-              f"per section chunk)")
+              f"{counts['merge_sections']} (1; the keeps' means in "
+              f"{blkL32['step3_means_chunks']} section chunks)")
         if counts != {"event_engine": blkL32["k1_launches"],
                       "refine_dft": blkL32["k2_launches"],
                       "extension_scan": 0, "extend_chains": 1,
-                      "merge_sections": blkL32["k5_launches"]} \
-                or counts["event_engine"] < 2 or blkL32["k5_launches"] < 2:
-            raise AssertionError(f"phase 14: one K1 launch per band chunk and one "
-                                 f"K2 launch per frame chunk: {counts}")
+                      "merge_sections": 1} \
+                or counts["event_engine"] < 2 or blkL32["step3_means_chunks"] < 2:
+            raise AssertionError(f"phase 14: one K1 launch per band chunk, one "
+                                 f"K2 launch per frame chunk, K4 and K5 once: "
+                                 f"{counts}")
         print(f"phase 14 long audio float32, {GLIDE_SECONDS:g} s glide at {GLIDE_FS} "
               f"Hz through encode(harvest, requiem) -> decode: {f0.shape[0]} frames "
               f"(JAX package on its device: {GLIDE_REFERENCE['frames']}), "
@@ -2638,13 +2736,13 @@ def main(phases=ALL_PHASES) -> int:
               f"K1 {counts['event_engine']} (expected {blkX['k1_launches']}), K2 "
               f"{counts['refine_dft']} (expected {blkX['k2_launches']}), K4 "
               f"{counts['extend_chains']}, K5 {counts['merge_sections']} (expected "
-              f"{blkX['k5_launches']})")
+              f"1)")
         if not (np.all(np.isfinite(f0)) and voiced.size > 0.5 * f0.size
                 and 100.0 < np.median(voiced) < 240.0
                 and counts == {"event_engine": blkX["k1_launches"],
                                "refine_dft": blkX["k2_launches"],
                                "extension_scan": 0, "extend_chains": 1,
-                               "merge_sections": blkX["k5_launches"]}):
+                               "merge_sections": 1}):
             raise AssertionError(f"phase 14: Harvest at {LONG_SECONDS:g} s, blocked")
         hv_u, secs_u, peak_u, _ = runs["unblocked"]
         if hv_u is None:
@@ -2750,7 +2848,7 @@ def main(phases=ALL_PHASES) -> int:
               f"rows, band_chunk {blkM['band_chunk']}): K1 launched "
               f"{n_path} times with {launched_rows[:n_path]} rows, K2 "
               f"{counts['refine_dft']}, K4 {counts['extend_chains']}, K5 "
-              f"{counts['merge_sections']} (expected {blkM['k5_launches']}) (one "
+              f"{counts['merge_sections']} (expected 1) (one "
               f"replay); {many_s:.2f} s of wall time = "
               f"{MANY_ROWS * MANY_ROWS_SECONDS / many_s:.1f} xRT, the first call "
               f"(eager) {first_s:.2f} s, the second (warm-up, capture, replay) "
@@ -2765,7 +2863,7 @@ def main(phases=ALL_PHASES) -> int:
               f"bitwise {torch.equal(raw_split, raw_chunked)}")
         if not (n_path == blkM["k1_launches"] and n_path > 1 and len(split_rows) > 1
                 and counts["extend_chains"] == 1
-                and counts["merge_sections"] == blkM["k5_launches"]
+                and counts["merge_sections"] == 1
                 and max(launched_rows) <= MAX_K1_ROWS
                 and sum(launched_rows[:n_path]) == MANY_ROWS * 4 * blkM["n_bands"]
                 and sum(split_rows) == MANY_ROWS * 4 * blkM["n_bands"]
@@ -2823,7 +2921,7 @@ def main(phases=ALL_PHASES) -> int:
                 and counts == {"event_engine": 2 * blkS["k1_launches"],
                                "refine_dft": 2 * blkS["k2_launches"],
                                "extension_scan": 0, "extend_chains": 2,
-                               "merge_sections": 2 * blkS["k5_launches"]}):
+                               "merge_sections": 2}):
             raise AssertionError("phase 15: the sharded batch")
         # both kernels at the geometry a shard of two rows launches them at
         opsS32 = main_path_operands(xs[:2], fs, torch.float32, blocking=blkS)
@@ -3342,8 +3440,7 @@ def main(phases=ALL_PHASES) -> int:
             out = extension_scan.extension_scan_cuda(*args)
             cases.append(("extension_scan", geo, args, k3_bound(args, out),
                           plain_iters))
-        # K4 and K5: the Harvest path's operands at x16, batch 4 and 60 s (K5
-        # its first section chunk)
+        # K4 and K5: the Harvest path's operands at x16, batch 4 and 60 s
         for geo, plain_iters in (("harvest_x16", 2), ("harvest_x16_batch4", 2),
                                  ("harvest_60s", 1)):
             if geo not in step3_ops:
@@ -3361,7 +3458,7 @@ def main(phases=ALL_PHASES) -> int:
             """K5 on the next of the fresh copies of the carried state that
             the timing loop made before it started (K5 updates the state in
             place, so each launch takes a copy of its own)."""
-            return fix_step3.merge_sections_cuda(*args[:5], *next(k5_states))
+            return fix_step3.merge_sections_cuda(*args[:11], *next(k5_states))
 
         fns = {"event_engine": (edge_interp.event_engine_cuda,
                                 batched_interval_interp),
@@ -3378,7 +3475,7 @@ def main(phases=ALL_PHASES) -> int:
             if name == "merge_sections":
                 # the copies for two timings of 1 + 20 launches and one host
                 # timing of 1 + 200
-                k5_states = iter([[t.clone() for t in args[5:]]
+                k5_states = iter([[t.clone() for t in args[11:]]
                                   for _ in range(2 * 21 + 201)])
             # plain, kernel, kernel, plain: report the mean of each pair
             p1 = cuda_ms(lambda: plain(*args), iters=plain_iters)

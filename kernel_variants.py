@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of the port's two CUDA kernels goes, by variants.
+"""Where the time of the port's CUDA kernels goes, by variants.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 kernel_variants.py
+    python3 kernel_variants.py [k1 k2 step3]
+
+(the kernels to vary; all when none is named: K1 and K2, timed together,
+and Harvest FixStep3's K4 and K5)
 
 Without a device profiler that reads counters, this script builds variants
 of each kernel source with one part removed or changed (text substitutions
 of world_tpu_torch/csrc/*.cu), loads each as a library of its own and times
 it with CUDA events on the Harvest main path's float32 operands (K1 also at
-DIO's geometry), in turns.  A variant that removes work computes garbage:
+DIO's geometry; K4 and K5 at x16 and on the 60 s glide), in turns.  A variant that removes work computes garbage:
 only its time means anything, and the difference from the full kernel is
 what the removed part costs.  It then times the host's share of one call of
 K1's wrapper and of its parts.  It asserts nothing about speed.
@@ -65,6 +68,38 @@ K1_VARIANTS = (
 )
 
 
+# K4 and K5 (fix_step3.cu)
+_PICK = "    const T picked = pick(s_cand, C, n_steps, k, lane, ref, allowed);"
+_STAGE = "  for (int base = lane; base < total; base += 32 * kStageBatch) {"
+_DIV = "div_rn(fabsf(sub_rn(ref, s_cand[(size_t)c * n_steps + k])), ref)"
+_SCORE = ("          for (long long base = lo - lo % kPassFrames; base <= hi; "
+          "base += kPassFrames) {")
+_COPY = "  for (long long i = lo + tid; i <= hi; i += kMergeThreads)"
+STEP3_VARIANTS = (
+    ("full", "the kernels as built", ()),
+    ("k4_no_picks", "K4 without its picks: staging and writing out",
+     ((_PICK, "    const T picked = s_cand[k];"),)),
+    ("k4_no_staging", "K4 without staging its candidates",
+     ((_STAGE, _STAGE.replace("base < total", "base < 0")),)),
+    ("k4_no_division", "K4's float32 pick without its division",
+     ((_DIV, "fabsf(sub_rn(ref, s_cand[(size_t)c * n_steps + k]))"),)),
+    ("k5_no_scores", "K5 without SerachScore over the overlaps",
+     ((_SCORE, _SCORE.replace("base <= hi", "base < 0")),)),
+    ("k5_256_threads", "K5 in blocks of 256 threads",
+     (("constexpr int kMergeThreads = 512;", "constexpr int kMergeThreads = 256;"),)),
+    ("k5_8_frame_lanes", "K5 scoring 8 frames a warp (4 lanes a frame)",
+     (("constexpr int kFrameLanes = 16;", "constexpr int kFrameLanes = 8;"),
+      ("constexpr int kCandsPerLane = 24;", "constexpr int kCandsPerLane = 12;"))),
+    ("k5_no_candidate_loads", "K5 scoring constants instead of the candidates",
+     (("                cv[u] = cands[(size_t)q * n + i];\n"
+       "                sv[u] = scores[(size_t)q * n + i];",
+       "                cv[u] = T(q);\n                sv[u] = T(1);"),)),
+    ("k5_no_row_value", "K5 scoring the contour's value twice",
+     (("            const T vr = row_value(i, f0, sst, sed, vf, af, vb, ab, n_steps);",
+       "            const T vr = vm;"),)),
+)
+
+
 def _substitute(src: str, pairs) -> str:
     for old, new in pairs:
         if old not in src:
@@ -73,14 +108,18 @@ def _substitute(src: str, pairs) -> str:
     return src
 
 
-def build_variants(build_dir: Path):
-    """Compile every variant, all nvcc processes at once; returns
-    {(kernel, name): library path}."""
+GROUPS = {"k2": ("refine_dft", K2_VARIANTS), "k1": ("event_engine", K1_VARIANTS),
+          "step3": ("fix_step3", STEP3_VARIANTS)}
+
+
+def build_variants(build_dir: Path, groups=tuple(GROUPS)):
+    """Compile every variant of the groups' sources, all nvcc processes at
+    once; returns {(source, name): library path}."""
     from world_tpu_torch._backend import NVCC_FLAGS, _nvcc
 
     build_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for kernel, variants in (("refine_dft", K2_VARIANTS), ("event_engine", K1_VARIANTS)):
+    for kernel, variants in (GROUPS[g] for g in groups):
         src = (CSRC / f"{kernel}.cu").read_text()
         for name, _, subs in variants:
             cu = build_dir / f"{kernel}_{name}.cu"
@@ -98,7 +137,93 @@ def build_variants(build_dir: Path):
     return out
 
 
-def main() -> int:
+def step3_variants(libs, card):
+    """K4 and K5 of every STEP3_VARIANTS library on the Harvest path's
+    float32 operands at x16 and on the 60 s glide.  K5 updates its carried
+    state in place, so each launch is timed with a copy of the state before
+    it; the copies alone are timed too."""
+    import torch
+
+    import chip_smoke
+
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    fns = {}
+    for name, _, _ in STEP3_VARIANTS:
+        lib = ctypes.CDLL(str(libs[("fix_step3", name)]))
+        k4 = lib.world_extend_chains_f32
+        k4.argtypes = [P, P, P, P, P, I, I, I, I, I, D, P, P, P, P, P]
+        k5 = lib.world_merge_sections_f32
+        k5.argtypes = [P] * 11 + [I] * 6 + [P] * 5
+        k4.restype = k5.restype = I
+        fns[name] = (k4, k5)
+    g = np.load(chip_smoke.GOLDEN)
+    x16, fs = np.asarray(g["x16"]), int(g["fs"])
+    x60 = chip_smoke.glide_signal(chip_smoke.GLIDE_FS, chip_smoke.GLIDE_SECONDS)
+    geos = {"x16": chip_smoke.step3_operands(x16, fs, torch.float32),
+            "60s": chip_smoke.step3_operands(x60, chip_smoke.GLIDE_FS, torch.float32)}
+
+    def stream():
+        return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+    def ptr(a):
+        return a.data_ptr() if isinstance(a, torch.Tensor) else a
+
+    calls = {}
+    for geo, (ext, mer) in geos.items():
+        f0, origin, last, shift, cands, allowed, n_steps = ext[0]
+        B, R = origin.shape
+        outs = [torch.empty((B, R, n_steps), dtype=t, device="cuda")
+                for t in (torch.int64, torch.float32, torch.bool)]
+        outs.append(torch.empty((B, R), dtype=torch.int64, device="cuda"))
+        k4_args = (f0, origin, last, shift, cands, B, R, cands.shape[1],
+                   f0.shape[1], n_steps, float(allowed), *outs)
+        args = mer[0]
+        state0 = [t.clone() for t in args[11:]]
+        state = [t.clone() for t in args[11:]]
+        dims = (args[1].shape[0], args[1].shape[1], args[1].shape[2],
+                args[3].shape[1], args[5].shape[2], args[7].shape[1])
+        calls[geo] = (k4_args, args[:11], dims, state0, state)
+    for geo, (ext, mer) in geos.items():
+        reads = {}
+        trace = chip_smoke.merge_trace(mer[0], reads)
+        deciding = sum(1 for t in trace if t[2].startswith("s1"))
+        print(f"fix_step3 {geo}: {len(trace)} kept steps, {deciding} deciding; "
+              f"frames of the deciding overlaps {sum(t[3] for t in trace)}, "
+              f"{reads['scored_frames']} of them where the row and the contour "
+              f"differ (scored); frames copied {sum(t[4] for t in trace)}; {reads}")
+    print(f"kernel_variants [{card}]: K4 and K5, float32, the Harvest path's "
+          f"operands; mean of 20 launches, CUDA events, two rounds in turns")
+
+    def copy_state(state, state0):
+        for t, t0 in zip(state, state0):
+            t.copy_(t0)
+
+    for rnd in range(2):
+        for name, what, _ in STEP3_VARIANTS:
+            k4, k5 = fns[name]
+            line = []
+            for geo, (k4_args, k5_in, dims, state0, state) in calls.items():
+                def run4():
+                    err = k4(*map(ptr, k4_args), stream())
+                    if err:
+                        raise RuntimeError(f"K4 variant {name}: cudaError {err}")
+
+                def run5():
+                    copy_state(state, state0)
+                    err = k5(*map(ptr, k5_in), *dims, *map(ptr, state), stream())
+                    if err:
+                        raise RuntimeError(f"K5 variant {name}: cudaError {err}")
+                t4 = chip_smoke.cuda_ms(run4, iters=20) * 1e3
+                t5 = chip_smoke.cuda_ms(run5, iters=20) * 1e3
+                line.append(f"{geo} K4 {t4:.1f} us, K5 with its state copy {t5:.1f} us")
+            print(f"variant fix_step3 {name} round {rnd}: " + "; ".join(line)
+                  + f" ({what})")
+    for geo, (_, _, _, state0, state) in calls.items():
+        us = chip_smoke.cuda_ms(lambda: copy_state(state, state0), iters=20) * 1e3
+        print(f"fix_step3 {geo}: the state copy alone {us:.1f} us [{card}]")
+
+
+def main(argv=None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -108,11 +233,20 @@ def main() -> int:
     from world_tpu_torch._backend import BUILD_DIR
     from world_tpu_torch.ops import edge_interp as E
 
+    groups = tuple(sys.argv[1:] if argv is None else argv) or tuple(GROUPS)
+    if {"k1", "k2"} & set(groups):     # timed together below
+        groups = tuple(dict.fromkeys(groups + ("k1", "k2")))
     card = chip_smoke.card_line()
-    libs = build_variants(BUILD_DIR / "variants")
+    libs = build_variants(BUILD_DIR / "variants", groups)
+    if "step3" in groups:
+        step3_variants(libs, card)
+    if "k1" not in groups and "k2" not in groups:
+        return 0
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     fns = {}
     for (kernel, name), so in libs.items():
+        if kernel == "fix_step3":
+            continue
         lib = ctypes.CDLL(str(so))
         fn = getattr(lib, f"world_{kernel}_f32")
         fn.argtypes = ([P, P, P, I, I, I, I, I, P, P, D, D, D, P, P]

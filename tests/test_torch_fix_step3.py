@@ -10,8 +10,15 @@
     in the last, sections at frames 1 and n - 2, more sections than rows),
     in section chunks of 1, 3 and all, against the JAX ``fix_step3`` of each
     row, bitwise; each layout takes the branch it is named for;
-  * the merge chunk by chunk: the state it carries between chunks gives
-    the one-chunk merge's bits;
+  * the merge (``merge_plain``, which rebuilds each row from the chains and
+    scores the overlaps itself) against the formulation it replaced, kept
+    here as the yardstick: every section row in merge order scattered from
+    the chains, SerachScore of every row taken before the merge and the
+    contour's carried beside it; bitwise on the layouts and on the Harvest
+    operands of harvest_small's 1 s and of x16 (4.644 s; float64, and cast
+    to float32), in both types;
+  * the merge in ranges of steps: the state it carries between ranges
+    gives the one-range merge's bits;
   * the dispatchers send CPU and ``meta`` tensors to the plain versions and
     count no launch.
 The kernels themselves are held to these plain versions on the card
@@ -169,8 +176,8 @@ def test_layouts_keep_their_edges_and_caps():
 
 @pytest.mark.parametrize("dtype", TYPES)
 def test_merge_state_carries_between_chunks(dtype):
-    """merge_plain over the rows in chunks of 1, 3 and 7, each chunk taking
-    the state the last one left, gives the one-chunk merge's bits."""
+    """merge_plain over the steps in ranges of 1, 3 and 7, each range taking
+    the state the last one left, gives the one-range merge's bits."""
     from world_tpu_torch.f0.harvest import fix_step3
     from world_tpu_torch.ops.fix_step3 import merge_plain
 
@@ -179,15 +186,122 @@ def test_merge_state_carries_between_chunks(dtype):
                                                 CS.STEP3_SECTIONS))
     args = mer[0]
     whole = merge_plain(*args)
-    S = args[0].shape[1]
+    S = args[7].shape[1]
+    assert S == CS.STEP3_SECTIONS
     for chunk in (1, 3, 7):
-        state = args[5:]
+        state = args[11:]
         for lo in range(0, S, chunk):
             part = slice(lo, lo + chunk)
-            state = merge_plain(*(a[:, part].contiguous() for a in args[:5]),
+            state = merge_plain(*args[:7],
+                                *(a[:, part].contiguous() for a in args[7:11]),
                                 *state)
         for got, want in zip(state, whole):
             assert torch.equal(got, want), chunk
+
+
+def _merge_by_row_scores(f0_step2, cands, scores, starts, ends, val, act,
+                         order, st_o, ed_o, keep_o, f0_m, cur_st, cur_ed,
+                         started):
+    """The merge as it was formulated before it scored its own overlaps,
+    kept as the yardstick: the section rows in merge order, each chain one
+    scatter at its positions (a trash column at n for the inactive steps);
+    SerachScore of every row taken before the merge (one row at a time);
+    the merged contour's scores ss_m carried beside it and copied with its
+    values."""
+    n = f0_step2.shape[1]
+    S, n_steps = starts.shape[1], val.shape[2]
+    i = torch.arange(n)
+    zero = torch.zeros((), dtype=f0_step2.dtype)
+    pick = lambda t: torch.gather(t, 1, order)                   # noqa: E731
+    rows = torch.zeros(order.shape + (n + 1,), dtype=f0_step2.dtype)
+    rows[..., :n] = torch.where(
+        (i >= pick(starts)[..., None]) & (i <= pick(ends)[..., None]),
+        f0_step2[:, None, :], zero)
+    steps = order[..., None].expand(-1, -1, n_steps)
+    k = torch.arange(n_steps)
+    for first, origin, sign in ((0, ends, 1), (S, starts, -1)):
+        half = slice(first, first + S)
+        pos = pick(origin)[..., None] + sign * (k + 1)
+        at = torch.where(torch.gather(act[:, half], 1, steps), pos, n)
+        rows.scatter_(-1, at, torch.gather(val[:, half], 1, steps))
+    rows = rows[..., :n]
+
+    def row_scores(r):
+        eq = cands[:, None] == r[:, :, None, :]
+        return torch.where(eq, scores[:, None], zero).amax(dim=-2)
+
+    ss_o = torch.cat([row_scores(rows[:, s:s + 1])
+                      for s in range(rows.shape[1])], dim=1)
+    ss_m = row_scores(f0_m[:, None])[:, 0]
+    for s in range(rows.shape[1]):
+        row, ss_row = rows[:, s], ss_o[:, s]
+        st2, ed2, keep = st_o[:, s], ed_o[:, s], keep_o[:, s]
+        disjoint = st2 > cur_ed
+        contained = (cur_st <= st2) & (cur_ed >= ed2)
+        ov = (i >= st2[:, None]) & (i <= cur_ed[:, None])
+        s1 = torch.where(ov, ss_m, zero).sum(dim=-1, dtype=torch.float64)
+        s2 = torch.where(ov, ss_row, zero).sum(dim=-1, dtype=torch.float64)
+        fresh = keep & (~started | disjoint)
+        extends = fresh | (keep & ~contained)
+        take_lo = torch.where(fresh, st2, torch.where(s1 > s2, cur_ed, st2))
+        take_hi = torch.where(extends, ed2, -1)
+        take = (i >= take_lo[:, None]) & (i <= take_hi[:, None])
+        f0_m = torch.where(take, row, f0_m)
+        ss_m = torch.where(take, ss_row, ss_m)
+        cur_st = torch.where(fresh, st2, cur_st)
+        cur_ed = torch.where(extends, ed2, cur_ed)
+        started = started | keep
+    return f0_m, cur_st, cur_ed, started
+
+
+@pytest.fixture(scope="module")
+def harvest_merges():
+    """K5's operands from the port's float64 Harvest on the CPU, by
+    (signal, type): harvest_small's 1 s and x16's 4.644 s at 16 kHz; the
+    float32 ones are the float64 operands cast (the chains' values stay
+    copies of the candidates)."""
+    from world_tpu_torch.f0 import harvest as H
+
+    signals = {"x_small": np.load(ROOT / "tests/golden/harvest_small.npz")["x"],
+               "x16": np.load(ROOT / "tests/golden/harvest_16k.npz")["x16"]}
+    out = {}
+    for name, x in signals.items():
+        xt = torch.tensor(np.asarray(x), dtype=torch.float64)[None]
+        _, mer = CS.capture_step3(lambda: H.harvest_core(
+            xt, 16000, CS.F0_FLOOR, CS.F0_CEIL, 5.0,
+            H.default_max_candidates(),
+            H.default_max_sections(xt.shape[1], 16000)))
+        for dtype in TYPES:
+            out[name, dtype] = [tuple(
+                a.to(dtype) if a.dtype.is_floating_point else a for a in args)
+                for args in mer]
+    return out
+
+
+@pytest.mark.parametrize("geometry", ["layouts", "x_small", "x16"])
+@pytest.mark.parametrize("dtype", TYPES)
+def test_merge_plain_matches_row_scores_formulation(dtype, geometry,
+                                                    harvest_merges):
+    """merge_plain, whose rows come from the chains and whose SerachScore is
+    taken over each deciding overlap, against the formulation with every
+    row's scores taken first and the contour's carried: the same state,
+    bitwise, on operands that take MergeF0Sub's comparison."""
+    from world_tpu_torch.f0.harvest import fix_step3
+    from world_tpu_torch.ops.fix_step3 import merge_plain
+
+    if geometry == "layouts":
+        f0, cands, scores = _batch(dtype)
+        _, mer = CS.capture_step3(lambda: fix_step3(f0, cands, scores, 0.18,
+                                                    CS.STEP3_SECTIONS))
+    else:
+        mer = harvest_merges[geometry, dtype]
+    assert len(mer) == 1
+    got = merge_plain(*mer[0])
+    want = _merge_by_row_scores(*mer[0])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    kinds = {t[2] for t in CS.merge_trace(mer[0])}
+    assert kinds & {"s1>s2", "s1<s2", "s1=s2"} and "start" in kinds
 
 
 def test_dispatchers_take_the_plain_versions_off_the_card():
@@ -197,11 +311,11 @@ def test_dispatchers_take_the_plain_versions_off_the_card():
     f0, cands, scores = _batch(torch.float64)
     before = (K45.extend_counter.launches, K45.merge_counter.launches)
     ext, mer = CS.capture_step3(lambda: fix_step3(f0, cands, scores, 0.18, 16, 5))
-    assert len(ext) == 1 and len(mer) == 4           # chunks of 5 of 16 rows
+    assert len(ext) == len(mer) == 1    # the keeps' means in chunks of 5 rows
     assert torch.equal(K45.extend_chains(*ext[0])[1],
                        K45.extend_chains_plain(*ext[0])[1])
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in mer[0]]
     out = K45.merge_sections(*meta)
-    assert [t.shape for t in out] == [t.shape for t in mer[0][5:]]
+    assert [t.shape for t in out] == [t.shape for t in mer[0][11:]]
     assert all(t.device.type == "meta" for t in out)
     assert (K45.extend_counter.launches, K45.merge_counter.launches) == before

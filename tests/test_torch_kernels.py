@@ -636,9 +636,9 @@ def _chip_smoke():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k4_k5_cuda_match_plain(cuda, dtype):
     """Harvest's FixStep3 kernels on the adversarial section layouts
-    (chip_smoke.fix_step3_layouts) in chunks of 1, 3 and all 16 rows, and
-    on x16's Harvest: K4 and K5 bitwise their plain versions, K4 once a
-    call and K5 once a chunk."""
+    (chip_smoke.fix_step3_layouts; the keeps' means in chunks of 1, 3 and
+    all 16 rows, K5 also in ranges of 1 and 3 steps a launch) and on x16's
+    Harvest: K4 and K5 bitwise their plain versions, each once a call."""
     from pathlib import Path
 
     from world_tpu_torch.ops import fix_step3 as K45
@@ -647,11 +647,13 @@ def test_k4_k5_cuda_match_plain(cuda, dtype):
     before = (K45.extend_counter.launches, K45.merge_counter.launches)
     ext, mer = cs.step3_layout_operands(dtype)
     assert (K45.extend_counter.launches - before[0],
-            K45.merge_counter.launches - before[1]) == (3, 16 + 6 + 1)
+            K45.merge_counter.launches - before[1]) == (3, 3)
     g = np.load(Path(__file__).parent / "golden" / "harvest_16k.npz")
     e16, m16 = cs.step3_operands(np.asarray(g["x16"]), int(g["fs"]), dtype)
     assert len(e16) == len(m16) == 1 and e16[0][1].shape == (1, 512)
     for args in ext + e16:
         cs.check_k4(args, f"{dtype} test")
-    for args in mer + m16:
-        cs.check_k5(args, f"{dtype} test")
+    for args in mer:
+        for chunk in (None, 1, 3):
+            cs.check_k5(args, f"{dtype} test", chunk)
+    cs.check_k5(m16[0], f"{dtype} test")

@@ -312,7 +312,7 @@ def _stub_step3(monkeypatch):
                 torch.empty_like(origin))
 
     monkeypatch.setattr(K45, "extend_chains", k4)
-    monkeypatch.setattr(K45, "merge_sections", lambda *args: args[5:])
+    monkeypatch.setattr(K45, "merge_sections", lambda *args: args[11:])
 
 
 def test_round_trip_has_static_shapes(monkeypatch):

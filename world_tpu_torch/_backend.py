@@ -238,9 +238,9 @@ def _build_and_load():
         fn.argtypes = [P, P, P, P, P, I, I, I, I, I, D, P, P, P, P, P]
         fn.restype = I
         fn = getattr(lib, f"world_merge_sections_{suffix}")
-        # rows, ss, st, ed, keep, B, c, n, f0_m, ss_m, cur_st, cur_ed,
-        # started, stream
-        fn.argtypes = [P, P, P, P, P, I, I, I, P, P, P, P, P, P]
+        # f0, cands, scores, starts, ends, val, act, order, st, ed, keep,
+        # B, C, n, S, n_steps, c, f0_m, cur_st, cur_ed, started, stream
+        fn.argtypes = [P] * 11 + [I] * 6 + [P] * 5
         fn.restype = I
     return lib, seconds
 

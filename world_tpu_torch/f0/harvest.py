@@ -448,18 +448,16 @@ def fix_step3(f0_step2: torch.Tensor, cands: torch.Tensor, scores: torch.Tensor,
     MergeF0 walks the rows sorted by extended start, the kept ones first,
     ``max_sections`` steps for every utterance; a step whose row is not kept
     changes nothing (the reference's ``lax.scan`` with ``lax.cond``).  Each
-    step replaces one interval of the merged contour by the row's values,
-    and SerachScore's score of every row is taken once, before the merge:
-    the score of a contour is a function of each frame's value, so the
-    merged contour's scores follow its values through the same selections.
-    ``section_chunk``: hold the (B, sections, n) extended contour rows of
-    that many sections at a time, first to decide which sections are kept,
-    then again for the rows in merge order."""
+    step replaces one interval of the merged contour by the row's values;
+    the merge (K5 on the card) reads each row from the chains and takes
+    SerachScore over each overlap it decides, so no (B, sections, n) row or
+    score is held for it.  ``section_chunk``: hold the (B, sections, n)
+    extended contour rows of that many sections at a time to decide which
+    sections are kept (their means)."""
     single = f0_step2.dim() == 1
     if single:
         f0_step2, cands, scores = f0_step2[None], cands[None], scores[None]
     B, n = f0_step2.shape
-    C = cands.shape[1]
     S = int(max_sections)
     dev, dtype = f0_step2.device, f0_step2.dtype
     starts, ends, valid = sections(f0_step2, S)
@@ -468,7 +466,7 @@ def fix_step3(f0_step2: torch.Tensor, cands: torch.Tensor, scores: torch.Tensor,
     # both directions at once: forward from each end, backward from each start
     shift = torch.cat([torch.ones(S, dtype=torch.int64, device=dev),
                        torch.full((S,), -1, dtype=torch.int64, device=dev)])
-    pos, val, act, reached = step3_kernels.extend_chains(
+    _, val, act, reached = step3_kernels.extend_chains(
         f0_step2.contiguous(), torch.cat([ends, starts], -1),
         torch.cat([torch.clamp(ends + threshold1, max=n - 2),
                    torch.clamp(starts - threshold1, min=1)], -1),
@@ -478,31 +476,15 @@ def fix_step3(f0_step2: torch.Tensor, cands: torch.Tensor, scores: torch.Tensor,
     zero = torch.zeros((), dtype=dtype, device=dev)
     chunk = S if section_chunk is None else max(1, int(section_chunk))
 
-    def section_rows(sel):
-        """The extended contour rows (B, c, n) of the sections sel (B, c).
-        Each chain is one scatter into a row with a trash column at n:
-        the steps that wrote nothing write there."""
-        pick = lambda t: torch.gather(t, 1, sel)                  # noqa: E731
-        rows = torch.zeros(sel.shape + (n + 1,), dtype=dtype, device=dev)
-        rows[..., :n] = torch.where(
-            (i >= pick(starts)[..., None]) & (i <= pick(ends)[..., None]),
-            f0_step2[:, None, :], zero)
-        steps = sel[..., None].expand(-1, -1, n_steps)
-        for half in (slice(0, S), slice(S, 2 * S)):
-            at = torch.where(torch.gather(act[:, half], 1, steps),
-                             torch.gather(pos[:, half], 1, steps), n)
-            rows.scatter_(-1, at, torch.gather(val[:, half], 1, steps))
-        return rows[..., :n]
-
-    def chunk_sel(lo):
-        return torch.arange(lo, min(lo + chunk, S), device=dev).expand(B, -1)
-
-    means, rows = [], None
+    # the kept sections: those whose extended range is longer than
+    # threshold2 over the mean of the extended row over that range
+    means = []
     for lo in range(0, S, chunk):
-        sel = chunk_sel(lo)
-        rows = section_rows(sel)
-        in_rng = ((i >= torch.gather(r0, 1, sel)[..., None])
-                  & (i <= torch.gather(r1, 1, sel)[..., None]))
+        hi = min(lo + chunk, S)
+        in_rng = ((i >= r0[:, lo:hi, None]) & (i <= r1[:, lo:hi, None]))
+        rows = step3_kernels.section_rows(
+            f0_step2, starts, ends, val, act,
+            torch.arange(lo, hi, device=dev).expand(B, -1))
         means.append(torch.where(in_rng, rows, zero).sum(dim=-1)
                      / in_rng.sum(dim=-1))
     mean_f0 = means[0] if len(means) == 1 else torch.cat(means, dim=-1)
@@ -516,36 +498,14 @@ def fix_step3(f0_step2: torch.Tensor, cands: torch.Tensor, scores: torch.Tensor,
     st_o = torch.gather(r0, 1, order)
     ed_o = torch.gather(r1, 1, order)
 
-    # SerachScore (the max score of the candidates equal to a frame's value)
-    # of contour rows (B, c, n), a few rows at a time: their (B, rows, C, n)
-    # comparisons and selections hold at most an eighth of the budget
-    # beside the section chunk (:func:`stage_units`)
-    sub = max(1, STAGE_BYTES_BUDGET // 8
-              // (B * C * n * (1 + f0_step2.element_size())))
-
-    def row_scores(rows):
-        out = []
-        for s0 in range(0, rows.shape[1], sub):
-            eq = cands[:, None] == rows[:, s0:s0 + sub, None, :]
-            out.append(torch.where(eq, scores[:, None], zero).amax(dim=-2))
-        return out[0] if len(out) == 1 else torch.cat(out, dim=1)
-
-    f0_m = torch.zeros_like(f0_step2)
-    ss_m = row_scores(f0_m[:, None])[:, 0]          # the empty contour's
-    state = (f0_m, ss_m, torch.zeros(B, dtype=torch.int64, device=dev),
-             torch.zeros(B, dtype=torch.int64, device=dev),
-             torch.zeros(B, dtype=torch.bool, device=dev))
-    for lo in range(0, S, chunk):
-        sel = order[:, lo:lo + chunk]
-        if chunk >= S:           # the one chunk's rows are still there
-            rows_o = torch.gather(rows, 1, sel[..., None].expand(-1, -1, n))
-        else:
-            rows_o = section_rows(sel).contiguous()
-        part = slice(lo, lo + chunk)
-        state = step3_kernels.merge_sections(
-            rows_o, row_scores(rows_o), st_o[:, part].contiguous(),
-            ed_o[:, part].contiguous(), keep_o[:, part].contiguous(), *state)
-    f0_m, started = state[0], state[4]
+    # one launch for the whole merge: K5 rebuilds each kept row from the
+    # chains and scores the overlaps itself
+    zeros = torch.zeros(B, dtype=torch.int64, device=dev)
+    f0_m, _, _, started = step3_kernels.merge_sections(
+        f0_step2.contiguous(), cands.contiguous(), scores.contiguous(),
+        starts.contiguous(), ends.contiguous(), val, act, order, st_o, ed_o,
+        keep_o, torch.zeros_like(f0_step2), zeros, zeros.clone(),
+        torch.zeros(B, dtype=torch.bool, device=dev))
     out = torch.where(started[:, None], f0_m, f0_step2)
     return out[0] if single else out
 
@@ -659,11 +619,10 @@ def stage_units(n_rows: int, n_frames: int, max_half: int, n_slots: int,
         the phase's three temporaries and the int64 segment index;
       * ``unreliable_chunk`` (remove_unreliable's ``frame_chunk``): per
         frame, three (slots, slots) error temporaries for every row;
-      * ``step3_chunk`` (fix_step3's ``section_chunk``): per section of
-        every row, one contour row of n_frames items, the row masked to its
-        range (or its copy in merge order), its scores and two boolean
-        masks; the scores' temporaries take at most an eighth of the budget
-        beside the chunk;
+      * ``step3_chunk`` (fix_step3's ``section_chunk``, the keeps' means):
+        per section of every row, one contour row of n_frames items, the
+        row masked to its range and two boolean masks (the merge holds no
+        section row);
       * ``smooth_chunk`` (smooth_f0's ``section_chunk``): per section of
         every row, the padded row, its convolution of N items and two half
         spectra of N / 2 + 1 complex items, N the power of two past
@@ -676,7 +635,7 @@ def stage_units(n_rows: int, n_frames: int, max_half: int, n_slots: int,
                              n_frames),
             "unreliable_chunk": (3 * n_rows * n_slots * n_slots * itemsize,
                                  n_frames),
-            "step3_chunk": (n_rows * n_frames * (3 * itemsize + 2),
+            "step3_chunk": (n_rows * n_frames * (2 * itemsize + 2),
                             max_sections),
             "smooth_chunk": (n_rows * (itemsize * (m + N + 2 * (N + 2)) + 2 * m),
                              max_sections)}

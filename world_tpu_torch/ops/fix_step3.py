@@ -9,8 +9,12 @@ scan is a Python loop of small launches (101 chain steps of ~27, and
 ``max_sections`` merge steps of ~31), so on the card each scan is one kernel:
 
   * K4, :func:`extend_chains`: every chain of every utterance in one launch;
-  * K5, :func:`merge_sections`: the merge over one chunk of section rows in
-    one launch, the carried state updated in place between chunks.
+  * K5, :func:`merge_sections`: the whole merge of every utterance in one
+    launch.  It reads no precomputed section rows and no scores: it
+    rebuilds a row's value at a frame from f0 and the chains where it needs
+    it, and takes SerachScore over each deciding overlap from the
+    candidates and their scores (the JAX ``sscore``).  It takes and returns
+    the carried state, so a range of steps may be merged a launch.
 
 A CUDA tensor goes to the hand-written kernel; a CPU (or ``meta``) tensor to
 the plain version, :func:`extend_chains_plain` or :func:`merge_plain`, the
@@ -23,7 +27,8 @@ float64: the kernel's block reduction cannot repeat PyTorch's summation
 order, and float32 scores summed in float64 give the same decision in any
 order but for ties closer than float64's rounding.  Exact ties stay ties
 in any order: where the row and the contour agree, they carry the same
-scores.  Float64 inputs are summed as before.
+scores, so the kernel sums only the frames where they differ.  Float64
+inputs are summed as before.
 """
 import torch
 
@@ -85,44 +90,91 @@ def extend_chains_plain(f0, origin, last_point, shift, cands, allowed_range,
             torch.stack(out_act, -1), shifted)
 
 
-def merge_plain(rows_o, ss_o, st_o, ed_o, keep_o, f0_m, ss_m, cur_st, cur_ed,
-                started):
-    """MergeF0 (harvest.py:442-486) over one chunk of c section rows in
-    merge order: rows_o and their scores ss_o (B, c, n), their extended
-    starts st_o and ends ed_o (B, c) int64 and keep_o (B, c) bool.  The
-    carried state is the merged contour f0_m and its scores ss_m (B, n),
-    the current section's start cur_st and end cur_ed (B,) int64 and
-    started (B,) bool; returns it updated, as new tensors.
+def section_rows(f0_step2, starts, ends, val, act, sel):
+    """The extended contour rows (B, c, n) of the sections sel (B, c) int64
+    of each utterance: f0_step2 inside the section [starts, ends], the
+    values of its forward chain (chain s of val and act, (B, 2S, n_steps),
+    step k at frame ends + k + 1) and of its backward chain (chain S + s,
+    step k at frame starts - k - 1) where the step was active, else 0.  The
+    chains lie on either side of the section, so no frame has two values.
+    Each chain is one scatter into a row with a trash column at n, where
+    the inactive steps write."""
+    n = f0_step2.shape[-1]
+    S, n_steps = starts.shape[1], val.shape[-1]
+    dev, dtype = f0_step2.device, f0_step2.dtype
+    i = torch.arange(n, device=dev)
+    k = torch.arange(1, n_steps + 1, device=dev)
+    st = torch.gather(starts, 1, sel)[..., None]
+    ed = torch.gather(ends, 1, sel)[..., None]
+    rows = torch.zeros(sel.shape + (n + 1,), dtype=dtype, device=dev)
+    rows[..., :n] = torch.where((i >= st) & (i <= ed), f0_step2[:, None, :],
+                                torch.zeros((), dtype=dtype, device=dev))
+    steps = sel[..., None].expand(-1, -1, n_steps)
+    for first, at in ((0, ed + k), (S, st - k)):
+        active = torch.gather(act[:, first:first + S], 1, steps)
+        rows.scatter_(-1, torch.where(active, at, n),
+                      torch.gather(val[:, first:first + S], 1, steps))
+    return rows[..., :n]
+
+
+def serach_score(cands, scores, contour):
+    """SerachScore of a contour (B, n): at each frame the greatest score of
+    the candidates (B, C, n) equal to its value, 0 where none is (a NaN
+    score propagates, as ``torch.amax`` does)."""
+    zero = torch.zeros((), dtype=scores.dtype, device=scores.device)
+    return torch.where(cands == contour[:, None, :], scores, zero).amax(dim=-2)
+
+
+def merge_plain(f0_step2, cands, scores, starts, ends, val, act, order, st_o,
+                ed_o, keep_o, f0_m, cur_st, cur_ed, started):
+    """MergeF0 (harvest.py:442-486) over a range of c steps of the merge.
+
+    The utterances' data: f0_step2 (B, n), the candidates and their scores
+    (B, C, n), the sections' starts and ends (B, S) int64, and the chains'
+    values and flags val, act (B, 2S, n_steps) as :func:`extend_chains`
+    lays them out (forward from section s's end at s, backward from its
+    start at S + s).  The steps: the section each merges, order (B, c)
+    int64, its extended start and end st_o, ed_o (B, c) int64, and keep_o
+    (B, c) bool.  The carried state is the merged contour f0_m (B, n), the
+    current section's start cur_st and end cur_ed (B,) int64 and started
+    (B,) bool; returns it updated, as new tensors.
 
     A step whose row is not kept changes nothing.  The first kept row
     starts the contour; a later one starts a new section when it is
     disjoint (st2 > cur_ed), else it overlaps the last one (MergeF0Sub),
     which keeps the contour where the row lies inside it, and else takes
-    the row from where the row's score over the overlap [st2, cur_ed] is
-    the greater: from its start, or from the contour's end."""
+    the row from where the SerachScore sum over the overlap [st2, cur_ed]
+    is the greater: the row's from its start, the contour's from the
+    contour's end.  The row is rebuilt from the chains
+    (:func:`section_rows`) and both scores are taken over the overlap at
+    each step, as the JAX ``sscore`` does.  The kept steps must come first
+    in each range (fix_step3's order puts them there): the kernel stops at
+    the first step that is not kept."""
     n = f0_m.shape[-1]
     dev = f0_m.device
     i = torch.arange(n, device=dev)
     zero = torch.zeros((), dtype=f0_m.dtype, device=dev)
-    for k in range(rows_o.shape[1]):
-        row, ss_row = rows_o[:, k], ss_o[:, k]
+    for k in range(order.shape[1]):
+        row = section_rows(f0_step2, starts, ends, val, act,
+                           order[:, k:k + 1])[:, 0]
         st2, ed2, keep = st_o[:, k], ed_o[:, k], keep_o[:, k]
         disjoint = st2 > cur_ed
         contained = (cur_st <= st2) & (cur_ed >= ed2)
         ov = (i >= st2[:, None]) & (i <= cur_ed[:, None])
-        s1 = torch.where(ov, ss_m, zero).sum(dim=-1, dtype=torch.float64)
-        s2 = torch.where(ov, ss_row, zero).sum(dim=-1, dtype=torch.float64)
+        s1 = torch.where(ov, serach_score(cands, scores, f0_m), zero).sum(
+            dim=-1, dtype=torch.float64)
+        s2 = torch.where(ov, serach_score(cands, scores, row), zero).sum(
+            dim=-1, dtype=torch.float64)
         fresh = keep & (~started | disjoint)
         extends = fresh | (keep & ~contained)
         take_lo = torch.where(fresh, st2, torch.where(s1 > s2, cur_ed, st2))
         take_hi = torch.where(extends, ed2, -1)
         take = (i >= take_lo[:, None]) & (i <= take_hi[:, None])
         f0_m = torch.where(take, row, f0_m)
-        ss_m = torch.where(take, ss_row, ss_m)
         cur_st = torch.where(fresh, st2, cur_st)
         cur_ed = torch.where(extends, ed2, cur_ed)
         started = started | keep
-    return f0_m, ss_m, cur_st, cur_ed, started
+    return f0_m, cur_st, cur_ed, started
 
 
 def _check_float(t, what):
@@ -165,39 +217,46 @@ def extend_chains_cuda(f0, origin, last_point, shift, cands, allowed_range,
     return pos, val, act, shifted
 
 
-def merge_sections_cuda(rows_o, ss_o, st_o, ed_o, keep_o, f0_m, ss_m, cur_st,
-                        cur_ed, started):
-    """Launch K5 on one chunk of section rows: :func:`merge_plain`'s
-    function, the state tensors updated in place and returned."""
-    dev = f0_m.device
-    dtype = f0_m.dtype
-    _check_float(f0_m, "merge_sections")
-    check_kernel_input(rows_o, "rows_o", dtype, dev, 3)
-    check_kernel_input(ss_o, "ss_o", dtype, dev, 3)
-    for t, name in ((st_o, "st_o"), (ed_o, "ed_o")):
+def merge_sections_cuda(f0_step2, cands, scores, starts, ends, val, act,
+                        order, st_o, ed_o, keep_o, f0_m, cur_st, cur_ed,
+                        started):
+    """Launch K5 on a range of merge steps: :func:`merge_plain`'s function,
+    the state tensors updated in place and returned."""
+    dev = f0_step2.device
+    dtype = f0_step2.dtype
+    _check_float(f0_step2, "merge_sections")
+    for t, name in ((f0_step2, "f0_step2"), (f0_m, "f0_m")):
+        check_kernel_input(t, name, dtype, dev, 2)
+    for t, name in ((cands, "cands"), (scores, "scores"), (val, "val")):
+        check_kernel_input(t, name, dtype, dev, 3)
+    check_kernel_input(act, "act", torch.bool, dev, 3)
+    for t, name in ((starts, "starts"), (ends, "ends"), (order, "order"),
+                    (st_o, "st_o"), (ed_o, "ed_o")):
         check_kernel_input(t, name, torch.int64, dev, 2)
     check_kernel_input(keep_o, "keep_o", torch.bool, dev, 2)
-    check_kernel_input(f0_m, "f0_m", dtype, dev, 2)
-    check_kernel_input(ss_m, "ss_m", dtype, dev, 2)
     for t, name in ((cur_st, "cur_st"), (cur_ed, "cur_ed")):
         check_kernel_input(t, name, torch.int64, dev, 1)
     check_kernel_input(started, "started", torch.bool, dev, 1)
-    B, c, n = rows_o.shape
-    if (ss_o.shape != (B, c, n) or st_o.shape != (B, c) or ed_o.shape != (B, c)
-            or keep_o.shape != (B, c) or f0_m.shape != (B, n)
-            or ss_m.shape != (B, n) or cur_st.shape != (B,)
-            or cur_ed.shape != (B,) or started.shape != (B,)
-            or min(B, c, n) < 1):
-        raise ValueError(f"merge_sections: shapes rows_o {tuple(rows_o.shape)}"
-                         f", ss_o {tuple(ss_o.shape)}, st_o {tuple(st_o.shape)}"
-                         f", f0_m {tuple(f0_m.shape)}, started "
-                         f"{tuple(started.shape)}")
-    launch("merge_sections", dtype, rows_o.data_ptr(), ss_o.data_ptr(),
-           st_o.data_ptr(), ed_o.data_ptr(), keep_o.data_ptr(), B, c, n,
-           f0_m.data_ptr(), ss_m.data_ptr(), cur_st.data_ptr(),
-           cur_ed.data_ptr(), started.data_ptr())
+    B, n = f0_step2.shape
+    C, S, c, n_steps = cands.shape[1], starts.shape[1], order.shape[1], val.shape[2]
+    if (cands.shape != (B, C, n) or scores.shape != (B, C, n)
+            or ends.shape != (B, S) or val.shape != (B, 2 * S, n_steps)
+            or act.shape != val.shape or any(t.shape != (B, c) for t in (
+                st_o, ed_o, keep_o)) or f0_m.shape != (B, n)
+            or any(t.shape != (B,) for t in (cur_st, cur_ed, started))
+            or min(B, C, n, S, c, n_steps) < 1):
+        raise ValueError(f"merge_sections: shapes f0_step2 {tuple(f0_step2.shape)}"
+                         f", cands {tuple(cands.shape)}, starts "
+                         f"{tuple(starts.shape)}, val {tuple(val.shape)}, order "
+                         f"{tuple(order.shape)}, f0_m {tuple(f0_m.shape)}, "
+                         f"started {tuple(started.shape)}")
+    launch("merge_sections", dtype, f0_step2.data_ptr(), cands.data_ptr(),
+           scores.data_ptr(), starts.data_ptr(), ends.data_ptr(), val.data_ptr(),
+           act.data_ptr(), order.data_ptr(), st_o.data_ptr(), ed_o.data_ptr(),
+           keep_o.data_ptr(), B, C, n, S, n_steps, c, f0_m.data_ptr(),
+           cur_st.data_ptr(), cur_ed.data_ptr(), started.data_ptr())
     merge_counter.add()
-    return f0_m, ss_m, cur_st, cur_ed, started
+    return f0_m, cur_st, cur_ed, started
 
 
 def extend_chains(f0, origin, last_point, shift, cands, allowed_range,
@@ -211,12 +270,9 @@ def extend_chains(f0, origin, last_point, shift, cands, allowed_range,
                                allowed_range, n_steps)
 
 
-def merge_sections(rows_o, ss_o, st_o, ed_o, keep_o, f0_m, ss_m, cur_st,
-                   cur_ed, started):
-    """MergeF0 over one chunk of section rows: :func:`merge_plain`'s
-    function, by K5 on the card (which updates the state in place)."""
-    if f0_m.is_cuda:
-        return merge_sections_cuda(rows_o, ss_o, st_o, ed_o, keep_o, f0_m,
-                                   ss_m, cur_st, cur_ed, started)
-    return merge_plain(rows_o, ss_o, st_o, ed_o, keep_o, f0_m, ss_m, cur_st,
-                       cur_ed, started)
+def merge_sections(*args):
+    """MergeF0 over a range of merge steps: :func:`merge_plain`'s function
+    and arguments, by K5 on the card (which updates the state in place)."""
+    if args[0].is_cuda:
+        return merge_sections_cuda(*args)
+    return merge_plain(*args)

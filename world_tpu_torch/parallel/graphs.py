@@ -106,6 +106,18 @@ def _shapes(inputs) -> str:
     return ", ".join(f"{tuple(t.shape)} {t.dtype} on {t.device}" for t in inputs)
 
 
+def _end_pool(device, pool):
+    """Stop routing the capture stream's allocations to a failed capture's
+    memory pool and free the pool.  The capture's end stops the routing
+    itself unless the end failed before it got there, so a second stop may
+    find nothing to stop: that is not an error here."""
+    try:
+        torch._C._cuda_endAllocateToPool(device.index, pool)
+    except RuntimeError:
+        pass
+    torch._C._cuda_releasePool(device.index, pool)
+
+
 def _capture(fn, inputs, device) -> Graph:
     with torch.cuda.device(device), tables.retained() as kept:
         static = [torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x)
@@ -120,12 +132,32 @@ def _capture(fn, inputs, device) -> Graph:
         generator = torch.cuda.default_generators[device.index]
         rng_state = generator.get_state()
         t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        # torch.cuda.graph's steps, with its stream restored and its pool
+        # ended where the capture fails: there its __exit__ raises before it
+        # restores the stream, so the caller would go on issuing work on the
+        # capture stream, and the allocator, told nothing, would go on
+        # reserving memory for the failed graph that empty_cache() cannot free
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        capture = torch.cuda.Stream(device)
+        capture.wait_stream(torch.cuda.current_stream(device))
+        error = None
+        pool = torch.cuda.graph_pool_handle()   # the graph's own, as by default
+        with torch.cuda.stream(capture):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
                 reserved = torch.cuda.memory_reserved(device)
                 outputs = fn(*static)
                 pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        except Exception as e:
+            except Exception as e:       # noqa: BLE001 (raised below)
+                error = e
+            try:
+                graph.capture_end()
+            except Exception as e:       # noqa: BLE001 (raised below)
+                error = error or e
+                _end_pool(device, pool)
+        torch.cuda.current_stream(device).wait_stream(capture)
+        if error is not None:
             # a capture that ends in an error leaves the device's default
             # generator marked as capturing, and every later draw on it
             # fails: give it a fresh state with its seed and offset
@@ -134,7 +166,7 @@ def _capture(fn, inputs, device) -> Graph:
             generator.graphsafe_set_state(fresh)
             raise GraphCaptureError(
                 f"CUDA graph capture failed for inputs {_shapes(inputs)}: "
-                f"{type(e).__name__}: {e}") from e
+                f"{type(error).__name__}: {error}") from error
         capture_s = time.perf_counter() - t0
         launches = {name: c.captured() - before[name]
                     for name, c in _COUNTERS.items()}
