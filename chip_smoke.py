@@ -15,8 +15,10 @@ Phases (each raises on failure; any failure exits non-zero):
      16 kHz golden utterance and of dio.npz's decimated signal; K3 (DIO's
      extension scans), both scans, bitwise against its plain version in
      both types on DIO's own operands of x16 (929 frames), of a batch of 4
-     and of the 60 s glide (12,001 frames), and on contours of 1-3 frame
-     sections, none voiced, voiced to the end;
+     and of the 60 s glide (12,001 frames), on contours of 1-3 frame
+     sections, none voiced, voiced to the end, and on the adversarial
+     layouts of k3_adversarial_operands (any flags and limits), each scan
+     printed with its heads, largest group and longest chain;
   3. K2 (refinement) against its plain version, float32 and float64, on
      the main path's operands and on real frames with adversarial slot
      layouts (all 48 slots live at 71 Hz, only the last slot live, none
@@ -103,7 +105,9 @@ Phases (each raises on failure; any failure exits non-zero):
      through Harvest alone, blocked, and unblocked where it fits;
  15. rows and devices: 110 utterances of 0.5 s through batch_encode_decode
      (more rows than one K1 launch takes); phase 5's batch over
-     devices=["cuda:0", "cuda:0"], each shard bitwise its one-device call,
+     two devices (cuda:0 and cuda:1 where the machine has two cards, else
+     ["cuda:0", "cuda:0"]; phase 6's two-thread call too), each shard
+     bitwise its one-device call,
      its waveform too, and one call run twice bitwise equal;
      frame_sharded_cheaptrick over two and four shards against cheaptrick;
  16. Harvest on 22.05 kHz speech: the stages after the downsampler in
@@ -167,6 +171,10 @@ K2_OPS_PER_WINDOW_SAMPLE = 60
 # extension runs through, the prediction (3), one subtraction, absolute
 # value and comparison per candidate, and the relative-error test (5).
 K3_OPS_PER_FRAME, K3_OPS_PER_EXTENSION_FRAME, K3_OPS_PER_CANDIDATE = 4, 8, 3
+# K3's adversarial layouts (k3_adversarial_operands): frames a row, and the
+# frames of the long rows, whose 516 words of 32 flags outnumber the
+# kernel's 512 threads
+K3_ADV_N, K3_ADV_LONG = 257, 16500
 # K4: at each active step of a chain, the floor of the reference and the
 # carry's update (6), and per candidate a subtraction, an absolute value, a
 # division and a comparison (4).  K5: at each frame of a deciding overlap,
@@ -305,6 +313,18 @@ def k2_bound(ops):
     window_samples = float((2 * half + 1).sum())
     return bound((2 * F * W + 3 * C * F + 2 * ops["S"]) * isz,
                  K2_OPS_PER_WINDOW_SAMPLE * window_samples)
+
+
+def two_devices(label: str) -> list:
+    """The devices of a call over two shards: cuda:0 and cuda:1 where the
+    machine has two cards or more, else the one card twice; says which."""
+    import torch
+
+    count = torch.cuda.device_count()
+    two = ["cuda:0", "cuda:1"] if count >= 2 else ["cuda:0", "cuda:0"]
+    print(f"{label}: two shards on {two} ({count} card{'s' * (count != 1)} "
+          f"on this machine)")
+    return two
 
 
 def glide_signal(fs: int, seconds: float) -> np.ndarray:
@@ -576,17 +596,18 @@ def capture_k3(fn) -> list:
     return got
 
 
-def k3_operands(signal: np.ndarray, fs: int, dtype, n_rows: int = 1) -> list:
+def k3_operands(signal: np.ndarray, fs: int, dtype, n_rows: int = 1,
+                device: str = "cuda") -> list:
     """K3's operands on the DIO path, both scans, for ``n_rows`` copies of
     signal (the copies after the first with noise of 1e-3, as phase 5's
-    batch): captured from dio_core on the card."""
+    batch): captured from dio_core on ``device``."""
     import torch
     from world_tpu_torch.f0.dio import dio_core
 
     rng = np.random.RandomState(0)
     xs = np.stack([signal] + [signal + 1e-3 * rng.randn(signal.shape[0])
                               for _ in range(n_rows - 1)])
-    x = torch.tensor(xs, dtype=dtype, device="cuda")
+    x = torch.tensor(xs, dtype=dtype, device=device)
     return capture_k3(lambda: dio_core(x, fs))
 
 
@@ -613,42 +634,157 @@ def k3_short_section_operands(dtype) -> list:
     return capture_k3(lambda: fix_step4(fix_step3(f0, cd, 0.1), f0, cd, 0.1))
 
 
-def k3_extension_frames(args, out) -> int:
-    """The frames the scan of ``args`` runs an extension through, read off
-    its output ``out`` (the carry's rule on the host): the work this run's
-    data needs."""
-    base, flags, limits, _, _, backward = args
+def k3_adversarial_operands(dtype, device: str = "cuda",
+                            long_row: bool = True) -> dict:
+    """K3's operands on layouts of flags and limits that DIO does not give,
+    by name, each as its forward and its backward scan: K3 computes
+    extension_scan_plain's function for any flags and limits.  Rows of
+    K3_ADV_N frames and 7 candidates a frame, but where a layout says
+    otherwise.  The candidates lie near a slow glide from 200 Hz, so that
+    most picks are kept and chains run long; some are 0 or far off, so that
+    some chains end early.
+
+    Layouts: adjacent flags; flags at frames 0 and n - 1 and at the edges
+    of 32-frame words; every frame flagged; limits before their flag and
+    past n; one group spanning every flag (flags 2-4 apart, each limit
+    past the next flag); C = 1; C = 12 (more candidates than the kernel
+    holds in registers); rows with no flag beside a row with flags; random
+    flags and limits; rows of 1 and of 33 frames; with ``long_row``, two
+    rows of K3_ADV_LONG frames (more 32-frame words than the block has
+    threads)."""
+    import torch
+
+    rng = np.random.RandomState(11)
+    n = K3_ADV_N
+
+    def row(m, flag_at, limit_of=None):
+        flags = np.zeros(m, bool)
+        limits = np.zeros(m, np.int64)
+        for f in flag_at:
+            flags[f] = True
+            limits[f] = limit_of(f)
+        return flags, limits
+
+    def case(rows, C=7):
+        """(flags, limits) rows -> the forward and the backward operands;
+        backward, each limit is mirrored about its flag, so that it reaches
+        as far in scan order (limit - 1 = 2 f - limit, p >= limit - 1)"""
+        flags = np.stack([r[0] for r in rows])
+        limits = np.stack([r[1] for r in rows])
+        B, m = flags.shape
+        glide = 200.0 + 0.05 * np.arange(m)
+        base = np.where(rng.rand(B, m) < 0.3, 0.0, glide + rng.rand(B, m))
+        cands = glide + rng.randn(B, C, m) * 2.0
+        cands[rng.rand(B, C, m) < 0.1] = 0.0
+        cands[rng.rand(B, C, m) < 0.05] = 900.0
+        mirrored = np.where(flags, 2 * np.arange(m) + 1 - limits, 0)
+        t = lambda a, dt=None: torch.tensor(a, dtype=dt, device=device)  # noqa: E731
+        ops = (t(base, dtype), t(flags), t(limits), t(cands, dtype), 0.1, False)
+        return [ops, (ops[0], ops[1], t(mirrored), ops[3], 0.1, True)]
+
+    words = [0, 31, 32, 33, 63, 64, 95, n - 33, n - 32, n - 1]
+    every = np.arange(3, n, 23)
+    out = {
+        "adjacent": case([
+            row(n, [5, 6, 7, 40, 41, 100, 101, 102, 103, 200, 201],
+                lambda f: f + 6),
+            row(n, range(60, 90), lambda f: f + 1)]),
+        "edges": case([row(n, [0, n - 1], lambda f: n // 2),
+                       row(n, words, lambda f: f + 20),
+                       row(n, words, lambda f: f - 20)]),
+        "every_frame": case([row(n, range(n), lambda f: f + rng.randint(-5, 6)),
+                             row(n, range(n), lambda f: f + 1)]),
+        "limits_outside": case([row(n, every, lambda f: f - 2),
+                                row(n, every, lambda f: f - 40),
+                                row(n, every, lambda f: n + 5),
+                                row(n, every, lambda f: 10 * n),
+                                row(n, every, lambda f: -10 * n)]),
+        "one_group": case([
+            row(n, np.cumsum(rng.randint(2, 5, n // 4)), lambda f: f + 5),
+            row(n, range(1, n, 3), lambda f: f + 3)]),
+        "one_candidate": case([row(n, [4, 9, 10, 60, 130], lambda f: f + 30),
+                               row(n, range(0, n, 7), lambda f: f + 8)], C=1),
+        "many_candidates": case([row(n, [4, 9, 10, 60, 130], lambda f: f + 30),
+                                 row(n, range(0, n, 7), lambda f: f + 8)], C=12),
+        "rows_without_flags": case([row(n, []),
+                                    row(n, [20, 150], lambda f: f + 40),
+                                    row(n, [])]),
+        "random": case([row(n, np.flatnonzero(rng.rand(n) < 0.15),
+                            lambda f: f + rng.randint(-3, 31))
+                        for _ in range(4)]),
+        "one_frame": case([row(1, [0], lambda f: 0), row(1, [])]),
+        "33_frames": case([row(33, [0, 31, 32], lambda f: 40),
+                           row(33, [1, 32], lambda f: -5)]),
+    }
+    if long_row:
+        m = K3_ADV_LONG
+        out["long_row"] = case([
+            row(m, np.flatnonzero(rng.rand(m) < 0.01),
+                lambda f: f + rng.randint(0, 60)),
+            row(m, [0, m // 2, m - 1], lambda f: m + 1)])
+    return out
+
+
+def k3_groups(args, out) -> dict:
+    """How K3 splits one scan, read off its operands and its output on the
+    host (the carry's rule): the flags, the heads (the kernel's rule), the
+    most flags in one group, the most frames one group extends through (its
+    chain of dependent picks), and the frames extended in all (the work this
+    run's data needs), over all rows."""
+    _, flags, limits, _, _, backward = args
     flags, limits = flags.cpu().numpy(), limits.cpu().numpy()
     out = out.cpu().numpy()
     n = out.shape[1]
-    count = 0
+    order = list(range(n - 1, -1, -1) if backward else range(n))
+    st = {"flags": 0, "heads": 0, "largest_group": 0, "longest_chain": 0,
+          "extended": 0}
     for b in range(out.shape[0]):
-        active, limit = False, 0
-        for p in (range(n - 1, -1, -1) if backward else range(n)):
+        reach = (n - limits[b]) if backward else limits[b]
+        fl = [s for s, p in enumerate(order) if flags[b, p]]
+        group, sizes = {}, []
+        for i, s in enumerate(fl):
+            prev = fl[i - 1] if i else None
+            if prev is None or (prev < s - 1 and reach[order[prev]] < s - 1):
+                sizes.append(0)
+            sizes[-1] += 1
+            group[s] = len(sizes) - 1
+        chain = [0] * len(sizes)
+        active, limit, g = False, 0, None
+        for s, p in enumerate(order):
             in_ext = active and (p >= limit - 1 if backward else p <= limit)
-            count += in_ext
+            if in_ext:
+                chain[g] += 1
             active = in_ext and out[b, p] != 0
             if flags[b, p]:
-                active, limit = True, int(limits[b, p])
-    return count
+                active, limit, g = True, int(limits[b, p]), group[s]
+        st["flags"] += len(fl)
+        st["heads"] += len(sizes)
+        st["largest_group"] = max([st["largest_group"]] + sizes)
+        st["longest_chain"] = max([st["longest_chain"]] + chain)
+        st["extended"] += sum(chain)
+    return st
 
 
 def k3_bound(args, out):
-    """K3 reads the contour, the flags, the limits and the candidates once
+    """K3 reads the contour and the flags at every frame, the int64 limit of
+    each flag and the C candidates of each frame an extension runs through,
     and writes the contour; its operations are the carry's at every frame
-    and the candidates' search at the frames this run extends through."""
+    and the candidates' search at the frames extended.  The flags and the
+    frames extended are this run's (k3_groups)."""
     base, _, _, cands, _, _ = args
     B, n = base.shape
     C = cands.shape[1]
     isz = base.element_size()
-    ext = k3_extension_frames(args, out)
-    return bound(B * n * (2 * isz + 1 + 8) + cands.numel() * isz,
-                 K3_OPS_PER_FRAME * B * n
-                 + ext * (K3_OPS_PER_EXTENSION_FRAME + K3_OPS_PER_CANDIDATE * C))
+    st = k3_groups(args, out)
+    return bound(B * n * (2 * isz + 1) + 8 * st["flags"]
+                 + st["extended"] * C * isz,
+                 K3_OPS_PER_FRAME * B * n + st["extended"]
+                 * (K3_OPS_PER_EXTENSION_FRAME + K3_OPS_PER_CANDIDATE * C))
 
 
 def check_k3(args, label) -> float:
-    """K3 against its plain version on one scan's operands: bitwise."""
+    """K3 against its plain version on one scan's operands: bitwise.  Prints
+    how the kernel splits the scan (k3_groups)."""
     import torch
     from world_tpu_torch.ops.extension_scan import (extension_scan_cuda,
                                                     extension_scan_plain)
@@ -659,9 +795,12 @@ def check_k3(args, label) -> float:
     err = float((got - want).abs().max())
     equal = torch.equal(got, want)
     base = args[0]
+    st = k3_groups(args, got)
     print(f"K3 {label}: {'backward' if args[5] else 'forward'} scan of "
           f"{tuple(base.shape)} frames, {args[3].shape[1]} candidates, "
-          f"{k3_extension_frames(args, got)} frames extended: bitwise {equal}, "
+          f"{st['flags']} flags, {st['heads']} heads, largest group "
+          f"{st['largest_group']} flags, longest chain {st['longest_chain']} "
+          f"frames, {st['extended']} frames extended: bitwise {equal}, "
           f"max abs err {err:.3g} Hz, {int((got != base).sum())} frames written")
     if not equal:
         raise AssertionError(f"K3 {label}: not bitwise equal to its plain version")
@@ -1935,7 +2074,8 @@ def main(phases=ALL_PHASES) -> int:
             for geo, ops in (("dio_x16", k3_operands(x16, fs, dt)),
                              ("dio_x16_batch4", k3_operands(x16, fs, dt, 4)),
                              ("dio_60s", k3_operands(x60_k3, GLIDE_FS, dt)),
-                             ("short_sections", k3_short_section_operands(dt))):
+                             ("short_sections", k3_short_section_operands(dt)),
+                             *k3_adversarial_operands(dt).items()):
                 errs = [check_k3(args, f"{str(dt)[6:]} {geo}") for args in ops]
                 if dt == torch.float32:
                     k3_ops[geo] = ops
@@ -2876,8 +3016,9 @@ def main(phases=ALL_PHASES) -> int:
         graph_memory(xm_t, fs, card)
         del xm_t
 
-        # phase 5's batch over two shards on the one card
-        two = ["cuda:0", "cuda:0"]
+        # phase 5's batch over two shards: two cards where the machine has
+        # them, else the one card twice
+        two = two_devices("phase 15")
         blkS = harvest_blocking(x16.shape[0], fs, torch.float32, n_rows=2)
         for _ in range(2):                 # eager, then the graph's capture
             batch_encode_decode(xs, fs, devices=two)
@@ -3339,7 +3480,7 @@ def main(phases=ALL_PHASES) -> int:
         # taken one, two, two, one
         from world_tpu_torch.parallel.batch import BATCH_GRAPHS
 
-        two = ["cuda:0", "cuda:0"]
+        two = two_devices("phase 6")
         # every two-thread call's outputs are kept, with what the graph
         # cache ran for it, and held below to the one-device calls of its
         # shards; no call reads its flags inside the timing
@@ -3362,8 +3503,9 @@ def main(phases=ALL_PHASES) -> int:
         d2 = cuda_ms(one_device, iters=2, warmup=2)
         print(f"phase 6 batch_encode_decode of 4 float32 [{card}]: one device "
               f"{d1:.2f}/{d2:.2f} ms, devices={two} {s1:.2f}/{s2:.2f} ms, ratio "
-              f"{(s1 + s2) / (d1 + d2):.3f} (two worker threads on one card: the "
-              f"split, not an overlap of two cards)")
+              f"{(s1 + s2) / (d1 + d2):.3f} ("
+              + ("two cards" if two[0] != two[1] else "two worker threads on one "
+                 "card: the split, not an overlap of two cards") + ")")
         # each two-thread call against its shards' rows run eagerly on one
         # device (a replay is bitwise the eager call, phase 18): every
         # output bitwise, and no capacity flag set

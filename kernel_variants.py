@@ -3,20 +3,26 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 kernel_variants.py [k1 k2 step3]
+    python3 kernel_variants.py [k1 k2 step3 k3] [--against OTHER/extension_scan.cu]
 
 (the kernels to vary; all when none is named: K1 and K2, timed together,
-and Harvest FixStep3's K4 and K5)
+Harvest FixStep3's K4 and K5, and DIO's K3.  ``--against`` adds another
+source of K3's C interface, e.g. a parent commit's unpacked with ``git
+archive`` into the git-ignored ``_checkout/``, as the k3 group's variant
+"against": it is held bitwise beside the kernel as built, and the two are
+timed other, this, ..., this, other)
 
 Without a device profiler that reads counters, this script builds variants
 of each kernel source with one part removed or changed (text substitutions
 of world_tpu_torch/csrc/*.cu), loads each as a library of its own and times
 it with CUDA events on the Harvest main path's float32 operands (K1 also at
-DIO's geometry; K4 and K5 at x16 and on the 60 s glide), in turns.  A variant that removes work computes garbage:
-only its time means anything, and the difference from the full kernel is
-what the removed part costs.  It then times the host's share of one call of
+DIO's geometry; K4 and K5 at x16 and on the 60 s glide; K3 on DIO's
+operands at x16, batch 4 and on the 60 s glide), in turns.  A variant that
+removes work computes garbage: only its time means anything, and the
+difference from the full kernel is what the removed part costs.  It then times the host's share of one call of
 K1's wrapper and of its parts.  It asserts nothing about speed.
 """
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -100,6 +106,25 @@ STEP3_VARIANTS = (
 )
 
 
+# K3 (extension_scan.cu)
+_PREFETCH = ("#pragma unroll\n      for (int k = 0; k < kPrefetch; ++k) cur[k] = next[k];\n"
+             "      r.load(s1 + 1, next);      // the next frame's loads, before this pick")
+_HEADS = "  for (int w = threadIdx.x; w < nw; w += kThreads) {"
+_WALK = "        walk(r, s_bits, s_first, nw, h, allowed);"
+_PASS2 = "  // pass 2: each thread a run of words;"
+K3_VARIANTS = (
+    ("full", "the kernel as built", ()),
+    ("no_prefetch", "a walker loads a frame's candidates at its pick",
+     ((_PREFETCH, "      r.load(s1, cur);"),)),
+    ("one_thread", "one thread a row walks every head's group in turn",
+     ((_HEADS, "  for (int w = threadIdx.x == 0 ? 0 : nw; w < nw; ++w) {"),)),
+    ("no_walks", "the heads found, no group walked: the copy, bitmap and scans",
+     ((_WALK, "        if (h < 0) walk(r, s_bits, s_first, nw, h, allowed);"),)),
+    ("pass1_only", "only the copy of base and the flags' bitmap",
+     ((_PASS2, "  return;\n" + _PASS2),)),
+)
+
+
 def _substitute(src: str, pairs) -> str:
     for old, new in pairs:
         if old not in src:
@@ -109,21 +134,26 @@ def _substitute(src: str, pairs) -> str:
 
 
 GROUPS = {"k2": ("refine_dft", K2_VARIANTS), "k1": ("event_engine", K1_VARIANTS),
-          "step3": ("fix_step3", STEP3_VARIANTS)}
+          "step3": ("fix_step3", STEP3_VARIANTS),
+          "k3": ("extension_scan", K3_VARIANTS)}
 
 
-def build_variants(build_dir: Path, groups=tuple(GROUPS)):
-    """Compile every variant of the groups' sources, all nvcc processes at
-    once; returns {(source, name): library path}."""
+def build_variants(build_dir: Path, groups=tuple(GROUPS), against=None):
+    """Compile every variant of the groups' sources, and ``against`` (a
+    path, or None) as K3's variant "against", all nvcc processes at once;
+    returns {(source, name): library path}."""
     from world_tpu_torch._backend import NVCC_FLAGS, _nvcc
 
     build_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for kernel, variants in (GROUPS[g] for g in groups):
         src = (CSRC / f"{kernel}.cu").read_text()
+        if against is not None and kernel == "extension_scan":
+            variants = variants + (("against", "", ()),)
         for name, _, subs in variants:
             cu = build_dir / f"{kernel}_{name}.cu"
-            cu.write_text(_substitute(src, subs))
+            cu.write_text(against.read_text() if name == "against"
+                          else _substitute(src, subs))
             so = cu.with_suffix(".so")
             jobs[(kernel, name)] = (so, subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so), str(cu)],
@@ -223,6 +253,93 @@ def step3_variants(libs, card):
         print(f"fix_step3 {geo}: the state copy alone {us:.1f} us [{card}]")
 
 
+def k3_variants(libs, card, against=None):
+    """Both scans of every K3_VARIANTS library, and of ``against`` where
+    given, on DIO's float32 operands at x16, batch 4 and on the 60 s glide,
+    beside how the scan splits (the heads, the largest group and the
+    longest chain) and the port's own wrapper (which also pays its checks
+    and allocation).  The kernel as built and ``against`` are first held
+    bitwise against the plain version (run on the CPU) at every geometry
+    of chip_smoke.py's phase 2, float32 and float64."""
+    import torch
+
+    import chip_smoke
+    from world_tpu_torch.ops.extension_scan import (extension_scan_cuda,
+                                                    extension_scan_plain)
+
+    variants = K3_VARIANTS
+    if against is not None:
+        variants = (("against", f"the source at {against}", ()),) + variants
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    fns = {}
+    for name, _, _ in variants:
+        lib = ctypes.CDLL(str(libs[("extension_scan", name)]))
+        for dtype, suffix in ((torch.float32, "f32"), (torch.float64, "f64")):
+            fn = getattr(lib, f"world_extension_scan_{suffix}")
+            fn.argtypes = [P, P, P, P, I, I, I, I, D, P, P]
+            fn.restype = I
+            fns[(name, dtype)] = fn
+
+    def stream():
+        return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+    def caller(name, a):
+        """One launch of a variant on one scan's operands, into an output
+        allocated once."""
+        base, flags, limits, cands, allowed, backward = a
+        out = torch.empty_like(base)
+        fn = fns[(name, base.dtype)]
+        ptrs = (base.data_ptr(), flags.data_ptr(), limits.data_ptr(),
+                cands.data_ptr(), base.shape[0], cands.shape[1], base.shape[1],
+                int(backward), float(allowed), out.data_ptr())
+
+        def run():
+            err = fn(*ptrs, stream())
+            if err:
+                raise RuntimeError(f"K3 variant {name}: cudaError {err}")
+            return out
+        return run
+
+    g = np.load(chip_smoke.GOLDEN)
+    x16, fs = np.asarray(g["x16"]), int(g["fs"])
+    x60 = chip_smoke.glide_signal(chip_smoke.GLIDE_FS, chip_smoke.GLIDE_SECONDS)
+    timed, checks = {}, 0
+    for dtype in (torch.float32, torch.float64):
+        geos = {"x16": chip_smoke.k3_operands(x16, fs, dtype),
+                "batch4": chip_smoke.k3_operands(x16, fs, dtype, 4),
+                "60s": chip_smoke.k3_operands(x60, chip_smoke.GLIDE_FS, dtype),
+                "short_sections": chip_smoke.k3_short_section_operands(dtype)}
+        geos.update(chip_smoke.k3_adversarial_operands(dtype))
+        for geo, ops in geos.items():
+            for a in ops:
+                host = [t.cpu() if isinstance(t, torch.Tensor) else t for t in a]
+                want = extension_scan_plain(*host)
+                for name in ("full", "against")[:1 + (against is not None)]:
+                    if not torch.equal(caller(name, a)().cpu(), want):
+                        raise AssertionError(f"K3 {name} at {geo} ({dtype}, "
+                                             f"backward {a[5]}): not bitwise "
+                                             f"its plain version")
+                    checks += 1
+                if dtype == torch.float32 and geo in ("x16", "batch4", "60s"):
+                    scan = f"{geo} {'backward' if a[5] else 'forward'}"
+                    timed[scan] = a
+                    print(f"extension_scan {scan} {tuple(a[0].shape)}: "
+                          f"{chip_smoke.k3_groups(a, want)}")
+    print(f"kernel_variants [{card}]: K3, {checks} checks bitwise against the "
+          f"plain version; float32, DIO's operands; mean of 50 launches, CUDA "
+          f"events, two rounds in turns (the second in reverse order)")
+    def us(fn):
+        return f"{chip_smoke.cuda_ms(fn, iters=50) * 1e3:.2f} us"
+
+    for rnd, order in enumerate((variants, variants[::-1])):
+        for name, what, _ in order:
+            line = [f"{scan} {us(caller(name, a))}" for scan, a in timed.items()]
+            print(f"variant extension_scan {name} round {rnd}: " + "; ".join(line)
+                  + f" ({what})")
+    line = [f"{scan} {us(lambda: extension_scan_cuda(*a))}" for scan, a in timed.items()]
+    print("extension_scan_cuda, the wrapper: " + "; ".join(line) + f" [{card}]")
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -233,19 +350,29 @@ def main(argv=None) -> int:
     from world_tpu_torch._backend import BUILD_DIR
     from world_tpu_torch.ops import edge_interp as E
 
-    groups = tuple(sys.argv[1:] if argv is None else argv) or tuple(GROUPS)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("groups", nargs="*")
+    ap.add_argument("--against", type=Path, default=None)
+    args = ap.parse_args(argv)
+    if set(args.groups) - set(GROUPS):
+        ap.error(f"groups are {', '.join(GROUPS)}")
+    groups = tuple(args.groups) or tuple(GROUPS)
+    if args.against is not None and "k3" not in groups:
+        ap.error("--against is another source of K3: name the k3 group")
     if {"k1", "k2"} & set(groups):     # timed together below
         groups = tuple(dict.fromkeys(groups + ("k1", "k2")))
     card = chip_smoke.card_line()
-    libs = build_variants(BUILD_DIR / "variants", groups)
+    libs = build_variants(BUILD_DIR / "variants", groups, args.against)
     if "step3" in groups:
         step3_variants(libs, card)
+    if "k3" in groups:
+        k3_variants(libs, card, args.against)
     if "k1" not in groups and "k2" not in groups:
         return 0
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     fns = {}
     for (kernel, name), so in libs.items():
-        if kernel == "fix_step3":
+        if kernel not in ("refine_dft", "event_engine"):
             continue
         lib = ctypes.CDLL(str(so))
         fn = getattr(lib, f"world_{kernel}_f32")

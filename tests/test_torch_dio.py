@@ -21,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from smoke_loader import chip_smoke as _chip_smoke
 
 GOLDEN = Path(__file__).parent / "golden"
 FS_SMALL = 16000
@@ -227,3 +228,97 @@ def test_stonemask_refuses_f0_below_its_floor(x_small):
     f0 = torch.full((201,), 60.0, dtype=torch.float64)
     with pytest.raises(ValueError, match="f0_floor"):
         stonemask(torch.tensor(x_small), FS_SMALL, tp, f0, f0_floor=71.0)
+
+
+# ---------------------------------------------------------------------------
+# K3's decomposition: heads, and each group walked on its own
+# ---------------------------------------------------------------------------
+
+def _grouped_scan(base, flags, limits, cands, allowed_range, backward):
+    """extension_scan_plain's function as csrc/extension_scan.cu computes
+    it: in scan order, the heads (a flag with no flag before it, or whose
+    previous flag f' has f' < f - 1 and reach(f') < f - 1), each head's
+    group walked on its own from the carry (base[f], base[f - 1] or 0,
+    active, reach(f)), the frames between flags jumped over where the carry
+    is inactive, every other frame base.  It models the kernel's walk, not
+    the kernel: change it whenever the walk in extension_scan.cu changes.
+    The kernel itself is held on the same layouts by
+    test_torch_kernels.py::test_k3_cuda_matches_plain (gpu) and by
+    chip_smoke.py's phase 2."""
+    from world_tpu_torch.ops.extension_scan import select_best_f0
+
+    B, n = base.shape
+    out = base.clone()
+    for b in range(B):
+        frame = (lambda s: n - 1 - s) if backward else (lambda s: s)
+        lim = limits[b].tolist()
+        reach = [(n - lim[frame(s)]) if backward else lim[frame(s)]
+                 for s in range(n)]
+        fl = [s for s in range(n) if bool(flags[b, frame(s)])]
+        heads = [f for i, f in enumerate(fl)
+                 if i == 0 or (fl[i - 1] < f - 1 and reach[fl[i - 1]] < f - 1)]
+        is_flag = set(fl)
+        for h in heads:
+            prev1 = base[b, frame(h)]
+            prev2 = base[b, frame(h - 1)] if h > 0 else torch.zeros_like(prev1)
+            last, active, s = h, True, h
+            while s + 1 < n:
+                s1 = s + 1
+                if active and s1 <= reach[last]:
+                    v = select_best_f0(prev1[None], prev2[None],
+                                       cands[b, :, frame(s1)][None],
+                                       allowed_range)[0]
+                    out[b, frame(s1)] = v
+                    active = bool(v != 0)
+                    if s1 in is_flag:
+                        last, active = s1, True
+                    prev2, prev1, s = prev1, v, s1
+                    continue
+                g_ = next((f for f in fl if f >= s1), n)
+                if g_ >= n or (g_ - last > 1 and g_ - 1 > reach[last]):
+                    break
+                prev2 = prev1 if g_ - 1 == s else base[b, frame(g_ - 1)]
+                prev1 = base[b, frame(g_)]
+                last, active, s = g_, True, g_
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_decomposition_matches_the_scan_on_adversarial_layouts(dtype):
+    """The head rule and each group walked on its own reproduce the serial
+    scan bitwise, both directions, on chip_smoke.k3_adversarial_operands
+    (adjacent flags, flags at frames 0 and n - 1, every frame flagged,
+    limits before their flag and past n, one group spanning every flag,
+    C = 1 and 12, rows with no flag, rows of 1 and 33 frames)."""
+    from world_tpu_torch.ops.extension_scan import extension_scan_plain
+
+    cs = _chip_smoke()
+    layouts = cs.k3_adversarial_operands(dtype, device="cpu", long_row=False)
+    for name, scans in layouts.items():
+        for args in scans:
+            want = extension_scan_plain(*args)
+            got = _grouped_scan(*args)
+            assert torch.equal(got, want), (name, args[5])
+    # the layouts reach what they name
+    st = cs.k3_groups(layouts["one_group"][0], extension_scan_plain(
+        *layouts["one_group"][0]))
+    assert st["heads"] == 2 and st["largest_group"] > 50
+    st = cs.k3_groups(layouts["every_frame"][1], extension_scan_plain(
+        *layouts["every_frame"][1]))
+    assert st["flags"] == 2 * cs.K3_ADV_N and st["heads"] == 2
+
+
+def test_k3_decomposition_matches_the_scan_on_dio(x_small):
+    """The same on DIO's own operands of harvest_small (both scans of one
+    dio_core call, captured where DIO calls K3), in float32 and float64."""
+    from world_tpu_torch.ops.extension_scan import extension_scan_plain
+
+    cs = _chip_smoke()
+    for dtype in (torch.float32, torch.float64):
+        scans = cs.k3_operands(x_small, FS_SMALL, dtype, device="cpu")
+        assert len(scans) == 2 and [a[5] for a in scans] == [False, True]
+        for args in scans:
+            want = extension_scan_plain(*args)
+            assert torch.equal(_grouped_scan(*args), want)
+            st = cs.k3_groups(args, want)
+            assert st["heads"] >= 1 and st["extended"] > 0

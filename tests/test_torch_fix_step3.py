@@ -24,23 +24,15 @@
 The kernels themselves are held to these plain versions on the card
 (tests/test_torch_kernels.py, ``gpu``; chip_smoke.py phase 20).
 """
-import importlib.util
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from smoke_loader import chip_smoke as _chip_smoke
 
 ROOT = Path(__file__).resolve().parent.parent
 TYPES = [torch.float64, torch.float32]
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 CS = _chip_smoke()

@@ -14,6 +14,7 @@ from fractions import Fraction
 import numpy as np
 import pytest
 import torch
+from smoke_loader import chip_smoke as _chip_smoke
 
 # K1 geometries as (actual_fs, stride in samples per frame): Harvest's 8 kHz
 # analysis at 1 ms frames (stride 8/1), the 22.05 kHz input's 7350 Hz
@@ -595,7 +596,12 @@ def test_kernels_cuda_on_22khz_speech(cuda, dtype):
 def test_k3_cuda_matches_plain(cuda, dtype):
     """DIO's two scans on dio.npz's step-2 contour and mutated candidates,
     three rows (the contour, none voiced, sections of 1-3 frames): the
-    kernel is bitwise its plain version, one launch a scan."""
+    kernel is bitwise its plain version, one launch a scan.  Then every
+    layout of chip_smoke.k3_adversarial_operands, both scans (adjacent
+    flags, flags at frames 0 and n - 1, every frame flagged, limits before
+    their flag and past n, one group spanning every flag, C = 1 and 12,
+    rows with no flag, rows of 1, 33 and 16,500 frames), against the plain
+    version run on the CPU."""
     from pathlib import Path
 
     from world_tpu_torch.f0.dio import fix_step3, fix_step4
@@ -619,17 +625,14 @@ def test_k3_cuda_matches_plain(cuda, dtype):
     assert torch.equal(step4.cpu(), fix_step4(plain3, f0.cpu(), cands.cpu(), 0.1))
     if dtype == torch.float64:
         np.testing.assert_array_equal(step4[0].cpu().numpy(), g["f0_step4"])
-
-
-def _chip_smoke():
-    import importlib.util
-    from pathlib import Path
-
-    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    for name, scans in _chip_smoke().k3_adversarial_operands(dtype, cuda).items():
+        for args in scans:
+            before = K3.counter.launches
+            got = K3.extension_scan_cuda(*args)
+            assert K3.counter.launches == before + 1
+            host = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+            assert torch.equal(got.cpu(), K3.extension_scan_plain(*host)), \
+                (name, args[5])
 
 
 @pytest.mark.gpu

@@ -402,3 +402,26 @@ def test_graph_rows_are_powers_of_two():
 
     assert [graph_rows(n) for n in (1, 2, 3, 4, 5, 8, 9, 110)] == [
         1, 2, 4, 4, 8, 8, 16, 128]
+
+
+def test_float32_round_trip_repeats_with_four_threads():
+    """The float32 Harvest round trip on the CPU with 4 threads, twice in
+    one process: every output bitwise equal (the thread count changes the
+    float32 digits, a fixed count repeats them; ROADMAP, "Fixed, or kept on
+    purpose")."""
+    from world_tpu_torch import HarvestRequiem
+
+    x = np.asarray(np.load(GOLDEN / "harvest_small.npz")["x"])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        module = HarvestRequiem(16000, x.shape[0], dtype=torch.float32,
+                                device="cpu")
+        xt = torch.tensor(x, dtype=torch.float32)
+        first, second = module(xt), module(xt)
+    finally:
+        torch.set_num_threads(threads)
+    assert set(first) == set(second) and len(first) > 3
+    for key, value in first.items():
+        if isinstance(value, torch.Tensor):
+            assert torch.equal(value, second[key]), key

@@ -1,7 +1,8 @@
 """The programs around world_tpu_torch on the CPU, on a 0.5 s cut of x16:
 bench_torch.py, tools/bench_paths_torch.py, tools/profile_stages_torch.py,
-tools/bench_stream_torch.py and the two examples run and print what they
-promise; and no file of the port imports JAX or the JAX package."""
+tools/profile_d4c_ct_torch.py (a 1 s cut), tools/bench_stream_torch.py and
+the two examples run and print what they promise; and no file of the port
+imports JAX or the JAX package."""
 import ast
 import importlib.util
 import json
@@ -113,6 +114,24 @@ def test_profile_stages_torch_on_cpu(on_path, capsys):
     assert all(r["host_syncs"] is None and r["device_events"] is None
                for r in stages.values())
     assert stages["K2"]["ms"] <= stages["refine_candidates"]["ms"] <= stages["Harvest"]["ms"]
+
+
+def test_profile_d4c_ct_torch_on_cpu(on_path, capsys):
+    """The D4C-Requiem and CheapTrick sub-stage profile on harvest_small's
+    length (a 1 s cut of x16): every sub-stage called and timed, each
+    inside its stage."""
+    tool = _load("tools/profile_d4c_ct_torch.py")
+    doc = tool.main(["--device", "cpu", "--seconds", "1.0", "--signal", "x16"])
+    assert _last_json(capsys) == json.loads(json.dumps(doc))
+    (sig,) = doc["signals"]
+    stages = sig["stages"]
+    assert set(stages) == {label.strip() for label, _, _ in tool.STAGES}
+    assert all(r["calls"] >= 1 and r["ms"] > 0 for r in stages.values())
+    assert all(r["device_events"] is None for r in stages.values())
+    assert stages["coarse_aperiodicity"]["ms"] <= stages["coarse_ap_frames"]["ms"]
+    assert stages["largest_bins (torch.topk)"]["calls"] == 1
+    assert stages["coarse_ap_frames"]["ms"] <= stages["D4C-Requiem"]["ms"]
+    assert stages["_linear_smoothing"]["ms"] <= stages["CheapTrick"]["ms"]
 
 
 def test_bench_stream_torch_on_cpu(on_path, capsys, tmp_path):

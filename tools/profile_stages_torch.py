@@ -108,15 +108,16 @@ class Probe:
     on the CPU), the count of sync warnings, kernel launches, and a
     profiler range."""
 
-    def __init__(self, device):
+    def __init__(self, device, stages=STAGES):
         self.device = device
+        self.stages = stages
         self.mode = "time"
         self.records = {}
         self.sync_log = []
 
     def reset(self, mode: str):
         self.mode = mode
-        self.records = {label: [] for label, _, _ in STAGES}
+        self.records = {label: [] for label, _, _ in self.stages}
         self.sync_log = []
 
     def _stamp(self):
@@ -152,8 +153,9 @@ class Probe:
 
     @contextlib.contextmanager
     def installed(self):
+        """The stages wrapped in their callers' modules."""
         saved = []
-        for label, mod_name, fn_name in STAGES:
+        for label, mod_name, fn_name in self.stages:
             if mod_name is None:
                 continue
             mod = importlib.import_module(mod_name)
@@ -218,7 +220,7 @@ def device_by_range(prof, labels) -> dict:
     return out
 
 
-def profile_signal(name: str, seconds, device) -> dict:
+def profile_signal(name: str, seconds, device, stages=STAGES) -> dict:
     import torch
 
     from world_tpu_torch import HarvestRequiem
@@ -228,8 +230,8 @@ def profile_signal(name: str, seconds, device) -> dict:
     model = HarvestRequiem(fs, x.shape[0], BT.FRAME_PERIOD, dtype=torch.float32,
                            device=device)
     xt = torch.tensor(x, device=device)[None]
-    probe = Probe(device)
-    labels = [label for label, _, _ in STAGES]
+    probe = Probe(device, stages)
+    labels = [label for label, _, _ in stages]
     with probe.installed():
         def call():
             with probe.stage("round trip"):
@@ -278,13 +280,14 @@ def profile_signal(name: str, seconds, device) -> dict:
     total = table["round trip"]["ms"]
     print(f"\n{name}: {audio_s:.3f} s at {fs} Hz, float32, round trip "
           f"{total:.2f} ms = {audio_s / (total / 1e3):.2f} xRT")
-    print(f"{'stage':24s} {'calls':>5s} {'ms':>9s} {'share':>6s} {'syncs':>6s} "
+    width = max(24, max(map(len, labels)))
+    print(f"{'stage':{width}s} {'calls':>5s} {'ms':>9s} {'share':>6s} {'syncs':>6s} "
           f"{'dev ev':>7s} {'dev ms':>8s} {'idle':>6s} "
           + " ".join(f"{k:>3s}" for k in KERNELS.values()))
     fmt = lambda v, f: "-" if v is None else format(v, f)     # noqa: E731
     for label in labels:
         r = rows[label.strip()]
-        print(f"{label:24s} {r['calls']:5d} {r['ms']:9.2f} "
+        print(f"{label:{width}s} {r['calls']:5d} {r['ms']:9.2f} "
               f"{r['ms'] / total:6.3f} {fmt(r['host_syncs'], 'd'):>6s} "
               f"{fmt(r['device_events'], 'd'):>7s} {fmt(r['device_ms'], '.3f'):>8s} "
               f"{fmt(r['idle_share'], '.3f'):>6s} "

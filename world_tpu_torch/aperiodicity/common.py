@@ -195,10 +195,15 @@ def coarse_aperiodicity(group_delay_half, fs: float, fft_size: int,
     seg = torch.stack(segs, dim=-2) * window
     power = torch.abs(torch.fft.rfft(seg, fft_size)) ** 2
     den = power.sum(dim=-1)
-    largest = torch.topk(power, boundary + 1, dim=-1, sorted=True).values
-    num = den - largest.sum(dim=-1)
+    num = den - largest_bins(power, boundary + 1).sum(dim=-1)
     tiny = torch.finfo(dtype).tiny
     return -10.0 * torch.log10((num + tiny) / (den + tiny))
+
+
+def largest_bins(power: torch.Tensor, k: int) -> torch.Tensor:
+    """The k largest values of each row of ``power``, largest first (a
+    function of its own so that tools/profile_d4c_ct_torch.py times it)."""
+    return torch.topk(power, k, dim=-1, sorted=True).values
 
 
 def band_window(fs: int, fft_size: int, frequency_interval: float) -> np.ndarray:

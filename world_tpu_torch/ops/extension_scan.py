@@ -4,10 +4,13 @@ The JAX package runs FixStep3 and FixStep4 as two ``jax.lax.scan``s over
 the frames (world_tpu/f0/dio.py::_fix_step3 :153-180, ::_fix_step4
 :183-207); it has no Pallas kernel for them.  In PyTorch a scan is a Python
 loop of about twenty launches a frame, so on the card it is this kernel: one
-launch a scan, whatever the number of frames and sections.  A CUDA tensor
-goes to the hand-written kernel; a CPU tensor to the plain PyTorch version,
-:func:`extension_scan_plain`, the scan's body one frame a step, vectorised
-over rows.  There is no fallback from the kernel to the plain version.
+launch a scan, whatever the number of frames and sections.  The kernel walks
+only the extension chains, each group of dependent flags on a thread of its
+own (the decomposition is in the source's header); every other frame is a
+copy of ``base``.  A CUDA tensor goes to the hand-written kernel; a CPU
+tensor to the plain PyTorch version, :func:`extension_scan_plain`, the
+scan's body one frame a step, vectorised over rows.  There is no fallback
+from the kernel to the plain version.
 """
 import torch
 
@@ -86,8 +89,9 @@ def extension_scan_cuda(base: torch.Tensor, flags: torch.Tensor,
                limits.data_ptr(), cands.data_ptr(), B, C, n, int(backward),
                float(allowed_range), out.data_ptr())
     except KernelGeometryError as e:
-        raise ValueError(f"extension scan: {C} candidates a frame do not fit "
-                         f"a tile of 32 frames in shared memory ({e})") from e
+        raise ValueError(f"extension scan: a row of {n} frames does not fit "
+                         f"its flags' bitmap and their scans (12 bytes each "
+                         f"32 frames) in a block's shared memory ({e})") from e
     counter.add()
     return out
 
