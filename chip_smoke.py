@@ -95,6 +95,14 @@ Phases (each raises on failure; any failure exits non-zero):
      eagerly, the second captures each bucket's graph, and the next replays
      them, launching both kernels once per bucket; both are held against
      their plain versions at every bucket's geometry;
+ 21. a server's hot set: seven signatures of ragged buckets through
+     batch_encode_decode's graph cache, each called eagerly (its peak
+     memory taken), then captured, then replayed in reverse and interleaved
+     order and, two signatures at once, from two threads (one on a stream
+     of its own): every replay bitwise its eager call, K1, K2, K4 and K5
+     once a replay, nothing dropped or captured again, one shared pool
+     within 2 x the largest eager peak plus the outputs; each capture
+     call's seconds beside its eager call's;
  14. long audio: check_long_audio.py's 60 s glide at 22.05 kHz in float32
      through World.encode(harvest, requiem) -> decode with that script's
      asserts, against the float64 analysis on the card, and blocked against
@@ -104,7 +112,9 @@ Phases (each raises on failure; any failure exits non-zero):
      through DIO and classic synthesis; LONG_SECONDS of the glide at 16 kHz
      through Harvest alone, blocked, and unblocked where it fits;
  15. rows and devices: 110 utterances of 0.5 s through batch_encode_decode
-     (more rows than one K1 launch takes); phase 5's batch over
+     (more rows than one K1 launch takes; the graph cache cleared first, its
+     pool then within 2 x the eager call's peak plus the graph's outputs and
+     given back by clear()); phase 5's batch over
      two devices (cuda:0 and cuda:1 where the machine has two cards, else
      ["cuda:0", "cuda:0"]; phase 6's two-thread call too), each shard
      bitwise its one-device call,
@@ -132,8 +142,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 GOLDEN_DIR = ROOT / "tests" / "golden"
 GOLDEN = GOLDEN_DIR / "harvest_16k.npz"
-ALL_PHASES = (1, 2, 3, 20, 4, 5, 18, 19, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16,
-              17)
+ALL_PHASES = (1, 2, 3, 20, 4, 5, 18, 19, 6, 7, 8, 9, 10, 11, 12, 13, 21, 14, 15,
+              16, 17)
 
 # K1: kernel and plain version evaluate the same IEEE operations in the same
 # order, so the interpolated f0 may differ only by rounding of equal
@@ -200,6 +210,9 @@ FFT_SIZE_B = 2048
 # path C's utterances (seconds, cut from the golden utterance) and bucket
 RAGGED_SECONDS = (0.9, 1.7, 2.4, 2.6, 3.5, 4.644)
 RAGGED_QUANTUM_S = 1.0
+# phase 21, a server's hot set: ragged buckets as (rows on the card, bucket
+# seconds), seven signatures of batch_encode_decode at 16 kHz
+HOT_SET = ((1, 1), (2, 1), (1, 2), (4, 2), (2, 3), (1, 4), (4, 5))
 # the VAE MLP pair of the reference's voice conversion: 39-256-256-256-12
 VAE_SIZES = (39, 256, 256, 256, 12)
 VAE_ACTS = ("relu", "relu", "relu", "linear")
@@ -1586,9 +1599,10 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
         print(f"phase 18 static round trip float32 {label} ({n_rows} x "
               f"{duration:.3f} s) [{card}]: eager static call from the upload to "
               f"the output: 0 host syncs (set_sync_debug_mode error); the "
-              f"module's first call (eager) {first_s:.3f} s, second (warm-up, "
-              f"capture, replay) {capture_call_s:.3f} s, capture "
-              f"{graph.capture_s:.3f} s, pool {graph.pool_bytes / 2**20:.1f} MiB; "
+              f"module's first call (eager) {first_s:.3f} s, second (capture, "
+              f"replay) {capture_call_s:.3f} s, capture {graph.capture_s:.3f} s, "
+              f"the pool grew {graph.pool_growth / 2**20:.1f} MiB to "
+              f"{model.graphs.pool_bytes() / 2**20:.1f} MiB; "
               f"replay bitwise the eager call for {len(keys) - len(same_eager)} "
               f"of {len(keys)} outputs {same_eager or ''}, two replays bitwise "
               f"{same_twice}; launches per replay K1 {counts['event_engine'] / 2:g}"
@@ -1607,7 +1621,8 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
             single_y = r1["y"]
         found[label] = {"capture_s": graph.capture_s, "first_call_s": first_s,
                         "capture_call_s": capture_call_s,
-                        "pool_bytes": graph.pool_bytes, "replay_ms": [g1, g2],
+                        "pool_growth": graph.pool_growth,
+                        "pool_bytes": model.graphs.pool_bytes(), "replay_ms": [g1, g2],
                         "eager_ms": [e1, e2], "device_events": n_events,
                         "device_ms": dev_us / 1e3, "fix_step3": step3}
         if same_eager or not same_twice:
@@ -1640,7 +1655,7 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
     step3_60 = fix_step3_launches(capture_fix_step3_inputs(
         lambda: eager_round_trip(m60, x60c))[0], "60s", card)
     m60(x60c)                        # eager
-    m60(x60c)                        # warm-up, capture, replay
+    m60(x60c)                        # capture, replay
     reset_counts()
     r1 = m60(x60c)
     r2 = m60(x60c)
@@ -1754,9 +1769,10 @@ def classic_graph_run(model, x, noise, label, card, reset_counts, path_launches,
     print(f"phase 19 classic round trip float32 {label} ({x.shape[0]} x "
           f"{x.shape[1]} samples) [{card}]: eager static call from the upload to "
           f"the output: 0 host syncs (set_sync_debug_mode error); the module's "
-          f"first call (eager) {took[0]:.3f} s, second (warm-up, capture, replay) "
-          f"{took[1]:.3f} s, capture {graph.capture_s:.3f} s, pool "
-          f"{graph.pool_bytes / 2**20:.1f} MiB; replay bitwise the eager call for "
+          f"first call (eager) {took[0]:.3f} s, second (capture, replay) "
+          f"{took[1]:.3f} s, capture {graph.capture_s:.3f} s, the pool grew "
+          f"{graph.pool_growth / 2**20:.1f} MiB to "
+          f"{model.graphs.pool_bytes() / 2**20:.1f} MiB; replay bitwise the eager call for "
           f"{len(CLASSIC_KEYS) - len(differ)} of {len(CLASSIC_KEYS)} outputs "
           f"{differ or ''}, two replays bitwise {twice}; launches per replay K1 "
           f"{counts['event_engine'] / 2:g}, K2 {counts['refine_dft'] / 2:g}, K3 "
@@ -1778,7 +1794,8 @@ def classic_graph_run(model, x, noise, label, card, reset_counts, path_launches,
         raise AssertionError(f"phase 19 {label}: non-finite, silent or "
                              f"overflowing output")
     return r1, eager, {"first_call_s": took[0], "capture_call_s": took[1],
-                       "capture_s": graph.capture_s, "pool_bytes": graph.pool_bytes,
+                       "capture_s": graph.capture_s, "pool_growth": graph.pool_growth,
+                       "pool_bytes": model.graphs.pool_bytes(),
                        "replay_ms": [g1, g2], "eager_ms": [e1, e2],
                        "device_events": n_events, "device_ms": dev_us / 1e3}
 
@@ -1882,10 +1899,16 @@ def static_classic_and_graph(xs, fs, card, reset_counts, path_launches) -> dict:
     return found
 
 
+def output_bytes(graph) -> int:
+    """The bytes of a graph's static outputs (they stay in its pool)."""
+    return sum(t.numel() * t.element_size() for t in graph.outputs.values())
+
+
 def graph_memory(xm_t, fs, card):
-    """Phase 15's memory: what batch_encode_decode's graphs still hold after
-    the call of many rows, beside the eager call's peak on the same rows,
-    then the pools freed by ``BATCH_GRAPHS.clear()``."""
+    """Phase 15's memory: the pool batch_encode_decode's graphs hold after
+    the call of many rows (the phase's one signature: it cleared the cache
+    first), beside the eager call's peak on the same rows and the graph's
+    static outputs, then the pool freed by ``BATCH_GRAPHS.clear()``."""
     import gc
 
     import torch
@@ -1900,7 +1923,7 @@ def graph_memory(xm_t, fs, card):
     torch.cuda.synchronize()
     held = BATCH_GRAPHS.pool_bytes()
     n_graphs = len(BATCH_GRAPHS.graphs())
-    pool = BATCH_GRAPHS.graphs()[-1].pool_bytes
+    outputs = sum(output_bytes(g) for g in BATCH_GRAPHS.graphs())
     t = harvest_requiem_tables(fs, 0, torch.float32, "cuda")
     n = xm_t.shape[1]
     gc.collect()
@@ -1923,16 +1946,176 @@ def graph_memory(xm_t, fs, card):
     freed = reserved - torch.cuda.memory_reserved()
     mib = lambda b: f"{b / 2**20:,.1f} MiB"      # noqa: E731
     print(f"phase 15 memory [{card}]: after the call of {xm_t.shape[0]} rows "
-          f"batch_encode_decode's {n_graphs} graphs hold {mib(held)} (budget "
-          f"{mib(GRAPH_POOL_BUDGET)}; this call's graph {mib(pool)}); the eager "
-          f"call's peak on the same rows {mib(eager_peak)} (pool / peak "
-          f"{pool / eager_peak:.3f}, < 2); BATCH_GRAPHS.clear() and "
+          f"batch_encode_decode's pool holds {mib(held)} for {n_graphs} graph "
+          f"(budget {mib(GRAPH_POOL_BUDGET)}); the eager call's peak on the same "
+          f"rows {mib(eager_peak)}, the graph's static outputs {mib(outputs)} "
+          f"(pool / (peak + outputs) {held / (eager_peak + outputs):.3f}; the "
+          f"pool must stay within 2 x peak + outputs); BATCH_GRAPHS.clear() and "
           f"torch.cuda.empty_cache() gave back {mib(freed)} to the card")
-    # a graph's pool holds its call's peak in whole allocator segments
-    if not (held <= max(GRAPH_POOL_BUDGET, pool) and pool <= 2 * eager_peak
+    # a pool holds its graphs' peak in whole allocator segments
+    if not (n_graphs == 1 and held <= GRAPH_POOL_BUDGET
+            and held <= 2 * eager_peak + outputs
             and freed >= 0.9 * held and not BATCH_GRAPHS.graphs()):
         raise AssertionError("phase 15: the graphs' memory is not bounded or "
                              "not given back")
+
+
+def hot_set(x16, fs, card, reset_counts, path_launches) -> dict:
+    """Phase 21, a server's hot set: HOT_SET's seven signatures of ragged
+    buckets through batch_encode_decode (BATCH_GRAPHS, cleared first): each
+    signature's first call (eager, its peak memory taken) and second
+    (capture, replay), then the replays in reverse and interleaved order,
+    counted, and two signatures replayed from two threads at once (one on
+    the default stream, one on a stream of its own).  Every replay must be
+    bitwise its signature's eager call; nothing dropped or captured again;
+    one pool for all, within 2 x the largest eager peak + the outputs, and
+    as the allocator's own snapshot counts it."""
+    import contextlib
+    import gc
+    import threading
+
+    import torch
+
+    from world_tpu_torch import batch_encode_decode
+    from world_tpu_torch.parallel.batch import BATCH_GRAPHS
+
+    keys = ("f0", "vuv", "spectrogram", "band_aperiodicity", "y", "_overflow",
+            "_refine_overflow", "_section_overflow", "_pulse_overflow")
+    rng = np.random.RandomState(21)
+    xbs = []
+    for rows, sec in HOT_SET:
+        L = int(sec * fs)
+        xb = np.zeros((rows, L), np.float32)
+        for r in range(rows):
+            n = min(int(rng.uniform(L - 0.9 * fs, L)), x16.shape[0])
+            at = rng.randint(0, x16.shape[0] - n + 1)
+            xb[r, :n] = x16[at:at + n] + 1e-3 * rng.randn(n)
+        xbs.append(xb)
+
+    def call(i):
+        return batch_encode_decode(xbs[i], fs, check_capacity=False)
+
+    def differs(out, i):
+        return [k for k in keys if not torch.equal(out[k], eager[i][k])]
+
+    BATCH_GRAPHS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls0 = dict(BATCH_GRAPHS.calls)
+    eager, peaks, eager_s, capture_call_s, capture_s, growth = [], [], [], [], [], []
+    for i in range(len(xbs)):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eager.append(call(i))
+        torch.cuda.synchronize()
+        eager_s.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+    faults = []
+    for i in range(len(xbs)):
+        t0 = time.perf_counter()
+        out = call(i)
+        torch.cuda.synchronize()
+        capture_call_s.append(time.perf_counter() - t0)
+        capture_s.append(BATCH_GRAPHS.graphs()[-1].capture_s)
+        growth.append(BATCH_GRAPHS.graphs()[-1].pool_growth)
+        faults += [f"capture call {i}: {d}" for d in [differs(out, i)] if d]
+    # the replays in reverse, then interleaved, order: counted
+    order = list(range(len(xbs)))[::-1]
+    order += [j for pair in zip(range(len(xbs)), range(len(xbs))[::-1])
+              for j in pair][:len(xbs)]
+    reset_counts()
+    for i in order:
+        faults += [f"replay {i}: {d}" for d in [differs(call(i), i)] if d]
+    torch.cuda.synchronize()
+    counts = path_launches("hot_set")
+    blks = [harvest_blocking(xb.shape[1], fs, torch.float32, xb.shape[0])
+            for xb in xbs]
+    want = {"event_engine": sum(blks[i]["k1_launches"] for i in order),
+            "refine_dft": sum(blks[i]["k2_launches"] for i in order),
+            "extension_scan": 0, "extend_chains": len(order),
+            "merge_sections": len(order)}
+    # two signatures from two threads at once
+    pair = (1, 4)
+    barrier = threading.Barrier(2)
+    threads_out = {}
+
+    def worker(i, own_stream):
+        try:
+            with torch.cuda.device(0):
+                ctx = (torch.cuda.stream(torch.cuda.Stream()) if own_stream
+                       else contextlib.nullcontext())
+                with ctx:
+                    barrier.wait()
+                    outs = [call(i) for _ in range(6)]
+                    torch.cuda.current_stream().synchronize()
+            threads_out[i] = outs
+        except BaseException as e:         # noqa: BLE001 (raised below)
+            threads_out[i] = e
+
+    workers = [threading.Thread(target=worker, args=(i, k == 1))
+               for k, i in enumerate(pair)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    for i in pair:
+        if isinstance(threads_out[i], BaseException):
+            raise threads_out[i]
+        faults += [f"thread replay {i}.{c}: {d}"
+                   for c, out in enumerate(threads_out[i]) for d in [differs(out, i)]
+                   if d]
+    torch.cuda.synchronize()
+    ran = {k: n - calls0[k] for k, n in BATCH_GRAPHS.calls.items()}
+    graphs = BATCH_GRAPHS.graphs()
+    pools = {id(g.pool): g.pool for g in graphs}
+    held = BATCH_GRAPHS.pool_bytes()
+    outputs = sum(output_bytes(g) for g in graphs)
+    handle = tuple(next(iter(pools.values())).handle)
+    seg_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                    if tuple(seg.get("segment_pool_id", ())) == handle)
+    mib = lambda b: f"{b / 2**20:,.1f} MiB"      # noqa: E731
+    n = len(xbs)
+    print(f"phase 21 a server's hot set [{card}]: {n} signatures (rows, bucket s) "
+          f"{list(HOT_SET)}; the graph cache ran {ran}, dropped "
+          f"{BATCH_GRAPHS.dropped}, captured again {BATCH_GRAPHS.recaptured}; "
+          f"{len(graphs)} graphs in {len(pools)} pool of {mib(held)} (the "
+          f"allocator's snapshot: {mib(seg_bytes)} in the pool's segments) "
+          f"against the eager peaks' sum {mib(sum(peaks))} and largest "
+          f"{mib(max(peaks))}, the static outputs {mib(outputs)}; pool / "
+          f"(largest peak + outputs) {held / (max(peaks) + outputs):.3f}")
+    for i, (rows, sec) in enumerate(HOT_SET):
+        print(f"phase 21 signature {rows} x {sec} s: eager call "
+              f"{eager_s[i]:.3f} s (peak {mib(peaks[i])}), capture call "
+              f"{capture_call_s[i]:.3f} s (capture {capture_s[i]:.3f} s, the "
+              f"pool grew {mib(growth[i])})")
+    print(f"phase 21 replays in the order {order} and 2 x 6 from two threads "
+          f"(signatures {pair}): bitwise their eager calls "
+          f"{not faults} {faults[:6] or ''}; launches of the ordered replays "
+          f"{counts} (expected {want})")
+    if (faults or counts != want or BATCH_GRAPHS.dropped
+            or BATCH_GRAPHS.recaptured or len(graphs) != n or len(pools) != 1
+            or ran != {"eager": n, "captured": n,
+                       "replayed": n + len(order) + 12}):
+        raise AssertionError(f"phase 21: the hot set's replays, launches or "
+                             f"graph policy: {faults[:6]}, {counts}, {ran}")
+    if not (held <= 2 * max(peaks) + outputs and seg_bytes <= held):
+        raise AssertionError("phase 21: the shared pool is larger than 2 x the "
+                             "largest eager peak + the outputs, or than the "
+                             "allocator counts")
+    found = {"eager_s": eager_s, "capture_call_s": capture_call_s,
+             "capture_s": capture_s, "pool_growth": growth,
+             "eager_peak_bytes": peaks,
+             "pool_bytes": held, "pool_segment_bytes": seg_bytes,
+             "output_bytes": outputs, "calls": ran}
+    del graphs, pools, eager, threads_out
+    BATCH_GRAPHS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 21 a server's hot set: ok")
+    return found
 
 
 def main(phases=ALL_PHASES) -> int:
@@ -2594,6 +2777,9 @@ def main(phases=ALL_PHASES) -> int:
                                          f"voiced")
         print("phase 13 path C: ok (zero tails unvoiced in every bucket)")
 
+    if 21 in phases:
+        hot_set(x16, fs, card, reset_counts, path_launches)
+
     opsL32 = blkL32 = x60 = dioL32 = opsX32 = opsM32 = opsS32 = None
     if 14 in phases or 6 in phases:
         x60 = glide_signal(GLIDE_FS, GLIDE_SECONDS)
@@ -2926,6 +3112,9 @@ def main(phases=ALL_PHASES) -> int:
             return real_k1(signals, *a)
 
         edge_interp.event_engine_cuda = recording_k1
+        # the pool held below is this phase's signature's alone
+        from world_tpu_torch.parallel.batch import BATCH_GRAPHS
+        BATCH_GRAPHS.clear()
         try:
             # the first call runs eagerly and its launches are recorded first;
             # the second captures the graph, the counted third replays it
@@ -2991,7 +3180,7 @@ def main(phases=ALL_PHASES) -> int:
               f"{counts['merge_sections']} (expected 1) (one "
               f"replay); {many_s:.2f} s of wall time = "
               f"{MANY_ROWS * MANY_ROWS_SECONDS / many_s:.1f} xRT, the first call "
-              f"(eager) {first_s:.2f} s, the second (warm-up, capture, replay) "
+              f"(eager) {first_s:.2f} s, the second (capture, replay) "
               f"{capture_call_s:.2f} s [{card}]; voiced share "
               f"{float(out['vuv'].mean()):.3f}; every band asked for in one chunk: "
               f"K1 rows {split_rows}, the first held bitwise against the plain "
@@ -3452,8 +3641,9 @@ def main(phases=ALL_PHASES) -> int:
               f"[{card}]: graph replay {gr1:.1f}/{gr2:.1f} ms = "
               f"{GLIDE_SECONDS / ((gr1 + gr2) / 2 / 1e3):.1f} xRT, eager static "
               f"{ea60:.1f} ms = {GLIDE_SECONDS / (ea60 / 1e3):.1f} xRT; second "
-              f"call (warm-up, capture, replay) {first60:.2f} s, capture "
-              f"{g60.capture_s:.2f} s, pool {g60.pool_bytes / 2**20:.0f} MiB; one "
+              f"call (capture, replay) {first60:.2f} s, capture "
+              f"{g60.capture_s:.2f} s, pool {m60.graphs.pool_bytes() / 2**20:.0f} "
+              f"MiB; one "
               f"replay under torch.profiler: {ev60} device events, "
               f"{us60 / 1e3:.1f} ms device time, idle share "
               + (f"{1 - us60 / 1e3 / ((gr1 + gr2) / 2):.3f}" if ev60 else "not measured"))

@@ -227,6 +227,14 @@ def jax_dio_dat(jax_world, x_small):
     return jax_world.encode(FS_SMALL, x_small, f0_method="dio")
 
 
+@pytest.fixture(scope="module")
+def cpu_harvest(cpu_world, x_small):
+    """World's default analysis of x_small (Harvest, classic D4C) and its
+    default contour (Harvest), computed once for the tests that read them."""
+    return {"encode": cpu_world.encode(FS_SMALL, x_small),
+            "f0": cpu_world.get_f0(FS_SMALL, x_small)}
+
+
 def test_d4c_core_matches_jax(x_small, jax_dio_dat):
     import jax.numpy as jnp
 
@@ -299,15 +307,15 @@ def test_world_dio_encode_matches_jax(is_requiem, cpu_world, jax_world,
     _assert_dat_close(got, want)
 
 
-def test_world_default_encode_matches_jax_stages(cpu_world, x_small):
+def test_world_default_encode_matches_jax_stages(cpu_harvest, x_small):
     """World().encode(fs, x): Harvest, CheapTrick, classic D4C.  The JAX
     CheapTrick and D4C run on the port's Harvest contour."""
     from world_tpu.aperiodicity.d4c import d4c as jax_d4c
     from world_tpu.spectral.cheaptrick import cheaptrick as jax_cheaptrick
 
-    got = cpu_world.encode(FS_SMALL, x_small)
+    got = cpu_harvest["encode"]
     assert not got["is_requiem"] and got["aperiodicity"].shape == (513, 201)
-    tp, f0, vuv = cpu_world.get_f0(FS_SMALL, x_small)
+    tp, f0, vuv = cpu_harvest["f0"]
     source = {"temporal_positions": tp, "f0": f0, "vuv": vuv}
     filt = jax_cheaptrick(x_small, FS_SMALL, source)
     src2 = jax_d4c(x_small, FS_SMALL, dict(source, f0=filt["f0_effective"]))
@@ -321,10 +329,13 @@ def test_world_default_encode_matches_jax_stages(cpu_world, x_small):
 
 @pytest.mark.parametrize("f0_method", ["dio", "harvest"])
 def test_world_get_f0_and_get_spectrum(f0_method, cpu_world, jax_world,
-                                       jax_dio_dat, x_small):
-    tp, f0, vuv = cpu_world.get_f0(FS_SMALL, x_small, f0_method=f0_method)
+                                       jax_dio_dat, x_small, cpu_harvest):
+    if f0_method == "harvest":          # the defaults' calls, made once
+        (tp, f0, vuv), enc = cpu_harvest["f0"], cpu_harvest["encode"]
+    else:
+        tp, f0, vuv = cpu_world.get_f0(FS_SMALL, x_small, f0_method=f0_method)
+        enc = cpu_world.encode(FS_SMALL, x_small, f0_method=f0_method)
     spec = cpu_world.get_spectrum(FS_SMALL, x_small, f0_method=f0_method)
-    enc = cpu_world.encode(FS_SMALL, x_small, f0_method=f0_method)
     np.testing.assert_array_equal(spec["spectrogram"], enc["spectrogram"])
     np.testing.assert_array_equal(spec["temporal_positions"], tp)
     if f0_method == "dio":

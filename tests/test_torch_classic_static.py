@@ -396,14 +396,12 @@ def test_classic_round_trip_has_static_shapes(monkeypatch):
 class _FakeGraph:
     """A captured call for the cache's bookkeeping: replays fn eagerly."""
 
-    def __init__(self, fn):
-        self.fn, self.pool_bytes = fn, 1
+    def __init__(self, fn, pool):
+        self.fn, self.pool = fn, pool
+        pool.bytes += 1
 
     def replay(self, inputs):
         return self.fn(*inputs)
-
-    def finish(self):
-        pass
 
 
 def test_dio_classic_graph_policy(monkeypatch):
@@ -417,9 +415,9 @@ def test_dio_classic_graph_policy(monkeypatch):
 
     captured = []
 
-    def fake_capture(fn, inputs, device):
+    def fake_capture(fn, inputs, pool, kept):
         captured.append(tuple(inputs[0].shape))
-        return _FakeGraph(fn)
+        return _FakeGraph(fn, pool)
 
     monkeypatch.setattr(graphs, "_capture", fake_capture)
     monkeypatch.setattr(batch, "replays", lambda device: True)

@@ -228,7 +228,7 @@ def test_tables_are_built_once():
     assert h["band_bank"] is a["band_bank"]
     with tables.retained() as kept:
         g = tables.frame_grid(929, 5, "cpu")
-    assert kept == [g] and g is tables.frame_grid(929, 5.0, "cpu")
+    assert list(kept.values()) == [g] and g is tables.frame_grid(929, 5.0, "cpu")
     np.testing.assert_array_equal(g.numpy(), np.arange(929) * 5 / 1000)
 
 
@@ -351,50 +351,175 @@ def test_round_trip_has_static_shapes(monkeypatch):
 class _FakeGraph:
     """A captured call for the cache's bookkeeping: replays fn eagerly."""
 
-    def __init__(self, fn, pool_bytes):
-        self.fn, self.pool_bytes = fn, pool_bytes
+    def __init__(self, fn, pool):
+        self.fn, self.pool = fn, pool
 
     def replay(self, inputs):
         return self.fn(*inputs)
 
-    def finish(self):
-        pass
+
+def _fake_pool_capture(log, needs):
+    """A stub of ``graphs._capture`` that grows the shared pool as the
+    allocator does: to the largest call's need, each capture adding only
+    what the pool lacks (``needs``: bytes by the call's first input's
+    length); ``log`` gets (length, pool, kept) of each capture."""
+
+    def fake_capture(fn, inputs, pool, kept):
+        need = needs[inputs[0].shape[0]]
+        log.append((inputs[0].shape[0], pool, kept))
+        pool.bytes += max(0, need - pool.bytes)
+        return _FakeGraph(fn, pool)
+
+    return fake_capture
 
 
 def test_graph_cache_captures_on_the_second_call(monkeypatch):
     """A key's first call runs eagerly, its second captures and replays,
-    later calls replay; the pools are held to the budget (least recently
-    used dropped, the newest kept), and a dropped key starts again at its
-    first call.  The capture itself is stubbed: the CPU has no graphs."""
+    later calls replay; the graphs share one pool, which the budget counts
+    once; past the budget the pool is dropped with its graphs before the
+    next capture (the newest kept until then), and a dropped key starts
+    again at its first call.  The capture itself is stubbed: the CPU has no
+    graphs."""
     from world_tpu_torch.parallel import graphs
 
-    captured = []
-
-    def fake_capture(fn, inputs, device):
-        captured.append(inputs[0].shape[0])
-        return _FakeGraph(fn, pool_bytes=3)
-
-    monkeypatch.setattr(graphs, "_capture", fake_capture)
+    log = []
+    monkeypatch.setattr(graphs, "_capture", _fake_pool_capture(
+        log, {1: 3, 2: 2, 3: 6, 4: 1}))
     cache = graphs.GraphCache(budget=5)
     double = lambda t: {"y": 2 * t}                            # noqa: E731
-    xa, xb = torch.ones(1), torch.ones(2)
+    xa, xb, xc, xd = (torch.ones(n) for n in (1, 2, 3, 4))
     for _ in range(3):
         assert torch.equal(cache.run("a", double, (xa,), "cpu")["y"], 2 * xa)
-    assert captured == [1] and cache.calls == {"eager": 1, "captured": 1,
-                                               "replayed": 2}
+    assert [n for n, _, _ in log] == [1] and cache.calls == {
+        "eager": 1, "captured": 1, "replayed": 2}
     cache.run("b", double, (xb,), "cpu")
     cache.run("b", double, (xb,), "cpu")
-    # two pools of 3 bytes pass the budget of 5: "a" is dropped
-    assert captured == [1, 2] and [g.pool_bytes for g in cache.graphs()] == [3]
-    assert cache.pool_bytes() == 3
+    # one pool of 3 bytes holds both (two pools of their own, 3 + 2, would
+    # have passed the budget of 5)
+    assert [n for n, _, _ in log] == [1, 2] and len(cache.graphs()) == 2
+    assert cache.pool_bytes() == 3 and cache.dropped == 0
+    cache.run("c", double, (xc,), "cpu")
+    cache.run("c", double, (xc,), "cpu")
+    # the pool grew to c's 6, past the budget: held until the next capture
+    assert cache.pool_bytes() == 6 and len(cache.graphs()) == 3
+    cache.run("d", double, (xd,), "cpu")
+    cache.run("d", double, (xd,), "cpu")
+    # d's capture dropped the pool and its three graphs first
+    assert cache.dropped == 3 and cache.pool_bytes() == 1
+    assert [g.pool for g in cache.graphs()] == [log[-1][1]]
+    assert log[-1][1] is not log[0][1]
     cache.run("a", double, (xa,), "cpu")
-    assert captured == [1, 2] and cache.calls["eager"] == 3
+    assert [n for n, _, _ in log] == [1, 2, 3, 4] and cache.calls["eager"] == 5
     cache.run("a", double, (xa,), "cpu")
-    assert captured == [1, 2, 1] and len(cache.graphs()) == 1
+    assert [n for n, _, _ in log] == [1, 2, 3, 4, 1] and cache.recaptured == 1
+    assert cache.pool_bytes() == 3 and len(cache.graphs()) == 2
     cache.clear()
     assert cache.graphs() == [] and cache.pool_bytes() == 0
     cache.run("a", double, (xa,), "cpu")
-    assert captured == [1, 2, 1] and cache.calls["eager"] == 4
+    assert len(log) == 5 and cache.calls["eager"] == 6
+
+
+def test_graph_cache_shares_one_pool_per_device(monkeypatch):
+    """Every capture of a cache on one device gets the same pool (and so
+    one pool handle), two devices two pools, and two caches their own."""
+    from world_tpu_torch.parallel import graphs
+
+    log = []
+    monkeypatch.setattr(graphs, "_capture", _fake_pool_capture(
+        log, {1: 1, 2: 1, 3: 1}))
+    cache, other = graphs.GraphCache(), graphs.GraphCache()
+    double = lambda t: {"y": 2 * t}                            # noqa: E731
+    for key, n, device, c in (("a", 1, "cpu", cache), ("b", 2, "cpu", cache),
+                              ("c", 3, "meta", cache), ("a", 1, "cpu", other)):
+        for _ in range(2):
+            c.run(key, double, (torch.ones(n),), device)
+    a, b, c, d = (pool for _, pool, _ in log)
+    assert a is b and a is not c and d not in (a, b, c)
+    assert (a.device, c.device) == (torch.device("cpu"), torch.device("meta"))
+    assert {id(g.pool) for g in cache.graphs()} == {id(a), id(c)}
+    assert cache.pool_bytes() == 2 and other.pool_bytes() == 1
+
+
+def test_graph_cache_capture_after_eager_call_skips_the_warm_up(monkeypatch):
+    """Through ``run`` the capture follows the key's eager first call and
+    does not call the function again before it; ``capture`` called directly
+    calls it once, eagerly, first.  A capture that fails raises, is not
+    retried, and leaves the other graphs in place."""
+    from world_tpu_torch.parallel import graphs
+
+    calls = []
+
+    def fn(t):
+        calls.append(t.shape[0])
+        return {"y": 2 * t}
+
+    log = []
+    fake = _fake_pool_capture(log, {1: 1, 2: 1, 3: 1})
+    monkeypatch.setattr(graphs, "_capture", fake)
+    cache = graphs.GraphCache()
+    cache.run("a", fn, (torch.ones(1),), "cpu")
+    assert calls == [1]
+    cache.run("a", fn, (torch.ones(1),), "cpu")
+    # the capture (stubbed) called nothing; the stub's replay called fn once
+    assert calls == [1, 1] and len(log) == 1 and log[0][2] == {}
+    cache.capture("b", fn, (torch.ones(2),), "cpu")
+    assert calls == [1, 1, 2] and len(log) == 2
+
+    def failing(fn, inputs, pool, kept):
+        raise graphs.GraphCaptureError("stubbed failure")
+
+    monkeypatch.setattr(graphs, "_capture", failing)
+    cache.run("c", fn, (torch.ones(3),), "cpu")
+    with pytest.raises(graphs.GraphCaptureError):
+        cache.run("c", fn, (torch.ones(3),), "cpu")
+    assert calls == [1, 1, 2, 3] and len(cache.graphs()) == 2
+    # the failed pool takes no more captures; its graphs stay and replay
+    monkeypatch.setattr(graphs, "_capture", fake)
+    assert torch.equal(cache.run("a", fn, (torch.ones(1),), "cpu")["y"],
+                       2 * torch.ones(1))
+    cache.run("c", fn, (torch.ones(3),), "cpu")
+    cache.run("c", fn, (torch.ones(3),), "cpu")
+    assert log[-1][1] is not log[0][1] and cache.pool_bytes() == 2
+
+
+def test_graph_cache_keeps_the_eager_call_tables_until_the_capture(monkeypatch):
+    """The tables a key's eager call read reach its capture, which finds
+    them by key even after the table cache has dropped them (a capture
+    cannot upload a table again)."""
+    from world_tpu_torch import tables
+    from world_tpu_torch.parallel import graphs
+
+    monkeypatch.setattr(tables, "MAX_ENTRIES", 2)
+    built = []
+
+    def build():
+        built.append(1)
+        return torch.arange(3.0)
+
+    def fn(t):
+        return {"y": t * tables.cached(("capture-test", 1), build)}
+
+    seen = []
+
+    def fake_capture(fn_, inputs, pool, kept):
+        with tables.retained(kept) as held:
+            out = fn_(*inputs)
+        seen.append((kept, held, out, len(built)))
+        return _FakeGraph(fn_, pool)
+
+    monkeypatch.setattr(graphs, "_capture", fake_capture)
+    cache = graphs.GraphCache()
+    cache.run("a", fn, (torch.ones(3),), "cpu")
+    table = tables.cached(("capture-test", 1), build)
+    # other tables push it out of the cache
+    for i in range(3):
+        tables.cached(("capture-test-other", i), lambda: torch.zeros(1))
+    assert len(built) == 1
+    cache.run("a", fn, (torch.ones(3),), "cpu")
+    (kept, held, out, n_built), = seen
+    assert n_built == 1 and kept[("capture-test", 1)] is table
+    assert held[("capture-test", 1)] is table
+    assert torch.equal(out["y"], torch.arange(3.0))
 
 
 def test_graph_rows_are_powers_of_two():

@@ -23,8 +23,12 @@ host clock (it returns numpy arrays, which synchronizes).  Reported: the
 stream's xRT (audio seconds over wall seconds) and ms a call (min, median,
 90th percentile, max), for the whole stream and for each half; the
 distinct (bucket, rows) pairs; where the package keeps CUDA graphs, the
-calls ``BATCH_GRAPHS`` ran eagerly, captured and replayed, and the pool
-bytes it holds at the end.
+calls ``BATCH_GRAPHS`` ran eagerly, captured and replayed, the captures of
+a key captured before (recaptures, counted here by wrapping the cache's
+``capture``, so that any version is counted alike), the graphs dropped
+(captured but no longer held), the graphs held and the pool bytes they
+hold at the end, and the ms of the calls that captured, of those that ran
+a bucket eagerly and captured none, and of those that only replayed.
 
 Encode: ``World.encode(fs, x16, "harvest", is_requiem=True)`` with the
 default and with ``fft_size=2048`` (path B's Harvest encodes), run eagerly
@@ -178,13 +182,32 @@ def main(argv=None) -> dict:
     calls = stream_calls(x, fs, args)
     cache = getattr(batch_module, "BATCH_GRAPHS", None)
     before = dict(cache.calls) if cache is not None else None
-    ms, audio, rows = [], [], []
+    held_before = len(cache.graphs()) if cache is not None else 0
+    captured_keys, recaptures = set(), []
+    if cache is not None:
+        real_capture = cache.capture
+
+        def counted_capture(key, *a, **kw):
+            n = cache.calls["captured"]
+            graph = real_capture(key, *a, **kw)
+            if cache.calls["captured"] > n:
+                recaptures.append(key in captured_keys)
+                captured_keys.add(key)
+            return graph
+
+        cache.capture = counted_capture
+    ms, audio, rows, kinds = [], [], [], []
     for utts in calls:
+        ran = dict(cache.calls) if cache is not None else None
         t0 = time.perf_counter()
         out = batch_encode_decode_ragged(utts, fs, devices=device,
                                          bucket_quantum_s=QUANTUM_S)
         sync()
         ms.append((time.perf_counter() - t0) * 1e3)
+        if cache is not None:
+            ran = {k: n - ran[k] for k, n in cache.calls.items()}
+            kinds.append("capture" if ran["captured"] else
+                         "eager" if ran["eager"] else "replay")
         audio.append(sum(u.shape[0] for u in utts) / fs)
         for r in out:
             if not np.all(np.isfinite(r["y"])):
@@ -203,9 +226,18 @@ def main(argv=None) -> dict:
               "utterances": len(rows), "signatures": signatures(calls, fs),
               "ms_calls": ms}
     if cache is not None:
+        del cache.capture                     # the class's method again
         stream["graph_calls"] = {k: n - before[k] for k, n in cache.calls.items()}
+        stream["graph_recaptures"] = int(sum(recaptures))
         stream["graph_pool_bytes"] = cache.pool_bytes()
         stream["graphs_held"] = len(cache.graphs())
+        stream["graphs_dropped"] = (stream["graph_calls"]["captured"]
+                                    - (stream["graphs_held"] - held_before))
+        stream["capture_s"] = [g.capture_s for g in cache.graphs()]
+        stream["ms_by_kind"] = {
+            kind: dict(spread([t for t, k in zip(ms, kinds) if k == kind]),
+                       calls=kinds.count(kind))
+            for kind in ("capture", "eager", "replay") if kind in kinds}
     for k in ("all", "first_half", "second_half"):
         p = stream[k]
         print(f"stream {k}: {p['calls']} calls, {p['audio_s']:.1f} s of audio in "
@@ -214,8 +246,16 @@ def main(argv=None) -> dict:
               f"max {p['ms_per_call']['max']:.1f}", flush=True)
     print(f"stream: {len(rows)} utterances, {stream['signatures']} (bucket, rows) "
           f"pairs" + ("" if cache is None else
-                      f"; graphs: {stream['graph_calls']}, {stream['graphs_held']} "
+                      f"; graphs: {stream['graph_calls']}, "
+                      f"{stream['graph_recaptures']} recaptures, "
+                      f"{stream['graphs_dropped']} dropped, {stream['graphs_held']} "
                       f"held, {stream['graph_pool_bytes'] / 2**20:.1f} MiB of pools"))
+    what = {"capture": "captured", "eager": "ran a bucket eagerly, none captured",
+            "replay": "only replayed"}
+    for kind, p in stream.get("ms_by_kind", {}).items():
+        print(f"stream calls that {what[kind]}: {p['calls']}, ms median "
+              f"{p['median']:.1f}, p90 {p['p90']:.1f}, min {p['min']:.1f}, max "
+              f"{p['max']:.1f}", flush=True)
     doc = {"tool": "tools/bench_stream_torch.py", "package": world_tpu_torch.__file__,
            "device": str(device), "card": card, "torch": torch.__version__,
            "args": {k: (str(v) if isinstance(v, Path) else v)

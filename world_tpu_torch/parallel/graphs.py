@@ -6,32 +6,75 @@ no host sync (:func:`.batch.encode_decode_one`,
 a CUDA graph and replayed: the host then issues one launch for the whole round
 trip instead of thousands.  A :class:`GraphCache` keeps one graph per
 signature (the caller's key: device, shapes, caps, type, the tables'
-identity):
+identity), as ``jax.jit`` keeps one executable per shape:
 
-  * a signature's first call runs the same static code eagerly: a capture
-    costs a few eager calls, and pays only where a signature comes back (a
-    ragged server's buckets change their rows from call to call);
+  * a signature's first call runs the same static code eagerly, so that a
+    signature seen once costs no capture (a ragged server's buckets change
+    their rows from call to call);
   * its second call captures the graph and replays it, and every later
-    call replays it;
-  * the graphs' memory pools (each about its call's peak) are held to
-    ``GRAPH_POOL_BUDGET`` together: past it the least recently used graphs
-    are dropped (the newest always stays), and a dropped signature starts
-    again at its first call.  ``clear()`` drops them all; the pools then
-    return to PyTorch's caching allocator (``torch.cuda.empty_cache()``
-    gives them back to the card).
+    call replays it.  The capture does not run the call again first: the
+    eager call already built what a capture may not (below);
+  * every graph a cache captures on one device goes into one memory pool,
+    which the cache owns.  The pool holds about its largest call's peak
+    plus every graph's static outputs, not the sum of the peaks, and
+    ``GRAPH_POOL_BUDGET`` counts it once: the bytes it reserved, each
+    capture adding what it grew the pool by;
+  * a pool gives its memory back only with its last graph, so past the
+    budget the cache drops whole pools, least recently used first, before
+    its next capture; a dropped signature starts again at its first call.
+    ``clear()`` drops them all; the pools then return to PyTorch's caching
+    allocator (``torch.cuda.empty_cache()`` gives them back to the card).
+
+Why graphs that share a pool may replay in any order.  PyTorch calls a
+shared pool safe when its graphs replay in the order they were captured;
+here they replay in any order, from several threads.  A graph's
+intermediates lie in blocks that the graphs captured after it may have
+taken for their own intermediates or outputs, so the cache guarantees:
+  (a) the replays of a pool never overlap: one lock a pool is held from the
+      copy of the inputs to the clone of the outputs, and each replay's
+      stream waits for the event recorded after the pool's last clone (the
+      worker threads of a call over several devices, two of them on one
+      card, replay different signatures of one pool);
+  (b) a replay's outputs are cloned out of the pool before any other graph
+      of the pool replays.  The static outputs stay allocated in the pool,
+      so no later capture takes their blocks; another graph's
+      intermediates overwrite them between two replays, which (a) and (b)
+      make harmless.
+The static inputs are allocated outside the pool.  Every capture of a pool
+runs on the pool's own stream: the allocator hands a pool's free blocks
+only to allocations on the stream that freed them, so captures on other
+streams would each grow the pool by their peak.  cuBLAS keeps a workspace a
+(handle, stream): the workspaces are cleared before and after each capture,
+so that a capture allocates its own in the pool (one of its intermediates)
+and no eager call or other pool's graph ever uses a block of the pool.
 
 Capture (:meth:`GraphCache.capture`):
-  * a warm-up call on a side stream first: it builds the kernel library,
-    the kept tables (:mod:`..tables`), cuFFT's and cuBLAS's plans and sets
-    each kernel's shared-memory attribute, none of which a capture may do;
+  * an eager call of the signature on the device comes first, in the same
+    cache: through :meth:`GraphCache.run` the signature's first call, or
+    one that ``capture`` makes itself when called directly.  It builds the
+    kernel library, the kept tables (:mod:`..tables`), cuFFT's plans and the
+    thread's cuBLAS handle and sets each kernel's shared-memory attribute,
+    none of which a capture may do.  The tables it read are kept with the
+    signature until the capture, which finds them even where the table
+    cache has dropped them since;
   * then the capture, in ``thread_local`` mode, so that the worker threads
     of a call over several devices do not void each other's captures; one
     capture at a time in the process;
-  * a capture that fails raises with the shapes.  Nothing falls back to an
-    eager call on the card.
-Replay (:meth:`Graph.replay`): the inputs are copied into the graph's
-static buffers, the graph is replayed on the current stream and the
-outputs are cloned out of its pool.  The kernels' launch counters get, at
+  * a capture that fails raises :class:`GraphCaptureError` with the
+    shapes.  Nothing retries it and nothing falls back to an eager call on
+    the card.  What PyTorch 2.11's allocator does then
+    (``tools/probe_graph_pool_torch.py`` on the card): a capture whose end
+    fails leaves the capture stream's allocations routed to the pool;
+    ``_end_capture`` stops that and gives back one use of the pool, which
+    frees nothing while other graphs hold it, and they replay right.  But
+    the allocator refuses any later capture into the pool ("already
+    recording to mempool_id") and keeps one use of it that nothing gives
+    back, so its segments stay reserved after its last graph goes.  So the
+    pool takes no more captures: its graphs stay and replay, and the
+    device's next capture opens a new pool.
+Replay (:meth:`Graph.replay`): under (a), the inputs are copied into the
+graph's static buffers, the graph is replayed on the current stream and the
+outputs are cloned out of the pool.  The kernels' launch counters get, at
 each replay, the launches recorded at capture
 (:class:`.._backend.LaunchCounter`).
 """
@@ -45,9 +88,9 @@ from .. import tables
 from .._backend import STAGE_BYTES_BUDGET
 from ..ops import edge_interp, extension_scan, fix_step3, refine_dft
 
-# the pool bytes a cache's graphs hold together: 4 GiB, a twentieth of an
-# 80 GB card, holds the 60 s round trip's graph (2.6 GiB) or a ragged
-# server's few hot buckets; the stages' own budget is a quarter of it
+# the bytes a cache's pools hold together: 4 GiB, a twentieth of an 80 GB
+# card, holds the 60 s round trip's graph (2.6 GiB) or a ragged server's
+# hot set; the stages' own budget is a quarter of it
 GRAPH_POOL_BUDGET = 4 * STAGE_BYTES_BUDGET
 # the signatures called once and not yet captured that a cache remembers
 SEEN_SIZE = 256
@@ -57,8 +100,8 @@ _COUNTERS = {"event_engine": edge_interp.counter,
              "extension_scan": extension_scan.counter,
              "extend_chains": fix_step3.extend_counter,
              "merge_sections": fix_step3.merge_counter}
-# one capture at a time in the process: the warm-up and the capture of two
-# worker threads on one card would share the allocator's capture state
+# one capture at a time in the process: two captures would share the
+# allocator's capture state
 _CAPTURE_LOCK = threading.Lock()
 
 
@@ -66,27 +109,52 @@ class GraphCaptureError(RuntimeError):
     """A round trip could not be captured into a CUDA graph."""
 
 
-class Graph:
-    """A captured call: its static inputs and outputs, the kernel launches
-    one replay makes, the tables it reads, its capture time and the bytes
-    its memory pool took."""
+class Pool:
+    """The memory pool a cache's graphs on one device share, with what
+    keeps their replays apart: the lock and the event of (a) and (b) in the
+    module's docstring, and the stream every capture into it runs on.
+    ``bytes``: what its captures grew the allocator's reservation by."""
 
-    def __init__(self, device, graph, inputs, outputs, launches, kept,
-                 capture_s, pool_bytes):
+    def __init__(self, device):
         self.device = device
+        self.lock = threading.Lock()
+        self.bytes = 0
+        self.handle = self.stream = self.done = None
+
+    def open(self):
+        """Make the pool's handle, capture stream and replay event (at its
+        first capture)."""
+        if self.handle is None:
+            self.handle = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(self.device)
+            self.done = torch.cuda.Event()
+
+    def finish(self):
+        """Wait for the last replay's outputs to be cloned."""
+        if self.done is not None:
+            self.done.synchronize()
+
+
+class Graph:
+    """A captured call: its pool, static inputs and outputs, the kernel
+    launches one replay makes, the tables it reads, its capture time and
+    the bytes its capture grew the pool by."""
+
+    def __init__(self, pool, graph, inputs, outputs, launches, kept,
+                 capture_s, pool_growth):
+        self.pool = pool
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
         self.launches, self.kept = launches, kept
-        self.capture_s, self.pool_bytes = capture_s, pool_bytes
-        self._lock = threading.Lock()
-        self._done = torch.cuda.Event()
+        self.capture_s, self.pool_growth = capture_s, pool_growth
 
     def replay(self, inputs) -> dict:
         """The outputs of the captured call on ``inputs`` (copied into the
-        static buffers), cloned out of the graph's pool."""
-        with self._lock, torch.cuda.device(self.device):
+        static buffers), cloned out of the pool."""
+        pool = self.pool
+        with pool.lock, torch.cuda.device(pool.device):
             stream = torch.cuda.current_stream()
-            # the last replay's outputs are cloned before the buffers change
-            stream.wait_event(self._done)
+            # the pool's last replay has cloned its outputs
+            stream.wait_event(pool.done)
             for static, x in zip(self.inputs, inputs):
                 static.copy_(x)
             self.graph.replay()
@@ -94,69 +162,74 @@ class Graph:
                 if n:
                     _COUNTERS[name].add(n)
             out = {k: v.clone() for k, v in self.outputs.items()}
-            self._done.record(stream)
+            pool.done.record(stream)
         return out
-
-    def finish(self):
-        """Wait for the last replay's outputs to be cloned."""
-        self._done.synchronize()
 
 
 def _shapes(inputs) -> str:
     return ", ".join(f"{tuple(t.shape)} {t.dtype} on {t.device}" for t in inputs)
 
 
-def _end_pool(device, pool):
-    """Stop routing the capture stream's allocations to a failed capture's
-    memory pool and free the pool.  The capture's end stops the routing
-    itself unless the end failed before it got there, so a second stop may
-    find nothing to stop: that is not an error here."""
+def _end_capture(device, handle):
+    """Stop routing the capture stream's allocations to the pool and give
+    back the use the capture counted on it, after a capture whose end
+    failed before it stopped the routing itself.  Where the end got that
+    far, the graph gives the use back when it is destroyed."""
     try:
-        torch._C._cuda_endAllocateToPool(device.index, pool)
+        torch._C._cuda_endAllocateToPool(device.index, handle)
     except RuntimeError:
-        pass
-    torch._C._cuda_releasePool(device.index, pool)
+        return
+    torch._C._cuda_releasePool(device.index, handle)
 
 
-def _capture(fn, inputs, device) -> Graph:
-    with torch.cuda.device(device), tables.retained() as kept:
+def _eager(fn, inputs, device):
+    """``fn`` on ``inputs`` moved to ``device``, and the tables it read."""
+    with tables.retained() as kept:
+        out = fn(*(x.to(device) for x in inputs))
+    return out, kept
+
+
+def _capture(fn, inputs, pool, kept) -> Graph:
+    """The graph of ``fn`` on ``inputs``, captured into ``pool``; ``kept``:
+    the tables of the eager call of ``fn`` that came before on the device."""
+    device = pool.device
+    with torch.cuda.device(device), tables.retained(kept) as held:
+        pool.open()
         static = [torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x)
                   for x in inputs]
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn(*static)
-        torch.cuda.current_stream().wait_stream(side)
+        current = torch.cuda.current_stream(device)
         graph = torch.cuda.CUDAGraph()
         before = {name: c.captured() for name, c in _COUNTERS.items()}
         generator = torch.cuda.default_generators[device.index]
         rng_state = generator.get_state()
+        # this thread's cuBLAS handle: a capture cannot create one
+        torch.cuda.current_blas_handle()
         t0 = time.perf_counter()
-        # torch.cuda.graph's steps, with its stream restored and its pool
-        # ended where the capture fails: there its __exit__ raises before it
-        # restores the stream, so the caller would go on issuing work on the
-        # capture stream, and the allocator, told nothing, would go on
-        # reserving memory for the failed graph that empty_cache() cannot free
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        capture = torch.cuda.Stream(device)
-        capture.wait_stream(torch.cuda.current_stream(device))
+        # torch.cuda.graph's steps, with its stream restored and the pool's
+        # routing ended where the capture fails: there its __exit__ raises
+        # before it restores the stream, so the caller would go on issuing
+        # work on the capture stream, and the allocator, told nothing, would
+        # go on reserving memory for the failed graph
+        pool.stream.wait_stream(current)
+        torch._C._cuda_clearCublasWorkspaces()
         error = None
-        pool = torch.cuda.graph_pool_handle()   # the graph's own, as by default
-        with torch.cuda.stream(capture):
-            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        reserved = torch.cuda.memory_reserved(device)
+        with torch.cuda.stream(pool.stream):
+            graph.capture_begin(pool=pool.handle,
+                                capture_error_mode="thread_local")
             try:
-                reserved = torch.cuda.memory_reserved(device)
                 outputs = fn(*static)
-                pool_bytes = torch.cuda.memory_reserved(device) - reserved
             except Exception as e:       # noqa: BLE001 (raised below)
                 error = e
             try:
                 graph.capture_end()
             except Exception as e:       # noqa: BLE001 (raised below)
                 error = error or e
-                _end_pool(device, pool)
-        torch.cuda.current_stream(device).wait_stream(capture)
+                _end_capture(device, pool.handle)
+        growth = torch.cuda.memory_reserved(device) - reserved
+        pool.bytes += growth
+        torch._C._cuda_clearCublasWorkspaces()
+        current.wait_stream(pool.stream)
         if error is not None:
             # a capture that ends in an error leaves the device's default
             # generator marked as capturing, and every later draw on it
@@ -170,30 +243,40 @@ def _capture(fn, inputs, device) -> Graph:
         capture_s = time.perf_counter() - t0
         launches = {name: c.captured() - before[name]
                     for name, c in _COUNTERS.items()}
-    return Graph(device, graph, static, outputs, launches, kept, capture_s,
-                 pool_bytes)
+    return Graph(pool, graph, static, outputs, launches, held, capture_s,
+                 growth)
 
 
 class GraphCache:
     """Graphs by key: a key's first call runs eagerly, its second captures
-    its graph, later calls replay it; the pools are held to ``budget``
-    bytes together, the least recently used graph dropped first.
-    ``calls`` counts the calls run eagerly, captured and replayed."""
+    its graph, later calls replay it.  The graphs of one device share one
+    memory pool; the pools are held to ``budget`` bytes together, the least
+    recently used pool dropped first.  ``calls`` counts the calls run
+    eagerly, captured and replayed; ``dropped`` the graphs dropped past the
+    budget and ``recaptured`` the captures of a key captured before (both
+    since the last ``clear()``)."""
 
     def __init__(self, budget: int = GRAPH_POOL_BUDGET):
         self.budget = budget
         self.calls = {"eager": 0, "captured": 0, "replayed": 0}
+        self.dropped = self.recaptured = 0
         self._graphs = OrderedDict()
+        self._pools = {}
         self._seen = OrderedDict()
+        self._captured = set()
         self._lock = threading.Lock()
 
     def clear(self):
-        """Drop every graph (their pools are freed) and every key seen."""
+        """Drop every graph and pool (the pools are freed) and every key
+        seen."""
         with self._lock:
-            for graph in self._graphs.values():
-                graph.finish()
+            for pool in self._live():
+                pool.finish()
             self._graphs.clear()
+            self._pools.clear()
             self._seen.clear()
+            self._captured.clear()
+            self.dropped = self.recaptured = 0
 
     def graphs(self) -> list:
         """The graphs held, least recently used first."""
@@ -201,9 +284,18 @@ class GraphCache:
             return list(self._graphs.values())
 
     def pool_bytes(self) -> int:
-        """The bytes the graphs' memory pools hold."""
+        """The bytes the cache's memory pools hold (each pool once)."""
         with self._lock:
-            return sum(g.pool_bytes for g in self._graphs.values())
+            return self._held()
+
+    def _live(self) -> list:
+        """The pools the cache holds: the devices' and its graphs'."""
+        pools = {id(p): p for p in self._pools.values()}
+        pools.update((id(g.pool), g.pool) for g in self._graphs.values())
+        return list(pools.values())
+
+    def _held(self) -> int:
+        return sum(p.bytes for p in self._live())
 
     def _count(self, kind: str):
         with self._lock:
@@ -216,45 +308,86 @@ class GraphCache:
                 self._graphs.move_to_end(key)
             return graph
 
-    def _first_call(self, key) -> bool:
-        """Whether ``key`` has not been called since it was last dropped
-        (it is remembered from now on)."""
+    def _eager_tables(self, key):
+        """The tables of ``key``'s eager call where one ran to its end since
+        ``key`` was last dropped, else None."""
         with self._lock:
-            if key in self._seen:
-                del self._seen[key]
-                return False
-            self._seen[key] = None
-            while len(self._seen) > SEEN_SIZE:
-                self._seen.popitem(last=False)
-            return True
+            return self._seen.get(key)
 
-    def capture(self, key, fn, inputs, device) -> Graph:
+    def _remember(self, key, kept):
+        with self._lock:
+            if key not in self._graphs:
+                self._seen[key] = kept
+                while len(self._seen) > SEEN_SIZE:
+                    self._seen.popitem(last=False)
+
+    def _drop_pool(self, pool):
+        """Drop a pool and its graphs (under the lock)."""
+        pool.finish()
+        for key in [k for k, g in self._graphs.items() if g.pool is pool]:
+            del self._graphs[key]
+            self.dropped += 1
+        if self._pools.get(pool.device) is pool:
+            del self._pools[pool.device]
+
+    def _pool_for(self, device) -> Pool:
+        """The device's pool, after the least recently used pools are
+        dropped while the pools pass the budget (under the lock)."""
+        while self._graphs and self._held() > self.budget:
+            recent = []
+            for graph in reversed(self._graphs.values()):
+                if graph.pool not in recent:
+                    recent.append(graph.pool)
+            self._drop_pool(recent[-1])
+        pool = self._pools.get(device)
+        if pool is None:
+            pool = self._pools[device] = Pool(device)
+        return pool
+
+    def capture(self, key, fn, inputs, device, kept=None) -> Graph:
         """The graph of ``key``, captured from ``fn(*inputs)`` now unless it
-        is held (once, when several threads ask for it together)."""
+        is held (once, when several threads ask for it together).
+        ``kept``: the tables of ``key``'s eager call in this cache on
+        ``device``; where it is None, ``fn`` runs eagerly first."""
+        device = tables.device_key(device)
         with _CAPTURE_LOCK:
             graph = self._lookup(key)
             if graph is not None:
                 return graph
-            graph = _capture(fn, inputs, tables.device_key(device))
+            if kept is None:
+                _, kept = _eager(fn, inputs, device)
             with self._lock:
+                pool = self._pool_for(device)
+            try:
+                graph = _capture(fn, inputs, pool, kept)
+            except GraphCaptureError:
+                with self._lock:
+                    self._seen.pop(key, None)
+                    # the pool takes no more captures; its graphs stay
+                    if self._pools.get(device) is pool:
+                        del self._pools[device]
+                raise
+            with self._lock:
+                self._seen.pop(key, None)
                 self._graphs[key] = graph
                 self.calls["captured"] += 1
-                held = sum(g.pool_bytes for g in self._graphs.values())
-                while held > self.budget and len(self._graphs) > 1:
-                    _, old = self._graphs.popitem(last=False)
-                    # its pool is freed: let its last replay finish
-                    old.finish()
-                    held -= old.pool_bytes
+                self.recaptured += key in self._captured
+                self._captured.add(key)
         return graph
 
     def run(self, key, fn, inputs, device) -> dict:
         """``fn(*inputs)``: run eagerly on ``device`` on the first call of
-        ``key``, by the replay of its graph from the second on."""
+        ``key``, by the replay of its graph from the second on (the capture
+        waits for the first call's end: two first calls of one key at once
+        both run eagerly)."""
         graph = self._lookup(key)
         if graph is None:
-            if self._first_call(key):
+            kept = self._eager_tables(key)
+            if kept is None:
+                out, kept = _eager(fn, inputs, device)
+                self._remember(key, kept)
                 self._count("eager")
-                return fn(*(x.to(device) for x in inputs))
-            graph = self.capture(key, fn, inputs, device)
+                return out
+            graph = self.capture(key, fn, inputs, device, kept)
         self._count("replayed")
         return graph.replay(inputs)

@@ -10,7 +10,9 @@ them kept while it is.
 The cache is shared by the worker threads of a call over several devices
 (:func:`..parallel.batch._on_devices`), so it takes a lock.  It holds at
 most ``MAX_ENTRIES`` entries and drops the least recently used: a graph
-keeps the tables it was captured with alive itself (:func:`retained`).
+keeps the tables it was captured with alive itself, and a capture finds the
+tables of the eager call before it even where the cache has dropped them
+(:func:`retained`).
 """
 import contextlib
 import threading
@@ -36,10 +38,13 @@ def device_key(device) -> torch.device:
 
 def cached(key: tuple, build):
     """``build()``, once per ``key``; the value is kept for later calls."""
-    with _LOCK:
-        value = _CACHE.get(key)
-        if value is not None:
-            _CACHE.move_to_end(key)
+    pinned = getattr(_LOCAL, "pinned", None)
+    value = pinned.get(key) if pinned else None
+    if value is None:
+        with _LOCK:
+            value = _CACHE.get(key)
+            if value is not None:
+                _CACHE.move_to_end(key)
     if value is None:
         value = build()
         with _LOCK:
@@ -49,7 +54,7 @@ def cached(key: tuple, build):
                 _CACHE.popitem(last=False)
     kept = getattr(_LOCAL, "kept", None)
     if kept is not None:
-        kept.append(value)
+        kept[key] = value
     return value
 
 
@@ -71,15 +76,22 @@ def frame_grid(n_frames: int, frame_period_ms: float, device) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def retained():
+def retained(pinned: dict = None):
     """Collect every table this thread asks for inside the block into the
-    list it yields (a captured graph holds them, so that the cache may drop
-    them without freeing memory the graph reads)."""
-    outer = getattr(_LOCAL, "kept", None)
-    _LOCAL.kept = kept = []
+    dict {key: table} it yields (a captured graph holds them, so that the
+    cache may drop them without freeing memory the graph reads).  Inside
+    the block this thread finds the tables of ``pinned`` (such a dict of an
+    earlier block) by their keys even where the cache has dropped them: a
+    capture reads the tables of the eager call before it, and cannot
+    upload one again."""
+    outer_kept = getattr(_LOCAL, "kept", None)
+    outer_pinned = getattr(_LOCAL, "pinned", None)
+    _LOCAL.kept = kept = {}
+    if pinned:
+        _LOCAL.pinned = pinned
     try:
         yield kept
     finally:
-        _LOCAL.kept = outer
-        if outer is not None:
-            outer.extend(kept)
+        _LOCAL.kept, _LOCAL.pinned = outer_kept, outer_pinned
+        if outer_kept is not None:
+            outer_kept.update(kept)
