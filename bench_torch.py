@@ -96,13 +96,15 @@ def spread(values) -> dict:
 
 def launch_counts():
     """The kernels' launch counters (world_tpu_torch.ops)."""
-    from world_tpu_torch.ops import (edge_interp, extension_scan, fix_step3,
-                                     refine_dft)
+    from world_tpu_torch.ops import (d4c_spectra, edge_interp, extension_scan,
+                                     fix_step3, refine_dft)
 
     return {"event_engine": edge_interp.counter, "refine_dft": refine_dft.counter,
             "extension_scan": extension_scan.counter,
             "extend_chains": fix_step3.extend_counter,
-            "merge_sections": fix_step3.merge_counter}
+            "merge_sections": fix_step3.merge_counter,
+            "d4c_centroid": d4c_spectra.centroid_counter,
+            "d4c_band_ap": d4c_spectra.band_ap_counter}
 
 
 def timed_readings(fn, audio_seconds: float, readings: int, rounds: int,

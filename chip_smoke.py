@@ -31,17 +31,34 @@ Phases (each raises on failure; any failure exits non-zero):
      layouts (fix_step3_layouts; the keeps' means in chunks of 1, 3 and all
      rows, K5's merge in ranges of 1, 3 and all steps a launch); K5 once a
      FixStep3 call;
+ 22. K6 and K7 (D4C's centroid spectra and band aperiodicity) against their
+     plain versions in float64 and float32 at x16 (D4C-Requiem, fft_size
+     1,024), a batch of 4, classic D4C and path B (2,048), one ragged
+     bucket, the 60 s glide (12,001 x 2,119), 300 frames at 48 kHz (4,605,
+     4,096), x16 at fft_size 8,192 (World.encode's fft_size reaches
+     D4C-Requiem), 300 frames of classic D4C at 96 kHz (9,199, 8,192) and
+     adversarial frames (f0 at the 47 Hz clamp, whose window the
+     1,024-point FFT cuts, and at 800 Hz; all-zero frames; the signal's
+     first and last frames): K6 to K6_*_REL of each row's largest value, K7
+     by K7_* (the float64 plain version on the card within twice its spread
+     against the CPU, a spread capped at K7_F64_CAP_DB and with NaN where
+     the CPU's has NaN; float32 within 0.02 dB of the plain version or no
+     further from the float64 result than the plain version in float32 is,
+     + 0.02 dB), NaN where the plain version has NaN, each
+     kernel twice bitwise; then each timed in float32 beside the plain
+     version (the stock ops the main path ran before these kernels) and its
+     bound;
   4. the Harvest -> CheapTrick -> D4C-Requiem -> Requiem round trip in
      float32 on the 16 kHz golden utterance through World.encode/decode,
-     held to the golden bars; K1, K2, K4 and K5 must have launched;
+     held to the golden bars; K1, K2 and K4-K7 must have launched;
   5. a batch of 4 utterances through HarvestRequiem (a CUDA graph per batch
      size from its second call): row 0 must take the single-stream run's
      decisions;
  18. the static round trip and its graph, float32, single and batch 4: the
      eager static call from the upload to the output makes no host sync
      (set_sync_debug_mode "error"), the graph's replay is bitwise the eager
-     call and itself, meets phase 4's golden bars, and launches K1, K2, K4
-     and K5 once; the first call (eager) and the second (capture), the
+     call and itself, meets phase 4's golden bars, and launches K1, K2 and
+     K4-K7 once; the first call (eager) and the second (capture), the
      pool, the replay beside the eager call and its device events;
      FixStep3 alone, eagerly and as a graph's replay, makes at most 300
      launches (K4 and K5 once each); then the same at 60 s
@@ -52,7 +69,8 @@ Phases (each raises on failure; any failure exits non-zero):
      eager static call from the upload to the output makes no host sync,
      the module's first call runs eagerly, its second captures, and its
      replays are bitwise the eager call and each other (f0, vuv, envelope,
-     aperiodicity, y, flags), launch K1 once, K3 twice and K2 never, and
+     aperiodicity, y, flags), launch K1, K6 and K7 once, K3 twice and K2
+     never, and
      row 0 meets phase 8's bars against float64 on the card; the first
      call, the capture, the pool, the replay beside the eager call and its
      device events; at 60 s the classic synthesis' peak memory inside the
@@ -81,7 +99,7 @@ Phases (each raises on failure; any failure exits non-zero):
      single-stream run's decisions; K1 must have launched and K2 not;
  11. path A, SWIPE': float32 against the port's float64 run on the card at
      tests/test_swipe.py's bars, then World.encode(f0_method="swipe") ->
-     decode; neither kernel may launch;
+     decode; no kernel may launch but its D4C's K6 and K7, once each;
  12. path B, voice conversion and prosody: Harvest and DIO analyses (the
      default and with fft_size=2048, float32 against float64 on the card,
      both kernels held against their plain versions at that geometry), the
@@ -99,7 +117,7 @@ Phases (each raises on failure; any failure exits non-zero):
      batch_encode_decode's graph cache, each called eagerly (its peak
      memory taken), then captured, then replayed in reverse and interleaved
      order and, two signatures at once, from two threads (one on a stream
-     of its own): every replay bitwise its eager call, K1, K2, K4 and K5
+     of its own): every replay bitwise its eager call, K1, K2 and K4-K7
      once a replay, nothing dropped or captured again, one shared pool
      within 2 x the largest eager peak plus the outputs; each capture
      call's seconds beside its eager call's;
@@ -142,8 +160,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 GOLDEN_DIR = ROOT / "tests" / "golden"
 GOLDEN = GOLDEN_DIR / "harvest_16k.npz"
-ALL_PHASES = (1, 2, 3, 20, 4, 5, 18, 19, 6, 7, 8, 9, 10, 11, 12, 13, 21, 14, 15,
-              16, 17)
+ALL_PHASES = (1, 2, 3, 20, 22, 4, 5, 18, 19, 6, 7, 8, 9, 10, 11, 12, 13, 21, 14,
+              15, 16, 17)
 
 # K1: kernel and plain version evaluate the same IEEE operations in the same
 # order, so the interpolated f0 may differ only by rounding of equal
@@ -202,6 +220,43 @@ STEP3_N, STEP3_C, STEP3_SECTIONS = 600, 6, 16
 # 80GB HBM3 at 700 W)
 STEP3_MAX_LAUNCHES = {"single": 300, "batch4": 300, "60s": 2000}
 LOOP_REPLAY_EVENTS = {"single": 11830, "batch4": 11867, "60s": 63382}
+
+# K6 (D4C's centroid spectra) against its plain version: a hand radix-2 FFT
+# against cuFFT, both O(eps log2 N) of the row's scale, so each row within
+# this share of its largest |value| (float32; float64 at the second).
+# K7 (the band aperiodicity, on the plain centroid and through K6's): the
+# result moves with the rounding of its FFTs and running sums (a weak bin of
+# the smoothed power is the difference of two running sums of the whole
+# spectrum, and the group delay divides by it), so the same stock ops on the
+# CPU (pocketfft, sequential sums) differ from the card's (cuFFT, its scans)
+# by a spread that no FFT rounding otherwise than cuFFT can come under
+# (float64: 2e-8 dB on x16, 2e-4 dB on the 60 s glide; float32: up to 0.06
+# dB on adversarial frames, where float32 itself is 0.5 dB from float64).
+# So in float64 K7 is held to the plain version on the card within the
+# larger of K7_F64_DB and K7_SPREAD_FACTOR times that spread, where the
+# card's and the CPU's plain versions have NaN at the same places and the
+# bar is at most K7_F64_CAP_DB (above the largest spread measured, 2.6e-4
+# dB at 48 kHz on an H100: a wider spread fails the check rather than
+# loosening it), and in
+# float32 within K7_F32_DB of the plain version on the card or, where the
+# float32 plain version is itself that far from its float64 result, no
+# further from that result than the plain version in float32 is, plus
+# K7_F32_DB.  NaN exactly where the
+# plain version has NaN (an all-zero frame is 0/0 in the normalisation, in
+# the JAX package too).
+K6_F32_REL, K6_F64_REL = 2e-5, 1e-10
+K7_F32_DB, K7_F64_DB = 0.02, 1e-9
+K7_SPREAD_FACTOR, K7_F64_CAP_DB = 2.0, 1e-3
+# K6 and K7's operations, counted per unit of the function's work: a complex
+# FFT of N points 5 N log2 N; each window sample inside the mask (the time
+# axis, one or two cosines, the blend, the products and the sums) 24; each
+# half-spectrum bin of the unpacking, the replica fill's low band and the
+# floor and division 10; each entry of a float64 running sum and each read
+# of it 4 (counted at the float32 rate); each bin of a band's top-k 4.
+D4C_OPS_PER_WINDOW_SAMPLE, D4C_OPS_PER_BIN, D4C_OPS_PER_SUM = 24, 10, 4
+# phase 22's 48 and 96 kHz geometries: 300 frames of 5 ms (slab 4,605 and
+# fft_size 4,096 at 48 kHz; classic D4C at 96 kHz 9,199 and 8,192)
+D4C_HIGH_RATE_SECONDS = 1.495
 
 F0_FLOOR, F0_CEIL = 71.0, 800.0
 # path B's explicit fft_size: at 16 kHz it lowers Harvest's floor to
@@ -1608,7 +1663,8 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
               f"{same_twice}; launches per replay K1 {counts['event_engine'] / 2:g}"
               f", K2 {counts['refine_dft'] / 2:g}, K4 "
               f"{counts['extend_chains'] / 2:g}, K5 {counts['merge_sections'] / 2:g}"
-              f"; row 0 against the golden: vuv "
+              f", K6 {counts['d4c_centroid'] / 2:g}, K7 "
+              f"{counts['d4c_band_ap'] / 2:g}; row 0 against the golden: vuv "
               f"agreement {bars[0]:.6f}, voiced F0 RMSE {bars[1]:.6g} Hz, LSD "
               f"{bars[2]:.6g} dB, band-ap max err {bars[3]:.6g} dB; replay "
               f"{g1:.2f}/{g2:.2f} ms = {audio / (t_graph / 1e3):.1f} xRT, eager "
@@ -1631,8 +1687,8 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
         blk = harvest_blocking(xs.shape[1], fs, torch.float32, n_rows)
         if counts != {"event_engine": 2 * blk["k1_launches"],
                       "refine_dft": 2 * blk["k2_launches"], "extension_scan": 0,
-                      "extend_chains": 2, "merge_sections": 2}:
-            raise AssertionError(f"phase 18 {label}: K1, K2, K4 and K5 must launch "
+                      "extend_chains": 2, "merge_sections": 2, **d4c_launches(2)}:
+            raise AssertionError(f"phase 18 {label}: K1, K2, K4-K7 must launch "
                                  f"once per replay, K3 never: {counts} in two "
                                  f"replays")
         if not (bars[0] > 0.99 and bars[1] < 1.0 and bars[2] < 1.0 and bars[3] < 1.0):
@@ -1674,7 +1730,8 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
           f"{same_eager or ''}, two replays bitwise {same_twice}; launches per "
           f"replay K1 {counts['event_engine'] / 2:g}, K2 "
           f"{counts['refine_dft'] / 2:g}, K4 {counts['extend_chains'] / 2:g}, K5 "
-          f"{counts['merge_sections'] / 2:g} (the keeps' means in "
+          f"{counts['merge_sections'] / 2:g}, K6 {counts['d4c_centroid'] / 2:g}, "
+          f"K7 {counts['d4c_band_ap'] / 2:g} (the keeps' means in "
           f"{blk60['step3_means_chunks']} section chunks); one replay under "
           f"torch.profiler: {n_events} "
           f"device events, {dev_us / 1e3:.1f} ms device time (with FixStep3 as "
@@ -1686,7 +1743,7 @@ def static_round_trip_and_graph(xs, fs, g, card, reset_counts,
                              f"static call ({same_eager}) or itself")
     if counts != {"event_engine": 2 * blk60["k1_launches"],
                   "refine_dft": 2 * blk60["k2_launches"], "extension_scan": 0,
-                  "extend_chains": 2, "merge_sections": 2}:
+                  "extend_chains": 2, "merge_sections": 2, **d4c_launches(2)}:
         raise AssertionError(f"phase 18 60s: launches in two replays {counts}")
     del m60, x60c, eager60, r1, r2
     # no fallback: a function that reads the device from the host cannot be
@@ -1776,7 +1833,8 @@ def classic_graph_run(model, x, noise, label, card, reset_counts, path_launches,
           f"{len(CLASSIC_KEYS) - len(differ)} of {len(CLASSIC_KEYS)} outputs "
           f"{differ or ''}, two replays bitwise {twice}; launches per replay K1 "
           f"{counts['event_engine'] / 2:g}, K2 {counts['refine_dft'] / 2:g}, K3 "
-          f"{counts['extension_scan'] / 2:g}; replay {g1:.2f}/{g2:.2f} ms = "
+          f"{counts['extension_scan'] / 2:g}, K6 {counts['d4c_centroid'] / 2:g}, "
+          f"K7 {counts['d4c_band_ap'] / 2:g}; replay {g1:.2f}/{g2:.2f} ms = "
           f"{audio_s / (t_graph / 1e3):.1f} xRT, eager static {e1:.2f}/{e2:.2f} ms "
           f"= {audio_s / (t_eager / 1e3):.1f} xRT, ratio {t_eager / t_graph:.2f}; "
           f"one replay under torch.profiler: {n_events} device events, "
@@ -1786,9 +1844,10 @@ def classic_graph_run(model, x, noise, label, card, reset_counts, path_launches,
         raise AssertionError(f"phase 19 {label}: the graph is not bitwise the eager "
                              f"static call ({differ}) or itself")
     if counts != {"event_engine": 2, "refine_dft": 0, "extension_scan": 4,
-                  "extend_chains": 0, "merge_sections": 0}:
-        raise AssertionError(f"phase 19 {label}: K1 must launch once per replay, "
-                             f"K3 twice, K2 never: {counts} in two replays")
+                  "extend_chains": 0, "merge_sections": 0, **d4c_launches(2)}:
+        raise AssertionError(f"phase 19 {label}: K1, K6 and K7 must launch once "
+                             f"per replay, K3 twice, K2 never: {counts} in two "
+                             f"replays")
     if not (torch.isfinite(r1["y"]).all() and bool((r1["y"].abs().amax(-1) > 0).all())
             and not r1["_overflow"].any()):
         raise AssertionError(f"phase 19 {label}: non-finite, silent or "
@@ -2036,7 +2095,7 @@ def hot_set(x16, fs, card, reset_counts, path_launches) -> dict:
     want = {"event_engine": sum(blks[i]["k1_launches"] for i in order),
             "refine_dft": sum(blks[i]["k2_launches"] for i in order),
             "extension_scan": 0, "extend_chains": len(order),
-            "merge_sections": len(order)}
+            "merge_sections": len(order), **d4c_launches(len(order))}
     # two signatures from two threads at once
     pair = (1, 4)
     barrier = threading.Barrier(2)
@@ -2118,6 +2177,309 @@ def hot_set(x16, fs, card, reset_counts, path_launches) -> dict:
     return found
 
 
+def d4c_launches(n: int) -> dict:
+    """K6's and K7's launch counts where each launched n times."""
+    return {"d4c_centroid": n, "d4c_band_ap": n}
+
+
+def glide_f0(fs: int, seconds: float, n_frames: int) -> np.ndarray:
+    """glide_signal's f0 at the 5 ms frame times, 0 in its silences."""
+    n = int(fs * seconds)
+    t = np.arange(n_frames) * 0.005
+    f0 = 110.0 * 2 ** (t / max((n - 1) / fs, 1e-9))
+    gate = np.floor(t / 2.0) != np.floor((t + 0.2) / 2.0)
+    return np.where(gate, 0.0, f0)
+
+
+def d4c_operands(x: np.ndarray, fs: int, f0: np.ndarray, dtype,
+                 classic: bool = False, fft_size: int = None) -> dict:
+    """K6's and K7's operands as coarse_ap_frames builds them for rows x
+    (B, n) on the 5 ms grid and f0 (B * F,): the slabs, f0 clamped at
+    47 Hz, the float64 frame times and D4C-Requiem's geometry (classic D4C's
+    with ``classic``)."""
+    import torch
+
+    from world_tpu_torch.aperiodicity import common as C
+    from world_tpu_torch.aperiodicity import d4c as D
+    from world_tpu_torch.aperiodicity.d4c_requiem import n_bands_ap, requiem_fft_size
+
+    xt = torch.tensor(np.atleast_2d(x), dtype=dtype, device="cuda")
+    B = xt.shape[0]
+    F = f0.shape[0] // B
+    if classic:
+        N, fi, n_ap = C.d4c_fft_size(fs), D.frequency_interval(fs), D.n_bands(fs)
+    else:
+        N, fi, n_ap = requiem_fft_size(fs), 3000.0, n_bands_ap(fs)
+    N = fft_size or N
+    max_half = int(2.0 * fs / 47.0 + 0.5)
+    margin = int(np.ceil(fs / (4 * 47.0))) + 3
+    return {"slab": C.frame_slabs(xt, fs, 5.0, F, max_half + margin),
+            "margin": margin, "fs": fs,
+            "f0": torch.clamp(torch.tensor(f0, dtype=dtype, device="cuda"),
+                              min=47.0),
+            "t": C.frame_times(5.0, F, None, "cuda").repeat(B),
+            "max_half": max_half, "fft_size": N, "fi": fi, "n_ap": n_ap,
+            "window": C.band_window_table(fs, N, fi, dtype, "cuda")}
+
+
+def k6_args(a: dict) -> tuple:
+    return (a["slab"], a["margin"], a["fs"], a["f0"], a["t"], a["max_half"],
+            a["fft_size"])
+
+
+def k7_args(a: dict, centroid) -> tuple:
+    return (a["slab"], a["margin"], centroid, a["fs"], a["f0"], a["t"],
+            a["max_half"], a["fft_size"], a["fi"], a["n_ap"], a["window"])
+
+
+def d4c_geometries(x16: np.ndarray, fs: int, f0_16: np.ndarray, dtype) -> dict:
+    """Phase 22's operands: {geometry: thunk giving d4c_operands}."""
+    from world_tpu_torch.parallel.batch import bucket_lengths, graph_rows
+
+    rng = np.random.RandomState(0)
+    x4 = np.stack([x16] + [x16 + 1e-3 * rng.randn(x16.shape[0])
+                           for _ in range(3)])
+    utts = ragged_utterances(x16, fs)
+    L, ix = next(iter(bucket_lengths([u.shape[0] for u in utts], fs,
+                                     RAGGED_QUANTUM_S).items()))
+    xb = np.zeros((graph_rows(len(ix)), L), np.float32)
+    for r, i in enumerate(ix):
+        xb[r, :utts[i].shape[0]] = utts[i]
+    fb = int(1000 * L / fs / 5 + 1)
+    f0b = np.tile(np.pad(f0_16, (0, max(0, fb - f0_16.shape[0])))[:fb], xb.shape[0])
+    n60 = int(1000 * GLIDE_SECONDS / 5 + 1)
+    def high_rate(rate, classic=False):
+        n = int(1000 * int(rate * D4C_HIGH_RATE_SECONDS) / rate / 5 + 1)
+        return d4c_operands(glide_signal(rate, D4C_HIGH_RATE_SECONDS), rate,
+                            glide_f0(rate, D4C_HIGH_RATE_SECONDS, n), dtype,
+                            classic=classic)
+
+    # adversarial frames: 23 all-zero frames (samples 20,000-24,000), f0 at
+    # the 47 Hz clamp (a 1,363-sample window cut by the 1,024-point FFT
+    # after the sums over the whole row) and at 800 Hz in turns, and the
+    # first and last frames, whose slabs the signal's ends clamp
+    xz = x16.copy()
+    xz[20000:24000] = 0.0
+    f0z = np.where(np.arange(f0_16.shape[0]) % 3 == 0, 30.0,
+                   np.where(np.arange(f0_16.shape[0]) % 3 == 1, 800.0, f0_16))
+    return {
+        "x16_requiem": lambda: d4c_operands(x16, fs, f0_16, dtype),
+        "x16_batch4": lambda: d4c_operands(x4, fs, np.tile(f0_16, 4), dtype),
+        "x16_classic_pathB": lambda: d4c_operands(x16, fs, f0_16, dtype,
+                                                  classic=True),
+        f"bucket_{L}": lambda: d4c_operands(xb, fs, f0b, dtype),
+        "glide_60s": lambda: d4c_operands(
+            glide_signal(GLIDE_FS, GLIDE_SECONDS), GLIDE_FS,
+            glide_f0(GLIDE_FS, GLIDE_SECONDS, n60), dtype),
+        "48k_300_frames": lambda: high_rate(48000),
+        "x16_requiem_fft8192": lambda: d4c_operands(x16, fs, f0_16, dtype,
+                                                    fft_size=8192),
+        "96k_classic_300_frames": lambda: high_rate(96000, classic=True),
+        "adversarial_1024": lambda: d4c_operands(xz, fs, f0z, dtype),
+        "adversarial_2048": lambda: d4c_operands(xz, fs, f0z, dtype,
+                                                 classic=True),
+    }
+
+
+def d4c_window_samples(a: dict) -> float:
+    """The window samples inside the mask over all frames (half = floor(2 fs
+    / f0 + 0.5), at most max_half)."""
+    import torch
+
+    half = torch.clamp(torch.floor(2.0 * a["fs"] / a["f0"].double() + 0.5),
+                       max=a["max_half"])
+    return float((2 * half + 1).sum())
+
+
+def folded_bins(first, width: int, ext: int, N: int) -> int:
+    """The distinct half-spectrum bins that the bands [lo - ext, lo + width +
+    ext) of the mirrored spectrum (length N, read cyclically) cover."""
+    q = np.mod(np.concatenate([np.arange(lo - ext, lo + width + ext)
+                               for lo in first]), N)
+    return int(np.unique(np.where(q > N // 2, N - q, q)).size)
+
+
+def d4c_reads(a: dict) -> dict:
+    """The values of the operands that K6, K7 and the plain sub-stages need,
+    summed over the frames: "k6": the slab samples of K6's two windows
+    (inside the mask, half = floor(2 fs / f0 + 0.5) at most max_half, each
+    shifted by +-T0/4 as K6 shifts it, their union); "k7": the inner slab's
+    2 half + 1; "bands": the group-delay bins the bands read (folded); "k7_
+    centroid": the centroid bins K7's bands depend on through the group
+    delay's two smoothings (f0 / 2, then f0: the bands widened by 0.75 f0
+    and the interpolation's bin on each side).  Everything outside is
+    multiplied by 0 or never read."""
+    from world_tpu_torch.ops.d4c_spectra import band_geometry
+
+    fs, N, mh, margin = float(a["fs"]), a["fft_size"], a["max_half"], a["margin"]
+    f0 = a["f0"].double().cpu().numpy()
+    t = a["t"].double().cpu().numpy()
+    half = np.minimum(np.floor(2.0 * fs / f0 + 0.5), mh)
+    base = np.floor(t * fs + 0.501) + 1.0
+    sh = [np.clip(np.floor((t + q) * fs + 0.501) + 1.0 - base + margin, 0,
+                  2 * margin) for q in (0.25 / f0, -0.25 / f0)]
+    win = 2 * half + 1
+    wl = a["window"].shape[0]
+    first = band_geometry(fs, N, a["fi"], a["n_ap"], wl)["first"]
+    width = 2 * (wl // 2) + 1
+    ext = np.ceil(0.75 * f0 / (fs / N)).astype(np.int64) + 2
+    e, n = np.unique(ext, return_counts=True)
+    return {"k6": float((win + np.minimum(np.abs(sh[0] - sh[1]), win)).sum()),
+            "k7": float(win.sum()),
+            "bands": f0.shape[0] * folded_bins(first, width, 0, N),
+            "k7_centroid": float(sum(c * folded_bins(first, width, int(x), N)
+                                     for x, c in zip(e, n)))}
+
+
+def d4c_bounds(a: dict) -> dict:
+    """The least time of K6, K7 and the plain sub-stages they replace, on
+    one geometry's operands ({name: (ms, what bounds it)}): the values each
+    needs of its inputs (:func:`d4c_reads`) read once, each output written
+    once, and the operations of the function (a real FFT of N points
+    counted as a complex one of N / 2 and its split, 5 (N/2) log2(N/2) +
+    6 N; K6's two real FFTs a shift as one complex FFT of N points;
+    D4C_OPS_* for the rest)."""
+    from world_tpu_torch.ops.d4c_spectra import band_geometry
+
+    R = a["slab"].shape[0]
+    N, n_ap = a["fft_size"], a["n_ap"]
+    nb, kl = N // 2 + 1, min(N // 2 + 1, 256)
+    wl = a["window"].shape[0]
+    isz = a["slab"].element_size()
+    L = 2 * band_geometry(a["fs"], N, a["fi"], n_ap, wl)["span"] + nb + 1
+    win = D4C_OPS_PER_WINDOW_SAMPLE * d4c_window_samples(a)
+    real_fft = 5 * (N // 2) * np.log2(N // 2) + 6 * N
+    smooth = D4C_OPS_PER_SUM * (L + 2 * nb)
+    ops = {"d4c_centroid": 2 * win + R * (2 * 5 * N * np.log2(N)
+                                          + D4C_OPS_PER_BIN * (2 * nb + kl)),
+           "smoothed_power_spectrum_half": win + R * (
+               real_fft + D4C_OPS_PER_BIN * (nb + kl) + smooth),
+           "static_group_delay_half": R * (D4C_OPS_PER_BIN * nb + 2 * smooth),
+           "coarse_aperiodicity": R * n_ap * (wl + real_fft + D4C_OPS_PER_SUM * nb)}
+    reads = d4c_reads(a)
+    # the slab samples, f0 and the outputs in the working type, the frame
+    # times in float64, the tables (twiddles N, the band window wl) once
+    nbytes = {"d4c_centroid": (reads["k6"] + R * (1 + nb) + N) * isz + 8 * R,
+              "smoothed_power_spectrum_half": (reads["k7"] + R * (1 + nb)) * isz
+              + 8 * R,
+              "static_group_delay_half": R * (3 * nb + 1) * isz,
+              "coarse_aperiodicity": (reads["bands"] + R * n_ap + wl) * isz}
+    ops["d4c_band_ap"] = sum(ops[k] for k in ("smoothed_power_spectrum_half",
+                                              "static_group_delay_half",
+                                              "coarse_aperiodicity"))
+    nbytes["d4c_band_ap"] = ((reads["k7"] + reads["k7_centroid"]
+                              + R * (1 + n_ap) + wl + N) * isz + 8 * R
+                             + 4 * n_ap)
+    ops["static_centroid_half"] = ops["d4c_centroid"]
+    nbytes["static_centroid_half"] = nbytes["d4c_centroid"]
+    return {k: bound(nbytes[k], ops[k]) for k in ops}
+
+
+def check_d4c(a: dict, label: str, ref64=None) -> dict:
+    """K6 and K7 against their plain versions on one geometry's operands:
+    K6's rows within K6_*_REL of their largest |value|; K7 on the plain
+    centroid and the chain K6 -> K7 within the larger of K7_F64_DB and
+    K7_SPREAD_FACTOR times the spread between the plain version on the card
+    and on the CPU, a bar of at most K7_F64_CAP_DB, the two plain versions
+    NaN at the same places (float64); within K7_F32_DB of the plain version
+    or no further from ``ref64``, the plain version's float64 band
+    aperiodicity, than the plain version in float32 is, plus K7_F32_DB
+    (float32); NaN where the plain version has NaN and nowhere else; each
+    kernel twice bitwise.  Returns the errors, the plain version's band
+    aperiodicity and whether every check held."""
+    import torch
+
+    from world_tpu_torch.ops import d4c_spectra as K
+
+    f64 = a["slab"].dtype == torch.float64
+    c_plain = K.static_centroid_half(*k6_args(a))
+    c_kern = K.centroid_cuda(*k6_args(a))
+    b_plain = K.band_ap_plain(*k7_args(a, c_plain))
+    b_kern = K.band_ap_cuda(*k7_args(a, c_plain))
+    b_chain = K.band_ap_cuda(*k7_args(a, c_kern))
+    bits = torch.int64 if f64 else torch.int32
+    twice = (torch.equal(c_kern.view(bits), K.centroid_cuda(*k6_args(a)).view(bits))
+             and torch.equal(b_kern.view(bits),
+                             K.band_ap_cuda(*k7_args(a, c_plain)).view(bits)))
+    torch.cuda.synchronize()
+    on_cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+              for k, v in a.items()}
+    b_cpu = K.band_ap_plain(*k7_args(on_cpu, K.static_centroid_half(*k6_args(on_cpu))))
+    cpu_nan_ok = torch.equal(torch.isnan(b_cpu), torch.isnan(b_plain.cpu()))
+
+    def dist(x, y):
+        return float((x.double() - y.double()).abs().nan_to_num(0.0).max())
+
+    spread = dist(b_cpu, b_plain.cpu())
+    nan_rows = torch.isnan(c_plain).any(-1)
+    scale = c_plain.abs().nan_to_num(0.0).amax(-1)
+    d6 = (c_kern - c_plain).abs().nan_to_num(0.0).amax(-1)
+    rel = torch.where(nan_rows, torch.zeros_like(d6),
+                      d6 / scale.clamp_min(torch.finfo(scale.dtype).tiny))
+    e6, e6_abs = float(rel.max()), float(d6.max())
+    e7, ec = dist(b_kern, b_plain), dist(b_chain, b_plain)
+    nan_ok = (torch.equal(torch.isnan(c_kern), torch.isnan(c_plain))
+              and torch.equal(torch.isnan(b_kern), torch.isnan(b_plain))
+              and torch.equal(torch.isnan(b_chain), torch.isnan(b_plain)))
+    R, Ws = a["slab"].shape
+    out = {"k6_rel_err": e6, "k6_abs_err": e6_abs, "k7_db_err": e7,
+           "chain_db_err": ec, "plain_spread_db": spread, "plain": b_plain}
+    if f64:
+        bar = max(K7_F64_DB, K7_SPREAD_FACTOR * spread)
+        held = cpu_nan_ok and bar <= K7_F64_CAP_DB and e7 <= bar and ec <= bar
+        k7_line = (f"K7 on the plain centroid {e7:.3g} dB, K6 -> K7 {ec:.3g} dB "
+                   f"(<= {bar:.3g}, at most {K7_F64_CAP_DB:g}: the plain "
+                   f"version on the card against the CPU {spread:.3g} dB, NaN "
+                   f"at the same places: {cpu_nan_ok})")
+    else:
+        plain64, k7_64, chain64 = (dist(x, ref64) for x in (b_plain, b_kern, b_chain))
+        bar = plain64 + K7_F32_DB
+        held = all(d32 <= K7_F32_DB or d64 <= bar
+                   for d32, d64 in ((e7, k7_64), (ec, chain64)))
+        out.update(plain_vs_f64_db=plain64, k7_vs_f64_db=k7_64,
+                   chain_vs_f64_db=chain64)
+        k7_line = (f"against the plain version in float32: K7 on the plain "
+                   f"centroid {e7:.3g} dB, K6 -> K7 {ec:.3g} dB (<= {K7_F32_DB:g}, "
+                   f"or against its float64: plain {plain64:.3g} dB, K7 "
+                   f"{k7_64:.3g} dB, K6 -> K7 {chain64:.3g} dB <= {bar:.3g}; the "
+                   f"plain version on the card against the CPU {spread:.3g} dB)")
+    rel_bar = K6_F64_REL if f64 else K6_F32_REL
+    out["ok"] = e6 < rel_bar and held and nan_ok and twice
+    print(f"phase 22 {label}: {R} frames x {Ws}, fft_size {a['fft_size']}, "
+          f"{a['n_ap']} band(s); K6 max err {e6:.3g} of the row's largest "
+          f"(< {rel_bar:g}); {k7_line}; NaN rows {int(nan_rows.sum())}, NaN "
+          f"where the plain version's: {nan_ok}; each kernel twice bitwise: "
+          f"{twice}; band ap {float(b_plain.nan_to_num(0.0).min()):.3f} to "
+          f"{float(b_plain.nan_to_num(0.0).max()):.3f} dB"
+          + ("" if out["ok"] else "; FAILED"))
+    return out
+
+
+def time_d4c(a: dict, geo: str, card: str) -> dict:
+    """K6 and K7 beside their plain versions (the stock ops the main path
+    ran before the kernels) and their bounds: plain, kernel, kernel, plain."""
+    from world_tpu_torch.ops import d4c_spectra as K
+
+    c = K.static_centroid_half(*k6_args(a))
+    out = {}
+    for name, kern, plain, args, (b_ms, b_by) in (
+            ("d4c_centroid", K.centroid_cuda, K.static_centroid_half, k6_args(a),
+             d4c_bounds(a)["d4c_centroid"]),
+            ("d4c_band_ap", K.band_ap_cuda, K.band_ap_plain, k7_args(a, c),
+             d4c_bounds(a)["d4c_band_ap"])):
+        p1 = cuda_ms(lambda: plain(*args), iters=2)
+        k1 = cuda_ms(lambda: kern(*args), iters=20)
+        k2 = cuda_ms(lambda: kern(*args), iters=20)
+        p2 = cuda_ms(lambda: plain(*args), iters=2)
+        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                     "bound_ms": b_ms, "bound_by": b_by}
+        print(f"phase 22 {name} float32 at {geo} [{card}]: kernel "
+              f"{k1:.4f}/{k2:.4f} ms, plain (the parent's stock ops) "
+              f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4g} ms ({b_by}), share of "
+              f"bound {b_ms / ((k1 + k2) / 2):.3g}")
+    return out
+
+
 def main(phases=ALL_PHASES) -> int:
     import torch
 
@@ -2130,7 +2492,8 @@ def main(phases=ALL_PHASES) -> int:
     from world_tpu_torch.synth.classic import standard_normal
     from world_tpu_torch._backend import kernel_library, kernel_resources
     from world_tpu_torch.f0.events import batched_interval_interp
-    from world_tpu_torch.ops import edge_interp, extension_scan, fix_step3, refine_dft
+    from world_tpu_torch.ops import (d4c_spectra, edge_interp, extension_scan,
+                                     fix_step3, refine_dft)
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -2171,6 +2534,19 @@ def main(phases=ALL_PHASES) -> int:
                            "replaces": "world_tpu/f0/harvest.py:585",
                            "library_ms": None, "launches_by_path": {},
                            "geometries": {}},
+        # no Pallas kernel: D4C's stock ops, static_centroid_half (:164) and
+        # the smoothed power spectrum, group delay and band aperiodicity
+        # (:176-236, from smoothed_power_spectrum_half at :176-188)
+        "d4c_centroid": {"name": "d4c_centroid", "route": "cuda",
+                         "source": "world_tpu_torch/csrc/d4c_spectra.cu",
+                         "replaces": "world_tpu/aperiodicity/common.py:164",
+                         "library_ms": None, "launches_by_path": {},
+                         "geometries": {}},
+        "d4c_band_ap": {"name": "d4c_band_ap", "route": "cuda",
+                        "source": "world_tpu_torch/csrc/d4c_spectra.cu",
+                        "replaces": "world_tpu/aperiodicity/common.py:188",
+                        "library_ms": None, "launches_by_path": {},
+                        "geometries": {}},
     }
 
     def path_launches(path: str):
@@ -2179,7 +2555,9 @@ def main(phases=ALL_PHASES) -> int:
                   "refine_dft": refine_dft.counter.launches,
                   "extension_scan": extension_scan.counter.launches,
                   "extend_chains": fix_step3.extend_counter.launches,
-                  "merge_sections": fix_step3.merge_counter.launches}
+                  "merge_sections": fix_step3.merge_counter.launches,
+                  "d4c_centroid": d4c_spectra.centroid_counter.launches,
+                  "d4c_band_ap": d4c_spectra.band_ap_counter.launches}
         for name, n in counts.items():
             kernels[name]["launches_by_path"][path] = n
             kernels[name]["launches"] = sum(
@@ -2188,7 +2566,8 @@ def main(phases=ALL_PHASES) -> int:
 
     def reset_counts():
         for c in (edge_interp.counter, refine_dft.counter, extension_scan.counter,
-                  fix_step3.extend_counter, fix_step3.merge_counter):
+                  fix_step3.extend_counter, fix_step3.merge_counter,
+                  d4c_spectra.centroid_counter, d4c_spectra.band_ap_counter):
             c.launches = 0
 
     def hold_kernels(ops, label, k1_geo, k2_geo=None):
@@ -2367,6 +2746,38 @@ def main(phases=ALL_PHASES) -> int:
                 kernels[name]["geometries"]["harvest_x16"]["max_abs_err"]
         print("phase 20 K4 and K5: ok")
 
+    if 22 in phases:
+        # K6 and K7 against their plain versions in both types at every
+        # geometry the round trips give them, float32 also against the plain
+        # version's float64 result, then timed in float32
+        failed = []
+        geos = {dt: d4c_geometries(x16, fs, np.asarray(g["f0"]), dt)
+                for dt in (torch.float64, torch.float32)}
+        for geo in geos[torch.float32]:
+            ref = None
+            for dt in (torch.float64, torch.float32):
+                a = geos[dt][geo]()
+                res = check_d4c(a, f"{str(dt)[6:]} {geo}", ref)
+                if not res["ok"]:
+                    failed.append(f"{str(dt)[6:]} {geo}")
+                if dt == torch.float64:
+                    ref = res["plain"]
+                    continue
+                errs = {k: v for k, v in res.items() if k not in ("ok", "plain")}
+                times = time_d4c(a, geo, card)
+                for name, err in (("d4c_centroid", errs["k6_abs_err"]),
+                                  ("d4c_band_ap", errs["chain_db_err"])):
+                    entry = {"rows_width_fft": [*a["slab"].shape, a["fft_size"]],
+                             "max_abs_err": err, **errs, **times[name]}
+                    kernels[name]["geometries"][geo] = entry
+                    if geo == "x16_requiem":
+                        kernels[name].update(max_abs_err=err, **times[name])
+                del a, res
+        if failed:
+            raise AssertionError(f"phase 22: K6/K7 disagree with their plain "
+                                 f"versions at {failed}")
+        print("phase 22 K6 and K7: ok")
+
     if 4 in phases:
         w = World(device="cuda", dtype=torch.float32)
         reset_counts()
@@ -2375,9 +2786,10 @@ def main(phases=ALL_PHASES) -> int:
         torch.cuda.synchronize()
         counts = path_launches("harvest_requiem")
         if (counts["event_engine"] == 0 or counts["refine_dft"] == 0
-                or counts["extend_chains"] != 1 or counts["merge_sections"] != 1):
-            raise AssertionError(f"the Harvest path did not launch K1, K2, K4 and "
-                                 f"K5: {counts}")
+                or counts["extend_chains"] != 1 or counts["merge_sections"] != 1
+                or counts["d4c_centroid"] != 1 or counts["d4c_band_ap"] != 1):
+            raise AssertionError(f"the Harvest path did not launch K1, K2 and "
+                                 f"K4-K7: {counts}")
         agree, rmse, lsd, ap_err = golden_bars(dat, g)
         y = np.asarray(out["out"])
         print(f"phase 4 slice float32 on x16: vuv agreement {agree:.6f} (> 0.99), "
@@ -2385,7 +2797,8 @@ def main(phases=ALL_PHASES) -> int:
               f"band-ap max err {ap_err:.6g} dB (< 1), y {y.shape} "
               f"max|y| {np.abs(y).max():.4g}; launches K1 "
               f"{counts['event_engine']}, K2 {counts['refine_dft']}, K4 "
-              f"{counts['extend_chains']}, K5 {counts['merge_sections']}")
+              f"{counts['extend_chains']}, K5 {counts['merge_sections']}, K6 "
+              f"{counts['d4c_centroid']}, K7 {counts['d4c_band_ap']}")
         if not (agree > 0.99 and rmse < 1.0 and lsd < 1.0 and ap_err < 1.0):
             raise AssertionError("phase 4: golden bars not met")
         if not (np.all(np.isfinite(y)) and np.abs(y).max() > 0):
@@ -2465,9 +2878,9 @@ def main(phases=ALL_PHASES) -> int:
         torch.cuda.synchronize()
         counts = path_launches("dio_classic")
         if counts != {"event_engine": 1, "refine_dft": 0, "extension_scan": 2,
-                      "extend_chains": 0, "merge_sections": 0}:
-            raise AssertionError(f"the classic path must launch K1 once, K3 twice "
-                                 f"and K2 never: {counts}")
+                      "extend_chains": 0, "merge_sections": 0, **d4c_launches(1)}:
+            raise AssertionError(f"the classic path must launch K1, K6 and K7 "
+                                 f"once, K3 twice and K2 never: {counts}")
         b = classic_bars(dat, ref)
         y = np.asarray(out["out"])
         print(f"phase 8 classic float32 on x16 vs the port's float64 on the card: "
@@ -2477,7 +2890,8 @@ def main(phases=ALL_PHASES) -> int:
               f"{b['lsd']:.6g} dB (< 1), aperiodicity max err {b['ap_max_db']:.6g} "
               f"dB (< 1), y {y.shape} max|y| {np.abs(y).max():.4g}; launches K1 "
               f"{counts['event_engine']}, K2 {counts['refine_dft']}, K3 "
-              f"{counts['extension_scan']}")
+              f"{counts['extension_scan']}, K6 {counts['d4c_centroid']}, K7 "
+              f"{counts['d4c_band_ap']}")
         if not (b["vuv_agreement"] > 0.99 and b["f0_median_err"] < 0.01
                 and b["f0_rmse"] < 1.0 and b["lsd"] < 1.0 and b["ap_max_db"] < 1.0):
             raise AssertionError("phase 8: classic bars not met")
@@ -2505,9 +2919,9 @@ def main(phases=ALL_PHASES) -> int:
         if flips or off:
             raise AssertionError("phase 10: batched row 0 changed decisions")
         if counts != {"event_engine": 1, "refine_dft": 0, "extension_scan": 2,
-                      "extend_chains": 0, "merge_sections": 0}:
-            raise AssertionError(f"phase 10: the classic batch must launch K1 once, "
-                                 f"K3 twice and K2 never: {counts}")
+                      "extend_chains": 0, "merge_sections": 0, **d4c_launches(1)}:
+            raise AssertionError(f"phase 10: the classic batch must launch K1, K6 "
+                                 f"and K7 once, K3 twice and K2 never: {counts}")
         if not (torch.isfinite(batch["y"]).all() and torch.isfinite(single["y"]).all()
                 and bool((batch["y"].abs().amax(dim=1) > 0).all())):
             raise AssertionError("phase 10: non-finite or all-zero batched output")
@@ -2555,15 +2969,19 @@ def main(phases=ALL_PHASES) -> int:
               f"voiced share {float((got['f0'] > 0).float().mean()):.4f}; "
               f"encode(f0_method='swipe') -> decode: f0 {dat['f0'].shape}, y "
               f"{y.shape} max|y| {np.abs(y).max():.4g}; launches K1 "
-              f"{counts['event_engine']}, K2 {counts['refine_dft']}")
+              f"{counts['event_engine']}, K2 {counts['refine_dft']}, K6 "
+              f"{counts['d4c_centroid']}, K7 {counts['d4c_band_ap']}")
         print(f"phase 11 sanity, not judged: float64 SWIPE' on x16 against "
               f"swipe.npz (the same utterance at 22.05 kHz): vuv agreement "
               f"{s_agree:.4f}, median relative err {s_med:.3g}, within 1% "
               f"{s_within:.4f}")
         if not (agree > 0.97 and med < 1e-4 and within > 0.97):
             raise AssertionError("phase 11: SWIPE' bars not met")
-        if any(counts.values()):
-            raise AssertionError(f"phase 11: SWIPE' must launch no kernel: {counts}")
+        # SWIPE' launches no kernel; its encode's D4C launches K6 and K7
+        if counts != {"event_engine": 0, "refine_dft": 0, "extension_scan": 0,
+                      "extend_chains": 0, "merge_sections": 0, **d4c_launches(1)}:
+            raise AssertionError(f"phase 11: SWIPE' must launch no kernel and its "
+                                 f"encode's D4C K6 and K7 once: {counts}")
         if not (np.all(np.isfinite(y)) and np.abs(y).max() > 0
                 and y.shape == (expected_length(dat["temporal_positions"], fs),)
                 and np.array_equal(dat["vuv"], (got["f0"] > 0).float().cpu().numpy())):
@@ -2620,9 +3038,10 @@ def main(phases=ALL_PHASES) -> int:
             back = World.load(Path(tmp) / "analysis.npz")
         torch.cuda.synchronize()
         counts = path_launches("B_conversion_prosody")
-        # encode x 2 by Harvest (K1 + K2 each), x 2 by DIO (K1 each)
+        # encode x 2 by Harvest (K1 + K2 each), x 2 by DIO (K1 each); D4C
+        # (K6 + K7) in each encode and in encode_w_gvn_f0
         if counts != {"event_engine": 4, "refine_dft": 2, "extension_scan": 4,
-                      "extend_chains": 2, "merge_sections": 2}:
+                      "extend_chains": 2, "merge_sections": 2, **d4c_launches(5)}:
             raise AssertionError(f"phase 12: path B's launches: {counts}")
 
         lsd = mcep_lsd(spec, rec)
@@ -2727,7 +3146,8 @@ def main(phases=ALL_PHASES) -> int:
         if len(buckets) != 5 or counts != {"event_engine": 5, "refine_dft": 5,
                                            "extension_scan": 0,
                                            "extend_chains": 5,
-                                           "merge_sections": 5}:
+                                           "merge_sections": 5,
+                                           **d4c_launches(5)}:
             raise AssertionError(f"phase 13: one K1 and one K2 launch per bucket: "
                                  f"{counts} for {len(buckets)} buckets")
         for i, u in enumerate(utts):
@@ -2813,12 +3233,13 @@ def main(phases=ALL_PHASES) -> int:
               + f"; launches K1 {counts['event_engine']} (expected "
               f"{blkL32['k1_launches']}), K2 {counts['refine_dft']} (expected "
               f"{blkL32['k2_launches']}), K4 {counts['extend_chains']} (1), K5 "
-              f"{counts['merge_sections']} (1; the keeps' means in "
+              f"{counts['merge_sections']} (1), K6 {counts['d4c_centroid']} (1), K7 "
+              f"{counts['d4c_band_ap']} (1; the keeps' means in "
               f"{blkL32['step3_means_chunks']} section chunks)")
         if counts != {"event_engine": blkL32["k1_launches"],
                       "refine_dft": blkL32["k2_launches"],
                       "extension_scan": 0, "extend_chains": 1,
-                      "merge_sections": 1} \
+                      "merge_sections": 1, **d4c_launches(1)} \
                 or counts["event_engine"] < 2 or blkL32["step3_means_chunks"] < 2:
             raise AssertionError(f"phase 14: one K1 launch per band chunk, one "
                                  f"K2 launch per frame chunk, K4 and K5 once: "
@@ -3068,7 +3489,7 @@ def main(phases=ALL_PHASES) -> int:
                 and counts == {"event_engine": blkX["k1_launches"],
                                "refine_dft": blkX["k2_launches"],
                                "extension_scan": 0, "extend_chains": 1,
-                               "merge_sections": 1}):
+                               "merge_sections": 1, **d4c_launches(0)}):
             raise AssertionError(f"phase 14: Harvest at {LONG_SECONDS:g} s, blocked")
         hv_u, secs_u, peak_u, _ = runs["unblocked"]
         if hv_u is None:
@@ -3251,7 +3672,7 @@ def main(phases=ALL_PHASES) -> int:
                 and counts == {"event_engine": 2 * blkS["k1_launches"],
                                "refine_dft": 2 * blkS["k2_launches"],
                                "extension_scan": 0, "extend_chains": 2,
-                               "merge_sections": 2}):
+                               "merge_sections": 2, **d4c_launches(2)}):
             raise AssertionError("phase 15: the sharded batch")
         # both kernels at the geometry a shard of two rows launches them at
         opsS32 = main_path_operands(xs[:2], fs, torch.float32, blocking=blkS)
@@ -3334,7 +3755,7 @@ def main(phases=ALL_PHASES) -> int:
             raise AssertionError("phase 16: the 22.05 kHz contour misses the "
                                  "golden bars")
         if counts != {"event_engine": 1, "refine_dft": 1, "extension_scan": 0,
-                      "extend_chains": 1, "merge_sections": 1}:
+                      "extend_chains": 1, "merge_sections": 1, **d4c_launches(0)}:
             raise AssertionError(f"phase 16: one K1 and one K2 launch: {counts}")
         y64, tab64 = decimated22(torch.float64)
         ops22_64 = decimated_operands(y64, afs22, HARVEST22_LENGTH, fs22, tab64)
@@ -3383,7 +3804,7 @@ def main(phases=ALL_PHASES) -> int:
             raise AssertionError(f"phase 17: a gate failed: {gates}")
         if bench["paths"]["single"]["launches"] != {
                 "event_engine": 1, "refine_dft": 1, "extension_scan": 0,
-                "extend_chains": 1, "merge_sections": 1}:
+                "extend_chains": 1, "merge_sections": 1, **d4c_launches(1)}:
             raise AssertionError("phase 17: bench_torch's round trip must launch "
                                  "each kernel once")
         syncing = {k: v["host_syncs"] for k, v in prof["signals"][0]["stages"].items()
@@ -3451,7 +3872,8 @@ def main(phases=ALL_PHASES) -> int:
         time_ola(f"{duration:.3f} s", ola_args)
         counters = (edge_interp.counter, refine_dft.counter,
                     extension_scan.counter, fix_step3.extend_counter,
-                    fix_step3.merge_counter)
+                    fix_step3.merge_counter, d4c_spectra.centroid_counter,
+                    d4c_spectra.band_ap_counter)
         saved = [c.launches for c in counters]
         reset_counts()
         t_classic = cuda_ms(lambda: w32.decode(w32.encode(

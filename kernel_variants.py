@@ -3,10 +3,10 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 kernel_variants.py [k1 k2 step3 k3] [--against OTHER/extension_scan.cu]
+    python3 kernel_variants.py [k1 k2 step3 k3 d4c] [--against OTHER/extension_scan.cu]
 
 (the kernels to vary; all when none is named: K1 and K2, timed together,
-Harvest FixStep3's K4 and K5, and DIO's K3.  ``--against`` adds another
+Harvest FixStep3's K4 and K5, DIO's K3, and D4C's K6 and K7.  ``--against`` adds another
 source of K3's C interface, e.g. a parent commit's unpacked with ``git
 archive`` into the git-ignored ``_checkout/``, as the k3 group's variant
 "against": it is held bitwise beside the kernel as built, and the two are
@@ -17,7 +17,8 @@ of each kernel source with one part removed or changed (text substitutions
 of world_tpu_torch/csrc/*.cu), loads each as a library of its own and times
 it with CUDA events on the Harvest main path's float32 operands (K1 also at
 DIO's geometry; K4 and K5 at x16 and on the 60 s glide; K3 on DIO's
-operands at x16, batch 4 and on the 60 s glide), in turns.  A variant that
+operands at x16, batch 4 and on the 60 s glide; K6 and K7 on phase 22's
+operands at x16 and on the 60 s glide), in turns.  A variant that
 removes work computes garbage: only its time means anything, and the
 difference from the full kernel is what the removed part costs.  It then times the host's share of one call of
 K1's wrapper and of its parts.  It asserts nothing about speed.
@@ -125,6 +126,40 @@ K3_VARIANTS = (
 )
 
 
+# K6 and K7 (d4c_spectra.cu)
+_STAGES = "  int s0 = 0;\n  for (; s0 + 3 <= log_n; s0 += 3)"
+_BITS = "    for (int bit = K::kBits - 1; bit >= 0; --bit) {"
+_BANDS = "  for (int band = 0; band < n_ap; ++band) {"
+_SCAN = "  const int per = (g.L + kThreads - 1) / kThreads;"
+_WCOS = ("      const T c1 = M<T>::cos(arg);\n"
+         "      wv = kBlackman ? (T(0.08) * M<T>::cos(T(2) * arg) + T(0.5) * c1) + T(0.42)")
+D4C_VARIANTS = (
+    ("full", "the kernels as built", ()),
+    ("no_fft", "the FFTs' butterfly stages skipped",
+     ((_STAGES, "  return;\n" + _STAGES),)),
+    ("no_topk", "K7's top-k bit passes skipped",
+     ((_BITS, _BITS.replace("bit >= 0", "bit >= K::kBits")),)),
+    ("no_bands", "K7 without its bands (no band FFT, no top-k)",
+     ((_BANDS, _BANDS.replace("band < n_ap", "band < 0")),)),
+    ("no_smoothing", "K7's three smoothings' running sums cut to one entry",
+     ((_SCAN, "  const int per = 1;"),)),
+    ("no_window_cos", "the windows without their cosines",
+     ((_WCOS, "      const T c1 = arg;\n"
+              "      wv = kBlackman ? (T(0.08) * arg + T(0.5) * c1) + T(0.42)"),)),
+    ("64_threads", "blocks of 64 threads",
+     (("constexpr int kThreads = 128;", "constexpr int kThreads = 64;"),)),
+    ("256_threads", "blocks of 256 threads",
+     (("constexpr int kThreads = 128;", "constexpr int kThreads = 256;"),)),
+    ("k7_6_blocks", "K7 compiled for 6 blocks an SM (at most 85 registers)",
+     (("kCentroidBlocks = 8, kBandBlocks = 8;", "kCentroidBlocks = 8, kBandBlocks = 6;"),)),
+    ("unbounded_registers", "both compiled for 1 block an SM (registers unbounded)",
+     (("kCentroidBlocks = 8, kBandBlocks = 8;", "kCentroidBlocks = 1, kBandBlocks = 1;"),)),
+    ("unpadded", "the FFT buffers without their pad words",
+     (("__host__ __device__ constexpr int pad(int i) { return i + (i >> 5); }",
+       "__host__ __device__ constexpr int pad(int i) { return i; }"),)),
+)
+
+
 def _substitute(src: str, pairs) -> str:
     for old, new in pairs:
         if old not in src:
@@ -135,7 +170,8 @@ def _substitute(src: str, pairs) -> str:
 
 GROUPS = {"k2": ("refine_dft", K2_VARIANTS), "k1": ("event_engine", K1_VARIANTS),
           "step3": ("fix_step3", STEP3_VARIANTS),
-          "k3": ("extension_scan", K3_VARIANTS)}
+          "k3": ("extension_scan", K3_VARIANTS),
+          "d4c": ("d4c_spectra", D4C_VARIANTS)}
 
 
 def build_variants(build_dir: Path, groups=tuple(GROUPS), against=None):
@@ -340,6 +376,64 @@ def k3_variants(libs, card, against=None):
     print("extension_scan_cuda, the wrapper: " + "; ".join(line) + f" [{card}]")
 
 
+def d4c_variants(libs, card):
+    """K6 and K7 of every D4C_VARIANTS library on phase 22's float32
+    operands at x16 (D4C-Requiem) and on the 60 s glide."""
+    import torch
+
+    import chip_smoke
+    from world_tpu_torch.ops import d4c_spectra as K
+
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    fns = {}
+    for name, _, _ in D4C_VARIANTS:
+        lib = ctypes.CDLL(str(libs[("d4c_spectra", name)]))
+        k6, k7 = lib.world_d4c_centroid_f32, lib.world_d4c_band_ap_f32
+        k6.argtypes = [P, P, P, P, I, I, I, I, I, D, P, P]
+        k7.argtypes = [P] * 7 + [I] * 5 + [D] + [I] * 4 + [P, P]
+        k6.restype = k7.restype = I
+        fns[name] = (k6, k7)
+    g = np.load(chip_smoke.GOLDEN)
+    geos = chip_smoke.d4c_geometries(np.asarray(g["x16"]), int(g["fs"]),
+                                     np.asarray(g["f0"]), torch.float32)
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    calls = {}
+    for geo in ("x16_requiem", "glide_60s"):
+        a = geos[geo]()
+        R, Ws = a["slab"].shape
+        N, wl = a["fft_size"], a["window"].shape[0]
+        bg = K.band_geometry(a["fs"], N, a["fi"], a["n_ap"], wl)
+        tw = K.fft_twiddles(N, torch.float32, "cuda")
+        first = torch.tensor(bg["first"], dtype=torch.int32, device="cuda")
+        cen = torch.empty((R, N // 2 + 1), device="cuda")
+        out = torch.empty((R, a["n_ap"]), device="cuda")
+        k6_args = (a["slab"].data_ptr(), a["f0"].data_ptr(), a["t"].data_ptr(),
+                   tw.data_ptr(), R, Ws, a["max_half"], a["margin"], N,
+                   float(a["fs"]), cen.data_ptr(), stream)
+        k7_args = (a["slab"].data_ptr(), cen.data_ptr(), a["f0"].data_ptr(),
+                   a["t"].data_ptr(), tw.data_ptr(), a["window"].data_ptr(),
+                   first.data_ptr(), R, Ws, a["max_half"], a["margin"], N,
+                   float(a["fs"]), a["n_ap"], wl, bg["top_k"], bg["span"],
+                   out.data_ptr(), stream)
+        calls[geo] = (a, tw, first, cen, out, k6_args, k7_args)
+    print(f"kernel_variants [{card}]: K6 and K7, float32, phase 22's operands; "
+          f"mean of 20 launches, CUDA events, two rounds in turns")
+    for rnd in range(2):
+        for name, what, _ in D4C_VARIANTS:
+            k6, k7 = fns[name]
+            line = []
+            for geo, (*_, k6_args, k7_args) in calls.items():
+                def run(fn, args):
+                    err = fn(*args)
+                    if err:
+                        raise RuntimeError(f"d4c variant {name}: cudaError {err}")
+                t6 = chip_smoke.cuda_ms(lambda: run(k6, k6_args), iters=20) * 1e3
+                t7 = chip_smoke.cuda_ms(lambda: run(k7, k7_args), iters=20) * 1e3
+                line.append(f"{geo} K6 {t6:.1f} us, K7 {t7:.1f} us")
+            print(f"variant d4c_spectra {name} round {rnd}: " + "; ".join(line)
+                  + f" ({what})")
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -367,6 +461,8 @@ def main(argv=None) -> int:
         step3_variants(libs, card)
     if "k3" in groups:
         k3_variants(libs, card, args.against)
+    if "d4c" in groups:
+        d4c_variants(libs, card)
     if "k1" not in groups and "k2" not in groups:
         return 0
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double

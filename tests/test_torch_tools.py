@@ -71,7 +71,8 @@ def test_bench_torch_on_cpu(on_path, capsys):
         assert set(p["ms_per_call"]) == {"min", "median", "max"}
         assert p["launches"] == {"event_engine": 0, "refine_dft": 0,
                                  "extension_scan": 0, "extend_chains": 0,
-                                 "merge_sections": 0}
+                                 "merge_sections": 0, "d4c_centroid": 0,
+                                 "d4c_band_ap": 0}
     assert doc["value"] == max(p["xrt"]["median"] for p in doc["paths"].values())
 
 
@@ -94,7 +95,8 @@ def test_bench_paths_torch_on_cpu(on_path, capsys, tmp_path):
             "launches"]
     assert doc["paths"]["classic_roundtrip"]["launches"] == {
         "event_engine": 0, "refine_dft": 0, "extension_scan": 0,
-        "extend_chains": 0, "merge_sections": 0}
+        "extend_chains": 0, "merge_sections": 0, "d4c_centroid": 0,
+        "d4c_band_ap": 0}
     assert set(doc["batch_sweep"]) == {"1", "2"}
     for B, row in doc["batch_sweep"].items():
         assert row["gate"] == "PASS"

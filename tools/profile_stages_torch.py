@@ -19,9 +19,9 @@ stages to wrap); the stage functions are wrapped in place, in the modules that c
 them, so the path and its stage order are the program's own.  After a
 warm-up call, three more calls:
   1. unprofiled: each stage's milliseconds by CUDA events around it
-     (inclusive of the stages inside it), and the launches of K1, K2 and
-     FixStep3's K4 and K5 (launched through ctypes, these four are not
-     among the profiler's device events below);
+     (inclusive of the stages inside it), and the launches of K1, K2,
+     FixStep3's K4 and K5 and D4C's K6 and K7 (launched through ctypes,
+     these are not among the profiler's device events below);
   2. under ``torch.cuda.set_sync_debug_mode("warn")`` (restored after):
      the host syncs inside each stage, one warning each;
   3. under torch.profiler, each stage inside a ``record_function`` range:
@@ -73,9 +73,9 @@ STAGES = (
 )
 GLIDE_FS, GLIDE_SECONDS = 22050, 60.0
 # the kernels whose launches the table counts, by bench_torch.launch_counts'
-# names: K1, K2, and FixStep3's K4 and K5
+# names: K1, K2, FixStep3's K4 and K5, and D4C's K6 and K7
 KERNELS = {"event_engine": "K1", "refine_dft": "K2", "extend_chains": "K4",
-           "merge_sections": "K5"}
+           "merge_sections": "K5", "d4c_centroid": "K6", "d4c_band_ap": "K7"}
 
 
 def glide_signal(fs: int, seconds: float) -> np.ndarray:

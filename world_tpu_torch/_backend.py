@@ -242,6 +242,15 @@ def _build_and_load():
         # B, C, n, S, n_steps, c, f0_m, cur_st, cur_ed, started, stream
         fn.argtypes = [P] * 11 + [I] * 6 + [P] * 5
         fn.restype = I
+        fn = getattr(lib, f"world_d4c_centroid_{suffix}")
+        # slab, f0, t, twiddles, R, Ws, max_half, margin, N, fs, out, stream
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, D, P, P]
+        fn.restype = I
+        fn = getattr(lib, f"world_d4c_band_ap_{suffix}")
+        # slab, centroid, f0, t, twiddles, window, band_first, R, Ws,
+        # max_half, margin, N, fs, n_ap, wl, top_k, span, out, stream
+        fn.argtypes = [P] * 7 + [I] * 5 + [D] + [I] * 4 + [P, P]
+        fn.restype = I
     return lib, seconds
 
 

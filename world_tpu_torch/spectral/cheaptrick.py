@@ -7,9 +7,10 @@ import numpy as np
 import torch
 
 from .._backend import F64_EPS, rdiv, sdiv
-from ..aperiodicity.common import frame_slabs, rect_smooth_half
+from ..aperiodicity.common import frame_slabs
 from ..dsp.dcfill import dc_fill_add
 from ..dsp.minphase import mirror_full
+from ..dsp.smoothing import rect_smooth_half
 from ..frames import (apply_adaptive_window, host as _host, like as _like,
                       uniform_frame_period_ms)
 from ..tables import frame_grid, table
