@@ -4,13 +4,15 @@
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 kernel_variants.py [k1 k2 step3 k3 d4c] [--against OTHER/extension_scan.cu]
+                               [--against OTHER/d4c_spectra.cu]
 
 (the kernels to vary; all when none is named: K1 and K2, timed together,
 Harvest FixStep3's K4 and K5, DIO's K3, and D4C's K6 and K7.  ``--against`` adds another
-source of K3's C interface, e.g. a parent commit's unpacked with ``git
-archive`` into the git-ignored ``_checkout/``, as the k3 group's variant
-"against": it is held bitwise beside the kernel as built, and the two are
-timed other, this, ..., this, other)
+source of K3's or of K6's and K7's C interface, e.g. a parent commit's unpacked
+with ``git archive`` into the git-ignored ``_checkout/``, as the group's
+variant "against": K3's is held bitwise beside the kernel as built, and the
+two are timed other, this, ..., this, other; K6's and K7's are timed beside
+the variants, first and last)
 
 Without a device profiler that reads counters, this script builds variants
 of each kernel source with one part removed or changed (text substitutions
@@ -127,29 +129,59 @@ K3_VARIANTS = (
 
 
 # K6 and K7 (d4c_spectra.cu)
-_STAGES = "  int s0 = 0;\n  for (; s0 + 3 <= log_n; s0 += 3)"
-_BITS = "    for (int bit = K::kBits - 1; bit >= 0; --bit) {"
+_STAGES = "  const int passes = (lc + R - 1) / R;"
+_DIGITS = "  for (int shift = K::kBits - 8; shift >= 0; shift -= 8) {"
+_BITS = "  for (int bit = K::kBits - 1; bit >= 0; --bit) {"
 _BANDS = "  for (int band = 0; band < n_ap; ++band) {"
-_SCAN = "  const int per = (g.L + kThreads - 1) / kThreads;"
-_WCOS = ("      const T c1 = M<T>::cos(arg);\n"
-         "      wv = kBlackman ? (T(0.08) * M<T>::cos(T(2) * arg) + T(0.5) * c1) + T(0.42)")
+_SCAN = "  const int per = (n_own + kThreads - 1) / kThreads;"
+_WCOS = ("    const T c1 = M<T>::cos(arg);\n"
+         "    wv = kBlackman ? (T(0.08) * M<T>::cos(T(2) * arg) + T(0.5) * c1) + T(0.42)")
+_RADIX = "template <typename T> struct PassStages { static constexpr int value = 4; };"
+_RANKS = "constexpr int kForceRanks = 0;"
+_PAIR = "constexpr int kForcePair = -1;"
 D4C_VARIANTS = (
     ("full", "the kernels as built", ()),
-    ("no_fft", "the FFTs' butterfly stages skipped",
+    ("no_fft", "the FFTs skipped (no butterflies, no input loads)",
      ((_STAGES, "  return;\n" + _STAGES),)),
-    ("no_topk", "K7's top-k bit passes skipped",
-     ((_BITS, _BITS.replace("bit >= 0", "bit >= K::kBits")),)),
+    ("no_topk", "K7's top-k rounds skipped (digits and bits)",
+     ((_DIGITS, _DIGITS.replace("shift >= 0", "shift >= K::kBits")),
+      (_BITS, _BITS.replace("bit >= 0", "bit >= K::kBits")))),
     ("no_bands", "K7 without its bands (no band FFT, no top-k)",
      ((_BANDS, _BANDS.replace("band < n_ap", "band < 0")),)),
-    ("no_smoothing", "K7's three smoothings' running sums cut to one entry",
+    ("no_smoothing", "K7's three smoothings' running sums cut to one entry a thread",
      ((_SCAN, "  const int per = 1;"),)),
     ("no_window_cos", "the windows without their cosines",
-     ((_WCOS, "      const T c1 = arg;\n"
-              "      wv = kBlackman ? (T(0.08) * arg + T(0.5) * c1) + T(0.42)"),)),
-    ("64_threads", "blocks of 64 threads",
-     (("constexpr int kThreads = 128;", "constexpr int kThreads = 64;"),)),
-    ("256_threads", "blocks of 256 threads",
-     (("constexpr int kThreads = 128;", "constexpr int kThreads = 256;"),)),
+     ((_WCOS, "    const T c1 = arg;\n"
+              "    wv = kBlackman ? (T(0.08) * arg + T(0.5) * c1) + T(0.42)"),)),
+    ("k6_split_radix8", "K6's split frames three radix-2 stages a register pass in "
+     "float32, not four", ((_RADIX, _RADIX.replace("value = 4", "value = 3")),)),
+    ("k6_whole_radix16", "K6's whole frames four radix-2 stages a register pass "
+     "at every fft_size", (("kWholeRadix16Log = 11;", "kWholeRadix16Log = 0;"),)),
+    ("k6_whole_radix8", "K6's whole frames three radix-2 stages a register pass "
+     "at every fft_size", (("kWholeRadix16Log = 11;", "kWholeRadix16Log = 99;"),)),
+    ("k7_radix16", "K7's FFTs four radix-2 stages a register pass, not three",
+     (("kBandPassStages = 3;", "kBandPassStages = 4;"),)),
+    ("bit_topk", "K7's top-k one bit a round, in split frames too",
+     (("kDigitSplit = true, kDigitWhole = false;",
+       "kDigitSplit = false, kDigitWhole = false;"),)),
+    ("digit_topk", "K7's top-k by 8-bit digits in whole frames too",
+     (("kDigitSplit = true, kDigitWhole = false;",
+       "kDigitSplit = true, kDigitWhole = true;"),)),
+    ("no_pair", "K6's two shifts in one block, one after the other",
+     ((_PAIR, "constexpr int kForcePair = 0;"),)),
+    ("pair", "K6's two shifts in a pair of blocks wherever a block holds a frame",
+     ((_PAIR, "constexpr int kForcePair = 1;"),)),
+    ("k7_split_first", "K7 split by the occupancy rule even where one block holds a frame",
+     (("constexpr bool kBandWholeFirst = true;",
+       "constexpr bool kBandWholeFirst = false;"),)),
+    ("ranks_1", "every frame in one block (where it fits)",
+     ((_RANKS, "constexpr int kForceRanks = 1;"),)),
+    ("ranks_2", "every frame split over 2 ranks",
+     ((_RANKS, "constexpr int kForceRanks = 2;"),)),
+    ("ranks_4", "every frame split over 4 ranks",
+     ((_RANKS, "constexpr int kForceRanks = 4;"),)),
+    ("ranks_8", "every frame split over 8 ranks",
+     ((_RANKS, "constexpr int kForceRanks = 8;"),)),
     ("k7_6_blocks", "K7 compiled for 6 blocks an SM (at most 85 registers)",
      (("kCentroidBlocks = 8, kBandBlocks = 8;", "kCentroidBlocks = 8, kBandBlocks = 6;"),)),
     ("unbounded_registers", "both compiled for 1 block an SM (registers unbounded)",
@@ -158,6 +190,19 @@ D4C_VARIANTS = (
      (("__host__ __device__ constexpr int pad(int i) { return i + (i >> 5); }",
        "__host__ __device__ constexpr int pad(int i) { return i; }"),)),
 )
+# phase 22's geometries the d4c group times
+D4C_GEOMETRIES = ("x16_requiem", "x16_batch4", "x16_classic_pathB", "bucket_16000",
+                  "glide_60s", "48k_300_frames", "x16_requiem_fft8192",
+                  "96k_classic_300_frames", "176k_requiem_300_frames",
+                  "192k_classic_300_frames", "384k_classic_60_frames")
+# the variants that must compute the kernels' bits (K6's and K7's, K7 on the
+# centroid of the kernel as built): the same arithmetic in other passes,
+# blocks or searches, and the parent's source
+D4C_BITWISE = ("against", "k6_split_radix8", "k6_whole_radix16", "k6_whole_radix8",
+               "k7_radix16",
+               "bit_topk", "digit_topk", "no_pair", "pair")
+# the source files --against may name, and the group each belongs to
+AGAINST = {"extension_scan.cu": "k3", "d4c_spectra.cu": "d4c"}
 
 
 def _substitute(src: str, pairs) -> str:
@@ -174,21 +219,24 @@ GROUPS = {"k2": ("refine_dft", K2_VARIANTS), "k1": ("event_engine", K1_VARIANTS)
           "d4c": ("d4c_spectra", D4C_VARIANTS)}
 
 
-def build_variants(build_dir: Path, groups=tuple(GROUPS), against=None):
-    """Compile every variant of the groups' sources, and ``against`` (a
-    path, or None) as K3's variant "against", all nvcc processes at once;
-    returns {(source, name): library path}."""
+def build_variants(build_dir: Path, groups=tuple(GROUPS), against=(), only=None):
+    """Compile every variant of the groups' sources, and each source of
+    ``against`` (paths) as its group's variant "against", all nvcc processes
+    at once; returns {(source, name): library path}."""
     from world_tpu_torch._backend import NVCC_FLAGS, _nvcc
 
     build_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for kernel, variants in (GROUPS[g] for g in groups):
         src = (CSRC / f"{kernel}.cu").read_text()
-        if against is not None and kernel == "extension_scan":
+        other = next((a for a in against if a.name == f"{kernel}.cu"), None)
+        if other is not None:
             variants = variants + (("against", "", ()),)
         for name, _, subs in variants:
+            if only and name not in only and name not in ("full", "against"):
+                continue
             cu = build_dir / f"{kernel}_{name}.cu"
-            cu.write_text(against.read_text() if name == "against"
+            cu.write_text(other.read_text() if name == "against"
                           else _substitute(src, subs))
             so = cu.with_suffix(".so")
             jobs[(kernel, name)] = (so, subprocess.Popen(
@@ -376,17 +424,24 @@ def k3_variants(libs, card, against=None):
     print("extension_scan_cuda, the wrapper: " + "; ".join(line) + f" [{card}]")
 
 
-def d4c_variants(libs, card):
-    """K6 and K7 of every D4C_VARIANTS library on phase 22's float32
-    operands at x16 (D4C-Requiem) and on the 60 s glide."""
+def d4c_variants(libs, card, against=None, only=None):
+    """K6 and K7 of every D4C_VARIANTS library, and of ``against`` where
+    given, on phase 22's float32 operands at D4C_GEOMETRIES, with the blocks
+    each gives a frame there (a variant whose launcher refuses a geometry
+    reads n/a)."""
     import torch
 
     import chip_smoke
     from world_tpu_torch.ops import d4c_spectra as K
 
+    variants = tuple(v for v in D4C_VARIANTS
+                     if not only or v[0] in only or v[0] == "full")
+    if against is not None:
+        variants = ((("against", f"the source at {against}", ()),) + variants
+                    + (("against", f"the source at {against}", ()),))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     fns = {}
-    for name, _, _ in D4C_VARIANTS:
+    for name, _, _ in variants:
         lib = ctypes.CDLL(str(libs[("d4c_spectra", name)]))
         k6, k7 = lib.world_d4c_centroid_f32, lib.world_d4c_band_ap_f32
         k6.argtypes = [P, P, P, P, I, I, I, I, I, D, P, P]
@@ -398,7 +453,7 @@ def d4c_variants(libs, card):
                                      np.asarray(g["f0"]), torch.float32)
     stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     calls = {}
-    for geo in ("x16_requiem", "glide_60s"):
+    for geo in D4C_GEOMETRIES:
         a = geos[geo]()
         R, Ws = a["slab"].shape
         N, wl = a["fft_size"], a["window"].shape[0]
@@ -416,20 +471,58 @@ def d4c_variants(libs, card):
                    float(a["fs"]), a["n_ap"], wl, bg["top_k"], bg["span"],
                    out.data_ptr(), stream)
         calls[geo] = (a, tw, first, cen, out, k6_args, k7_args)
+        print(f"d4c geometry {geo}: {R} frames x {Ws}, fft_size {N}, {a['n_ap']} "
+              f"band(s); blocks a frame as built "
+              f"{K.cluster_blocks(a['fs'], N, a['max_half'], R, torch.float32)}")
+    for geo, (a, tw, first, cen, out, k6_args, k7_args) in calls.items():
+        def outputs(name):
+            """K6's centroid, and K7's output on the kernel's centroid"""
+            k6, k7 = fns[name]
+            c, o = torch.full_like(cen, np.nan), torch.full_like(out, np.nan)
+            if k6(*k6_args[:10], c.data_ptr(), stream) or \
+                    k7(k6_args[0], cen.data_ptr(), *k7_args[2:17], o.data_ptr(),
+                       stream):
+                return None
+            torch.cuda.synchronize()
+            return c.clone(), o.clone()
+
+        ref = outputs("full")
+        cen.copy_(ref[0])
+        ref = outputs("full")
+        same = []
+        for name in D4C_BITWISE:
+            if name not in fns:
+                continue
+            got = outputs(name)
+            same.append(f"{name} " + ("n/a" if got is None else
+                                       f"K6 {torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))}, "
+                                       f"K7 {torch.equal(got[1].view(torch.int32), ref[1].view(torch.int32))}"))
+        print(f"d4c {geo}: bitwise the kernel as built: " + "; ".join(same))
+    from world_tpu_torch._backend import _nvcc
+    dump = Path(_nvcc()).parent / "cuobjdump"
+    for name in dict.fromkeys(n for n, _, _ in variants):
+        res = subprocess.run([str(dump), "-res-usage",
+                              str(libs[("d4c_spectra", name)])],
+                             capture_output=True, text=True)
+        lines = res.stdout.splitlines()
+        for i, line in enumerate(lines):
+            if "Function" in line and "IfL" in line and i + 1 < len(lines):
+                kernel = line.split("_kernel")[0].split("__")[-1][-8:] + \
+                    line.split("_kernelIfL")[-1][:8]
+                print(f"d4c resources {name} {kernel}: {lines[i + 1].strip()}")
     print(f"kernel_variants [{card}]: K6 and K7, float32, phase 22's operands; "
           f"mean of 20 launches, CUDA events, two rounds in turns")
+
+    def us(fn, args):
+        if fn(*args):
+            return "n/a"
+        return f"{chip_smoke.cuda_ms(lambda: fn(*args), iters=20) * 1e3:.1f} us"
+
     for rnd in range(2):
-        for name, what, _ in D4C_VARIANTS:
+        for name, what, _ in variants:
             k6, k7 = fns[name]
-            line = []
-            for geo, (*_, k6_args, k7_args) in calls.items():
-                def run(fn, args):
-                    err = fn(*args)
-                    if err:
-                        raise RuntimeError(f"d4c variant {name}: cudaError {err}")
-                t6 = chip_smoke.cuda_ms(lambda: run(k6, k6_args), iters=20) * 1e3
-                t7 = chip_smoke.cuda_ms(lambda: run(k7, k7_args), iters=20) * 1e3
-                line.append(f"{geo} K6 {t6:.1f} us, K7 {t7:.1f} us")
+            line = [f"{geo} K6 {us(k6, k6_args)}, K7 {us(k7, k7_args)}"
+                    for geo, (*_, k6_args, k7_args) in calls.items()]
             print(f"variant d4c_spectra {name} round {rnd}: " + "; ".join(line)
                   + f" ({what})")
 
@@ -446,23 +539,30 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("groups", nargs="*")
-    ap.add_argument("--against", type=Path, default=None)
+    ap.add_argument("--against", type=Path, action="append", default=[])
+    ap.add_argument("--variants", default="",
+                    help="comma-separated variants of the d4c group to build and "
+                         "time (all when empty; full and against always)")
     args = ap.parse_args(argv)
     if set(args.groups) - set(GROUPS):
         ap.error(f"groups are {', '.join(GROUPS)}")
     groups = tuple(args.groups) or tuple(GROUPS)
-    if args.against is not None and "k3" not in groups:
-        ap.error("--against is another source of K3: name the k3 group")
+    for a in args.against:
+        if AGAINST.get(a.name) not in groups:
+            ap.error(f"--against {a}: another source of "
+                     f"{', '.join(AGAINST)}, whose group must be named")
+    against = {AGAINST[a.name]: a for a in args.against}
     if {"k1", "k2"} & set(groups):     # timed together below
         groups = tuple(dict.fromkeys(groups + ("k1", "k2")))
     card = chip_smoke.card_line()
-    libs = build_variants(BUILD_DIR / "variants", groups, args.against)
+    only = set(filter(None, args.variants.split(",")))
+    libs = build_variants(BUILD_DIR / "variants", groups, args.against, only)
     if "step3" in groups:
         step3_variants(libs, card)
     if "k3" in groups:
-        k3_variants(libs, card, args.against)
+        k3_variants(libs, card, against.get("k3"))
     if "d4c" in groups:
-        d4c_variants(libs, card)
+        d4c_variants(libs, card, against.get("d4c"), only)
     if "k1" not in groups and "k2" not in groups:
         return 0
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double

@@ -251,6 +251,10 @@ def _build_and_load():
         # max_half, margin, N, fs, n_ap, wl, top_k, span, out, stream
         fn.argtypes = [P] * 7 + [I] * 5 + [D] + [I] * 4 + [P, P]
         fn.restype = I
+        fn = getattr(lib, f"world_d4c_clusters_{suffix}")
+        # N, max_half, span, rows, K6's blocks a frame (out), K7's (out)
+        fn.argtypes = [I, I, I, I, P, P]
+        fn.restype = I
     return lib, seconds
 
 

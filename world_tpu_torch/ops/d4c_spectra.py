@@ -7,7 +7,7 @@ smoothed_power_spectrum_half, static_group_delay_half and
 coarse_aperiodicity, :176-236); it has no Pallas kernel.  In PyTorch those
 stock ops are ~490 launches an analysis, each a pass over a (frames, slab
 width) or (frames, fft_size) array, so on the card each half of the chain
-is one kernel, one block a frame:
+is one kernel, one block or one thread-block cluster a frame:
 
   * K6, :func:`d4c_centroid`: the centroid spectrum of both window shifts,
     summed, with its low-band replica (:func:`static_centroid_half`);
@@ -16,16 +16,27 @@ is one kernel, one block a frame:
     :func:`smoothed_power_spectrum_half`, :func:`static_group_delay_half`
     and :func:`coarse_aperiodicity`).
 
+The kernels take every power-of-two ``fft_size`` from 16 to 32,768
+(:data:`MAX_FFT_SIZE`: classic D4C to 384 kHz, D4C-Requiem to 512 kHz) in
+float32 and float64.  Where a frame's buffers would crowd one block's
+shared memory (K6 from ``fft_size`` 8,192, 4,096 in float64; K7 from
+16,384), the launcher spreads each frame over a cluster of 2, 4 or 8 blocks
+that read each other's shared memory (:func:`cluster_blocks` says how
+many); the ranks' sums are added in rank order, so a launch repeats its
+bits.
+
 A CUDA tensor goes to the hand-written kernel; a CPU (or ``meta``) tensor to
 the plain version, the stock ops the port ran before the kernels, unchanged.
 There is no fallback from a kernel to its plain version.  Both kernels take
 the FFT's twiddles from :func:`fft_twiddles` (float64 numpy, cast, kept).
 """
+import ctypes
+
 import numpy as np
 import torch
 
 from .._backend import (KernelGeometryError, LaunchCounter, check_kernel_input,
-                        launch, rdiv)
+                        kernel_library, launch, rdiv)
 from ..dsp.dcfill import dc_fill_add
 from ..dsp.minphase import mirror_full
 from ..dsp.scanops import shift_rows
@@ -37,7 +48,7 @@ centroid_counter = LaunchCounter()
 band_ap_counter = LaunchCounter()
 
 # the largest fft_size the kernels take (csrc/d4c_spectra.cu's kMaxN)
-MAX_FFT_SIZE = 8192
+MAX_FFT_SIZE = 32768
 
 
 def _centroid_from_slab(slab, margin: int, fs: float, f0, t_base, t_shifted,
@@ -260,6 +271,25 @@ def band_ap_cuda(slab, margin: int, centroid, fs, f0, t, max_half: int,
             f"allows ({e})") from e
     band_ap_counter.add()
     return out
+
+
+def cluster_blocks(fs, fft_size: int, max_half: int, rows: int,
+                   dtype: torch.dtype) -> dict:
+    """The blocks each kernel gives a frame for ``rows`` frames at
+    ``fft_size`` (the launchers' choice, csrc/d4c_spectra.cu): {"d4c_centroid":
+    C, or "pair" (its two shifts in two blocks), "d4c_band_ap": C}; 0 where
+    the geometry does not fit."""
+    lib, _ = kernel_library()
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    k6, k7 = ctypes.c_int(), ctypes.c_int()
+    err = getattr(lib, f"world_d4c_clusters_{suffix}")(
+        int(fft_size), int(max_half), smoothing_span(float(fs), int(fft_size)),
+        int(rows), ctypes.byref(k6), ctypes.byref(k7))
+    if err:
+        raise KernelGeometryError(f"d4c cluster_blocks: fft_size {fft_size} at "
+                                  f"{fs} Hz: cudaError {err}")
+    return {"d4c_centroid": "pair" if k6.value == -2 else k6.value,
+            "d4c_band_ap": k7.value}
 
 
 def d4c_centroid(slab, margin: int, fs, f0, t, max_half: int, fft_size: int):
