@@ -426,16 +426,29 @@ def test_wav_io_roundtrip(tmp_path):
 
 
 def test_xrt_meter_timed_and_trace(tmp_path):
+    """Per-stage wall time and xRT over calls, from the tracer's spans and
+    sample counters (what XrtMeter measured before), then ``timed`` and
+    ``device_trace``, whose Chrome trace holds the tracer's spans."""
+    import json
     import time
 
-    from world_tpu_torch.utils.profiling import XrtMeter, device_trace, timed
+    from world_tpu_torch.utils.profiling import Tracer, device_trace, timed
 
-    m = XrtMeter()
-    with m.measure(1.0, "stage_a"):
-        time.sleep(0.01)
-    assert m.xrt > 0 and m.calls == 1 and "stage_a" in m.report()
+    tr = Tracer()
+    with tr.tracing():
+        with tr.span("world.test.call", fs=16000):
+            tr.count("samples.true", 16000)
+            with tr.span("world.test.stage_a"):
+                time.sleep(0.01)
+    stage, call = tr.spans()
+    assert stage.parent == call.id and stage.call == call.id
+    assert call.host_ms >= stage.host_ms >= 10.0
+    xrt = call.counts["samples.true"] / call.attrs["fs"] / (call.host_ms / 1e3)
+    assert 0 < xrt <= 100
     dt, out = timed(lambda a: {"y": a * 2}, torch.ones(8), repeats=2)
     assert dt >= 0 and bool((out["y"] == 2).all())
     with device_trace(str(tmp_path / "trace")):
-        torch.ones(4).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+        with tr.span("world.test.traced"):
+            torch.ones(4).sum()
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert "world.test.traced" in {e.get("name") for e in trace["traceEvents"]}

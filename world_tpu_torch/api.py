@@ -16,13 +16,14 @@ from .aperiodicity.d4c_requiem import d4c_requiem
 from .dsp.interp import interp_rows
 from .f0.harvest import default_max_sections, warn_capacity
 from .features import codecs
-from .frames import host
+from .frames import host, host_flag, upload
 from .parallel.batch import (analyze, f0_contour, floor_of_fft_size,
                              frame_period_of, spectral_envelope)
 from .spectral.cheaptrick import cheaptrick, default_fft_size
 from .synth.classic import synthesis
 from .synth.requiem import synthesis_requiem
 from .synth.seeds import seed_tables
+from .utils.profiling import TRACER
 
 logger = logging.getLogger(__name__)
 
@@ -37,7 +38,7 @@ class World:
         self.dtype = torch_dtype(dtype)
 
     def _tensor(self, a):
-        return torch.tensor(np.asarray(a), dtype=self.dtype, device=self.device)
+        return upload(a, self.dtype, self.device)
 
     _host = staticmethod(host)
 
@@ -51,8 +52,8 @@ class World:
                          float(f0_ceil), int(channels_in_octave), int(target_fs),
                          float(allowed_range))
         if f0_method == "harvest":
-            warn_capacity(bool(src["_refine_overflow"][0]),
-                          bool(src["_section_overflow"][0]),
+            warn_capacity(host_flag(src["_refine_overflow"][0]),
+                          host_flag(src["_section_overflow"][0]),
                           default_max_sections(xt.shape[1], fs))
         return src
 
@@ -126,26 +127,30 @@ class World:
         ``fft_size`` sets f0_floor to 3 fs / fft_size before the F0
         estimation."""
         fs = int(fs)
-        xt = self._tensor(x)[None]
-        an = analyze(xt, fs, frame_period, f0_method, is_requiem,
-                     fft_size=fft_size, f0_floor=float(f0_floor),
-                     f0_ceil=float(f0_ceil),
-                     channels_in_octave=int(channels_in_octave),
-                     target_fs=int(target_fs), allowed_range=float(allowed_range))
-        if f0_method == "harvest":
-            warn_capacity(bool(an["_refine_overflow"][0]),
-                          bool(an["_section_overflow"][0]),
-                          default_max_sections(xt.shape[1], fs))
-        return {
-            "temporal_positions": self._host(an["temporal_positions"]),
-            "vuv": self._host(an["vuv"][0]),
-            "fs": fs,
-            "f0": self._host(an["f0"][0]),
-            "aperiodicity": self._host(an["aperiodicity"][0].T),
-            "ps spectrogram": self._host(an["ps_spectrogram"][0].T),
-            "spectrogram": self._host(an["spectrogram"][0].T),
-            "is_requiem": bool(is_requiem),
-        }
+        with TRACER.span("world.api.encode", device=self.device, fs=fs):
+            xt = self._tensor(x)[None]
+            TRACER.count("samples.computed", xt.shape[1])
+            TRACER.count("samples.true", xt.shape[1])
+            an = analyze(xt, fs, frame_period, f0_method, is_requiem,
+                         fft_size=fft_size, f0_floor=float(f0_floor),
+                         f0_ceil=float(f0_ceil),
+                         channels_in_octave=int(channels_in_octave),
+                         target_fs=int(target_fs),
+                         allowed_range=float(allowed_range))
+            if f0_method == "harvest":
+                warn_capacity(host_flag(an["_refine_overflow"][0]),
+                              host_flag(an["_section_overflow"][0]),
+                              default_max_sections(xt.shape[1], fs))
+            return {
+                "temporal_positions": self._host(an["temporal_positions"]),
+                "vuv": self._host(an["vuv"][0]),
+                "fs": fs,
+                "f0": self._host(an["f0"][0]),
+                "aperiodicity": self._host(an["aperiodicity"][0].T),
+                "ps spectrogram": self._host(an["ps_spectrogram"][0].T),
+                "spectrogram": self._host(an["spectrogram"][0].T),
+                "is_requiem": bool(is_requiem),
+            }
 
     # ---------------------------------------------------------- modification
     def scale_pitch(self, dat, factor):
@@ -197,15 +202,20 @@ class World:
         on the World's device (seeded 0 when None).  Requiem synthesis takes
         ``seed``, its excitation seed bank, and ``noise_offsets``, one
         velvet-noise read cursor per band."""
-        if dat.get("is_requiem"):
-            y = synthesis_requiem(dat, dat, seed_tables(int(dat["fs"]), seed,
-                                                        self.dtype, self.device),
-                                  noise_offsets=noise_offsets, dtype=self.dtype,
-                                  device=self.device)
-        else:
-            y = synthesis(dat, dat, generator=key, dtype=self.dtype,
-                          device=self.device)
-        y = self._host(y)
+        with TRACER.span("world.api.decode", device=self.device,
+                         fs=int(dat["fs"])):
+            TRACER.stamp("start", self.device)
+            if dat.get("is_requiem"):
+                y = synthesis_requiem(
+                    dat, dat, seed_tables(int(dat["fs"]), seed, self.dtype,
+                                          self.device),
+                    noise_offsets=noise_offsets, dtype=self.dtype,
+                    device=self.device)
+            else:
+                y = synthesis(dat, dat, generator=key, dtype=self.dtype,
+                              device=self.device)
+            TRACER.stamp("synthesis", self.device)
+            y = self._host(y)
         m = np.max(np.abs(y))
         if m > 1.0:
             logger.info("rescaling waveform")

@@ -41,7 +41,7 @@ from ..dsp.iir import decimate_matlab, decimator_impulse
 from ..dsp.rounding import matlab_round_half
 from ..dsp.scanops import compact_rows
 from ..dsp.windows import np_nuttall
-from ..frames import uniform_centered_slabs
+from ..frames import host_flag, uniform_centered_slabs
 from ..ops import fix_step3 as step3_kernels
 from ..ops.refine_dft import dft_table, refine_full
 from ..tables import cached, device_key, frame_grid, table
@@ -786,8 +786,8 @@ def harvest(x: torch.Tensor, fs: int, f0_floor: float = 71,
                        int(max_sections), debug_outputs=debug_outputs,
                        blocking=blocking)
     if check_capacity:
-        warn_capacity(bool(out["_refine_overflow"].any()),
-                      bool(out["_section_overflow"].any()), max_sections)
+        warn_capacity(host_flag(out["_refine_overflow"].any()),
+                      host_flag(out["_section_overflow"].any()), max_sections)
     if single:
         out = {k: (v if k == "temporal_positions" else v[0])
                for k, v in out.items()}

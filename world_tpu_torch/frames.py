@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ._backend import rdiv, sdiv
+from .utils.profiling import TRACER
 
 
 def frame_centers(fs: float, frame_period_s: float, n_frames: int,
@@ -40,8 +41,30 @@ def uniform_frame_period_ms(temporal_positions: np.ndarray):
 
 
 def host(a) -> np.ndarray:
-    """``a`` (a tensor, an array or a sequence) as a numpy array."""
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    """``a`` (a tensor, an array or a sequence) as a numpy array.  A
+    tensor's read is counted as a host sync, with its bytes."""
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    TRACER.count("host.syncs")
+    TRACER.count("bytes.d2h", a.nbytes)
+    with TRACER.span("world.host.read"):
+        return a.detach().cpu().numpy()
+
+
+def host_flag(t: torch.Tensor) -> bool:
+    """``bool(t)`` of a one-element tensor, counted as a host sync."""
+    TRACER.count("host.syncs")
+    TRACER.count("bytes.d2h", t.element_size())
+    with TRACER.span("world.host.flag"):
+        return bool(t)
+
+
+def upload(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """``a`` (an array or a sequence) as a tensor of ``dtype`` on
+    ``device``, its bytes counted as copied from the host."""
+    t = torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    TRACER.count("bytes.h2d", t.nbytes)
+    return t
 
 
 def like(x: torch.Tensor, a) -> torch.Tensor:

@@ -43,6 +43,7 @@ from ..dsp.scanops import shift_rows
 from ..dsp.smoothing import rect_smooth_half, smoothing_span
 from ..frames import apply_adaptive_window
 from ..tables import table
+from ..utils.profiling import TRACER
 
 centroid_counter = LaunchCounter()
 band_ap_counter = LaunchCounter()
@@ -209,6 +210,7 @@ def _check_rows(name, slab, f0, t, dev):
                          f"{tuple(f0.shape)}, t {tuple(t.shape)}")
 
 
+@TRACER.spanned("world.kernel.K6")
 def centroid_cuda(slab, margin: int, fs, f0, t, max_half: int, fft_size: int):
     """Launch K6: :func:`static_centroid_half`'s output, one launch."""
     dev, dtype = slab.device, slab.dtype
@@ -230,6 +232,7 @@ def centroid_cuda(slab, margin: int, fs, f0, t, max_half: int, fft_size: int):
     return out
 
 
+@TRACER.spanned("world.kernel.K7")
 def band_ap_cuda(slab, margin: int, centroid, fs, f0, t, max_half: int,
                  fft_size: int, frequency_interval: float, n_ap: int,
                  window: torch.Tensor):

@@ -13,6 +13,7 @@ import torch
 from .._backend import (KernelGeometryError, LaunchCounter,
                         check_kernel_input, launch)
 from ..f0.events import batched_interval_interp, stride_fraction
+from ..utils.profiling import TRACER
 
 
 counter = LaunchCounter()
@@ -54,6 +55,7 @@ def event_scratch_layout(rows: int, n: int, Q: int, itemsize: int) -> dict:
 _stride_fraction = functools.lru_cache(maxsize=64)(stride_fraction)
 
 
+@TRACER.spanned("world.kernel.K1")
 def event_engine_cuda(signals: torch.Tensor, fs: float, t_frames: torch.Tensor,
                       stride_samples: float):
     """Launch the CUDA event engine: (f0 (S, Q), n_intervals (S,) int32)."""

@@ -16,6 +16,7 @@ import torch
 
 from .._backend import (F64_EPS, KernelGeometryError, LaunchCounter,
                         check_kernel_input, launch)
+from ..utils.profiling import TRACER
 
 counter = LaunchCounter()
 
@@ -65,6 +66,7 @@ def extension_scan_plain(base: torch.Tensor, flags: torch.Tensor,
     return out
 
 
+@TRACER.spanned("world.kernel.K3")
 def extension_scan_cuda(base: torch.Tensor, flags: torch.Tensor,
                         limits: torch.Tensor, cands: torch.Tensor,
                         allowed_range: float, backward: bool = False):

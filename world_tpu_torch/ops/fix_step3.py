@@ -34,6 +34,7 @@ import torch
 
 from .._backend import (KernelGeometryError, LaunchCounter,
                         check_kernel_input, launch)
+from ..utils.profiling import TRACER
 
 extend_counter = LaunchCounter()
 merge_counter = LaunchCounter()
@@ -182,6 +183,7 @@ def _check_float(t, what):
         raise TypeError(f"{what}: unsupported dtype {t.dtype}")
 
 
+@TRACER.spanned("world.kernel.K4")
 def extend_chains_cuda(f0, origin, last_point, shift, cands, allowed_range,
                        n_steps: int):
     """Launch K4: :func:`extend_chains_plain`'s outputs, one launch."""
@@ -217,6 +219,7 @@ def extend_chains_cuda(f0, origin, last_point, shift, cands, allowed_range,
     return pos, val, act, shifted
 
 
+@TRACER.spanned("world.kernel.K5")
 def merge_sections_cuda(f0_step2, cands, scores, starts, ends, val, act,
                         order, st_o, ed_o, keep_o, f0_m, cur_st, cur_ed,
                         started):

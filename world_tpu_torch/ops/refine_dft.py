@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from .._backend import (KernelGeometryError, LaunchCounter,
                         check_kernel_input, launch, rdiv, sdiv)
+from ..utils.profiling import TRACER
 from . import prod_diff
 
 
@@ -112,6 +113,7 @@ def refine_plain(seg, phase, f0, actual_fs: float, max_half: int, S: int,
     return refined, score
 
 
+@TRACER.spanned("world.kernel.K2")
 def refine_cuda(seg, phase, f0, actual_fs: float, max_half: int, S: int,
                 f0_floor: float, f0_ceil: float, table=None):
     """Launch the CUDA refinement kernel: (refined f0, score), each (C, F)."""

@@ -43,6 +43,7 @@ from ..f0.harvest import (default_max_candidates, default_max_sections,
                           harvest_core, harvest_tables,
                           smooth_zero_phase_kernel)
 from ..f0.stonemask import max_half_window, stonemask_core, table_size
+from ..frames import host
 from ..f0.swipe import swipe_core, swipe_tables
 from ..ops.refine_dft import dft_table
 from ..spectral.cheaptrick import cheaptrick_core, default_fft_size
@@ -51,6 +52,7 @@ from ..synth.classic import (default_max_pulses, max_noise_length,
 from ..synth.requiem import excitation_core, waveform_core
 from ..synth.seeds import seed_tables
 from ..tables import cached, device_key
+from ..utils.profiling import TRACER
 from .graphs import GraphCache
 
 F0_FLOOR, F0_CEIL = 71.0, 800.0
@@ -156,8 +158,10 @@ def analyze_contour(x: torch.Tensor, fs: int, src: dict, frame_period: float,
     Returns src with f0 zeroed where unvoiced, spectrogram and
     ps_spectrogram (B, F, bins) and aperiodicity (:func:`d4c_aperiodicity`)."""
     env, ps_spec, f0_d4c = spectral_envelope(x, fs, src, frame_period, fft_size)
+    TRACER.stamp("envelope", x.device)
     ap = d4c_aperiodicity(x, fs, f0_d4c, src["temporal_positions"],
                           frame_period, is_requiem, fft_size)
+    TRACER.stamp("aperiodicity", x.device)
     return dict(src, f0=f0_d4c, spectrogram=env, ps_spectrogram=ps_spec,
                 aperiodicity=ap)
 
@@ -168,11 +172,14 @@ def analyze(x: torch.Tensor, fs: int, frame_period: float,
     """The analysis of rows x (B, n): :func:`f0_contour` (``f0_options``
     go to it), then :func:`analyze_contour`.  An explicit ``fft_size`` also
     sets the F0 search's floor, 3 fs / fft_size, before the F0 estimation
-    (world_tpu.World.encode)."""
+    (world_tpu.World.encode).  The stages' boundaries are the tracer's stage
+    stamps (:meth:`..utils.profiling.Tracer.stamp`)."""
     if fft_size is not None:
         f0_options["f0_floor"] = floor_of_fft_size(fs, fft_size)
+    TRACER.stamp("start", x.device)
     src = f0_contour(x, fs, frame_period, f0_method, tables=tables,
                      **f0_options)
+    TRACER.stamp("f0", x.device)
     return analyze_contour(x, fs, src, frame_period_of(f0_method, frame_period),
                            is_requiem, fft_size)
 
@@ -232,6 +239,7 @@ def encode_decode_one(x: torch.Tensor, pulse_seed: torch.Tensor,
         an["aperiodicity"].transpose(-1, -2), an["spectrogram"].transpose(-1, -2),
         pulse_seed, noise_seed, noise_offsets, fs, y_length, max_pulses, fps,
         float(frame_period) / 1000.0, round_trip_rank_bound(fs))
+    TRACER.stamp("synthesis", x.device)
     return {"f0": an["f0"], "vuv": an["vuv"], "spectrogram": an["spectrogram"],
             "band_aperiodicity": an["aperiodicity"], "y": y,
             "_overflow": (an["_refine_overflow"] | an["_section_overflow"]
@@ -311,6 +319,7 @@ def encode_decode_classic_one(x: torch.Tensor, fs: int, frame_period: int,
         noise = standard_normal((B, max_pulses, max_noise), generator, x.dtype,
                                 x.device)
     y, overflow = synthesize_classic(dat, noise, fs, sig_len, frame_period)
+    TRACER.stamp("synthesis", x.device)
     return dict(dat, y=y, _overflow=overflow)
 
 
@@ -422,51 +431,54 @@ def batch_encode_decode(xs, fs: int, devices=None, frame_period: int = 5,
     and ``seed``, or a list of them, one per device (built when None)."""
     devs = _device_list(devices)
     fs = int(fs)
-    xs = (xs.to(dtype=dtype) if isinstance(xs, torch.Tensor)
-          else torch.tensor(np.asarray(xs), dtype=dtype))
-    if tables is None:
-        tables = [harvest_requiem_tables(fs, seed, dtype, d) for d in devs]
-    elif isinstance(tables, dict):
-        tables = [tables]
-    if len(tables) != len(devs):
-        raise ValueError(f"{len(tables)} table dicts for {len(devs)} devices")
-    if max_pulses is None:
-        max_pulses = default_batch_max_pulses(xs.shape[1], fs)
-    if max_candidates is None:
-        max_candidates = default_max_candidates(F0_FLOOR, F0_CEIL)
-    if max_sections is None:
-        max_sections = default_max_sections(xs.shape[1], fs)
-    n_rows = xs.shape[0]
-    per_dev = -(-n_rows // len(devs))
-    if per_dev * len(devs) != n_rows:
-        xs = torch.cat([xs, xs.new_zeros((per_dev * len(devs) - n_rows,
-                                          xs.shape[1]))])
+    with TRACER.span("world.batch.encode_decode", device=devs[0], fs=fs):
+        xs = (xs.to(dtype=dtype) if isinstance(xs, torch.Tensor)
+              else torch.tensor(np.asarray(xs), dtype=dtype))
+        if tables is None:
+            tables = [harvest_requiem_tables(fs, seed, dtype, d) for d in devs]
+        elif isinstance(tables, dict):
+            tables = [tables]
+        if len(tables) != len(devs):
+            raise ValueError(f"{len(tables)} table dicts for {len(devs)} devices")
+        if max_pulses is None:
+            max_pulses = default_batch_max_pulses(xs.shape[1], fs)
+        if max_candidates is None:
+            max_candidates = default_max_candidates(F0_FLOOR, F0_CEIL)
+        if max_sections is None:
+            max_sections = default_max_sections(xs.shape[1], fs)
+        n_rows = xs.shape[0]
+        per_dev = -(-n_rows // len(devs))
+        if per_dev * len(devs) != n_rows:
+            xs = torch.cat([xs, xs.new_zeros((per_dev * len(devs) - n_rows,
+                                              xs.shape[1]))])
+        TRACER.count("samples.computed", xs.shape[0] * xs.shape[1])
 
-    caps = (int(frame_period), int(max_pulses), int(max_candidates),
-            int(max_sections))
+        caps = (int(frame_period), int(max_pulses), int(max_candidates),
+                int(max_sections))
 
-    def shard(dev, k):
-        t = tables[k]
-        rows = xs[k * per_dev:(k + 1) * per_dev]
+        def shard(dev, k):
+            t = tables[k]
+            rows = xs[k * per_dev:(k + 1) * per_dev]
 
-        def run(x):
-            return encode_decode_one(
-                x, t["pulse_seed"], t["noise_seed"], fs, *caps,
-                tables={name: t[name] for name in HARVEST_TABLE_KEYS})
+            def run(x):
+                return encode_decode_one(
+                    x, t["pulse_seed"], t["noise_seed"], fs, *caps,
+                    tables={name: t[name] for name in HARVEST_TABLE_KEYS})
 
-        if not replays(dev):
-            return run(rows.to(dev))
-        key = (device_key(dev), tuple(rows.shape), rows.dtype, fs, caps,
-               table_identity(t))
-        return BATCH_GRAPHS.run(key, run, (rows,), dev)
+            if not replays(dev):
+                return run(rows.to(dev))
+            key = (device_key(dev), tuple(rows.shape), rows.dtype, fs, caps,
+                   table_identity(t))
+            return BATCH_GRAPHS.run(key, run, (rows,), dev)
 
-    outs = _on_devices(shard, devs, list(range(len(devs))))
-    out = outs[0] if len(outs) == 1 else {
-        k: torch.cat([o[k].to(devs[0]) for o in outs])[:n_rows] for k in outs[0]}
-    if check_capacity:
-        _warn_batch_capacity(out["_overflow"].cpu().numpy(), max_sections,
-                             max_pulses)
-    return out
+        outs = _on_devices(shard, devs, list(range(len(devs))))
+        out = outs[0] if len(outs) == 1 else {
+            k: torch.cat([o[k].to(devs[0]) for o in outs])[:n_rows] for k in outs[0]}
+        if check_capacity:
+            with TRACER.span("world.batch.overflow"):
+                _warn_batch_capacity(host(out["_overflow"]), max_sections,
+                                     max_pulses)
+        return out
 
 
 # batch_encode_decode's graphs, one per (device, rows, length, type, caps,
@@ -531,29 +543,34 @@ def batch_encode_decode_ragged(xs, fs: int, devices=None, frame_period: int = 5,
     spectrogram, band_aperiodicity, y), in input order."""
     devs = _device_list(devices)
     fs, fp = int(fs), int(frame_period)
-    np_dtype = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
-    xs = [np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x,
-                     np_dtype) for x in xs]
-    lens = [int(x.shape[0]) for x in xs]
-    tables = [harvest_requiem_tables(fs, seed, dtype, d) for d in devs]
-    on_card = any(d.type == "cuda" for d in devs)
-    results = [None] * len(xs)
-    for L, idxs in bucket_lengths(lens, fs, bucket_quantum_s).items():
-        n_rows = graph_rows(len(idxs)) if on_card else len(idxs)
-        xb = np.zeros((n_rows, L), np_dtype)
-        for r, i in enumerate(idxs):
-            xb[r, :lens[i]] = xs[i]
-        out = batch_encode_decode(xb, fs, devices=devs, frame_period=fp,
-                                  seed=seed, check_capacity=check_capacity,
-                                  dtype=dtype, tables=tables)
-        out = {k: out[k].cpu().numpy()
-               for k in ("f0", "vuv", "spectrogram", "band_aperiodicity", "y")}
-        for r, i in enumerate(idxs):
-            nf = int(1000 * lens[i] / fs / fp + 1)
-            y_len = output_length(lens[i], fs, fp)
-            results[i] = {k: (v[r][:y_len] if k == "y" else v[r][:nf])
-                          for k, v in out.items()}
-    return results
+    with TRACER.span("world.batch.ragged", device=devs[0], fs=fs):
+        np_dtype = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+        xs = [np.asarray(host(x), np_dtype) for x in xs]
+        lens = [int(x.shape[0]) for x in xs]
+        TRACER.count("samples.true", sum(lens))
+        tables = [harvest_requiem_tables(fs, seed, dtype, d) for d in devs]
+        on_card = any(d.type == "cuda" for d in devs)
+        results = [None] * len(xs)
+        for L, idxs in bucket_lengths(lens, fs, bucket_quantum_s).items():
+            with TRACER.span("world.batch.bucket", length=L, rows=len(idxs)):
+                with TRACER.span("world.batch.pad"):
+                    n_rows = graph_rows(len(idxs)) if on_card else len(idxs)
+                    xb = np.zeros((n_rows, L), np_dtype)
+                    for r, i in enumerate(idxs):
+                        xb[r, :lens[i]] = xs[i]
+                out = batch_encode_decode(xb, fs, devices=devs, frame_period=fp,
+                                          seed=seed, check_capacity=check_capacity,
+                                          dtype=dtype, tables=tables)
+                with TRACER.span("world.batch.copy_back", device=devs[0]):
+                    out = {k: host(out[k]) for k in (
+                        "f0", "vuv", "spectrogram", "band_aperiodicity", "y")}
+                with TRACER.span("world.batch.strip"):
+                    for r, i in enumerate(idxs):
+                        nf = int(1000 * lens[i] / fs / fp + 1)
+                        y_len = output_length(lens[i], fs, fp)
+                        results[i] = {k: (v[r][:y_len] if k == "y" else v[r][:nf])
+                                      for k, v in out.items()}
+        return results
 
 
 def _warn_batch_capacity(overflow, max_sections, max_pulses):
@@ -699,15 +716,18 @@ class DioClassic(_TableModule):
                 generator: torch.Generator = None) -> dict:
         xb = self._batch(x)
         dev = self.dio_bank.device
-        if noise is None:
-            _, max_pulses, max_noise = classic_caps(self.n_samples, self.fs,
-                                                    self.frame_period)
-            noise = standard_normal((xb.shape[0], max_pulses, max_noise),
-                                    generator, xb.dtype, dev)
-        if not replays(dev):
-            return self._round_trip(xb, noise)
-        return self.graphs.run(self.signature(xb, noise), self._round_trip,
-                               (xb, noise), dev)
+        with TRACER.span("world.batch.dio_classic", device=dev, fs=self.fs):
+            TRACER.count("samples.computed", xb.shape[0] * xb.shape[1])
+            if noise is None:
+                _, max_pulses, max_noise = classic_caps(self.n_samples, self.fs,
+                                                        self.frame_period)
+                with TRACER.span("world.batch.noise"):
+                    noise = standard_normal((xb.shape[0], max_pulses, max_noise),
+                                            generator, xb.dtype, dev)
+            if not replays(dev):
+                return self._round_trip(xb, noise)
+            return self.graphs.run(self.signature(xb, noise), self._round_trip,
+                                   (xb, noise), dev)
 
     def signature(self, xb: torch.Tensor, noise: torch.Tensor) -> tuple:
         """The key of the graph a call replays: the device, the rows, the
@@ -763,12 +783,14 @@ class HarvestRequiem(_TableModule):
     def forward(self, x: torch.Tensor, noise_offsets: torch.Tensor = None) -> dict:
         xb = self._batch(x)
         dev = self.pulse_seed.device
-        if noise_offsets is None:
-            noise_offsets = torch.zeros(self.pulse_seed.shape[1],
-                                        dtype=torch.int64, device=dev)
-        if not replays(dev):
-            return self._round_trip(xb, noise_offsets)
-        key = (device_key(dev), tuple(xb.shape), xb.dtype,
-               table_identity(dict(self.named_buffers())))
-        return self.graphs.run(key, self._round_trip,
-                               (xb, torch.as_tensor(noise_offsets)), dev)
+        with TRACER.span("world.batch.harvest_requiem", device=dev, fs=self.fs):
+            TRACER.count("samples.computed", xb.shape[0] * xb.shape[1])
+            if noise_offsets is None:
+                noise_offsets = torch.zeros(self.pulse_seed.shape[1],
+                                            dtype=torch.int64, device=dev)
+            if not replays(dev):
+                return self._round_trip(xb, noise_offsets)
+            key = (device_key(dev), tuple(xb.shape), xb.dtype,
+                   table_identity(dict(self.named_buffers())))
+            return self.graphs.run(key, self._round_trip,
+                                   (xb, torch.as_tensor(noise_offsets)), dev)

@@ -77,6 +77,12 @@ graph's static buffers, the graph is replayed on the current stream and the
 outputs are cloned out of the pool.  The kernels' launch counters get, at
 each replay, the launches recorded at capture
 (:class:`.._backend.LaunchCounter`).
+
+Tracing (:mod:`..utils.profiling`): a capture records the round trip's
+stage stamps as event-record nodes of the graph, which the graph owns; a
+replay made while the tracer records files them under its launch span, and
+the tracer reads them as stage spans once the replay has run (before the
+graph's next replay at the latest).
 """
 import threading
 import time
@@ -86,6 +92,7 @@ import torch
 
 from .. import tables
 from .._backend import STAGE_BYTES_BUDGET
+from ..utils.profiling import TRACER
 from ..ops import (d4c_spectra, edge_interp, extension_scan, fix_step3,
                    refine_dft)
 
@@ -140,15 +147,17 @@ class Pool:
 
 class Graph:
     """A captured call: its pool, static inputs and outputs, the kernel
-    launches one replay makes, the tables it reads, its capture time and
-    the bytes its capture grew the pool by."""
+    launches one replay makes, the tables it reads, its capture time, the
+    bytes its capture grew the pool by and its stage stamps ((stage, event)
+    of each event-record node)."""
 
     def __init__(self, pool, graph, inputs, outputs, launches, kept,
-                 capture_s, pool_growth):
+                 capture_s, pool_growth, stamps):
         self.pool = pool
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
         self.launches, self.kept = launches, kept
         self.capture_s, self.pool_growth = capture_s, pool_growth
+        self.stamps = stamps
 
     def replay(self, inputs) -> dict:
         """The outputs of the captured call on ``inputs`` (copied into the
@@ -158,13 +167,20 @@ class Graph:
             stream = torch.cuda.current_stream()
             # the pool's last replay has cloned its outputs
             stream.wait_event(pool.done)
-            for static, x in zip(self.inputs, inputs):
-                static.copy_(x)
-            self.graph.replay()
+            with TRACER.span("world.batch.copy_in"):
+                for static, x in zip(self.inputs, inputs):
+                    if not x.is_cuda:
+                        TRACER.count("bytes.h2d", x.nbytes)
+                    static.copy_(x)
+            TRACER.settle(self.stamps)
+            with TRACER.span("world.batch.launch", device=pool.device) as launch:
+                self.graph.replay()
+            TRACER.file(self.stamps, launch)
             for name, n in self.launches.items():
                 if n:
                     _COUNTERS[name].add(n)
-            out = {k: v.clone() for k, v in self.outputs.items()}
+            with TRACER.span("world.batch.clone"):
+                out = {k: v.clone() for k, v in self.outputs.items()}
             pool.done.record(stream)
         return out
 
@@ -187,6 +203,7 @@ def _end_capture(device, handle):
 
 def _eager(fn, inputs, device):
     """``fn`` on ``inputs`` moved to ``device``, and the tables it read."""
+    TRACER.count("bytes.h2d", sum(x.nbytes for x in inputs if not x.is_cuda))
     with tables.retained() as kept:
         out = fn(*(x.to(device) for x in inputs))
     return out, kept
@@ -221,7 +238,8 @@ def _capture(fn, inputs, pool, kept) -> Graph:
             graph.capture_begin(pool=pool.handle,
                                 capture_error_mode="thread_local")
             try:
-                outputs = fn(*static)
+                with TRACER.collecting() as stamps:
+                    outputs = fn(*static)
             except Exception as e:       # noqa: BLE001 (raised below)
                 error = e
             try:
@@ -247,7 +265,7 @@ def _capture(fn, inputs, pool, kept) -> Graph:
         launches = {name: c.captured() - before[name]
                     for name, c in _COUNTERS.items()}
     return Graph(pool, graph, static, outputs, launches, held, capture_s,
-                 growth)
+                 growth, stamps)
 
 
 class GraphCache:
@@ -382,15 +400,19 @@ class GraphCache:
         """``fn(*inputs)``: run eagerly on ``device`` on the first call of
         ``key``, by the replay of its graph from the second on (the capture
         waits for the first call's end: two first calls of one key at once
-        both run eagerly)."""
+        both run eagerly).  Its span's ``kind`` says which: eager, capture
+        (then replay) or replay."""
         graph = self._lookup(key)
-        if graph is None:
-            kept = self._eager_tables(key)
-            if kept is None:
-                out, kept = _eager(fn, inputs, device)
-                self._remember(key, kept)
-                self._count("eager")
-                return out
-            graph = self.capture(key, fn, inputs, device, kept)
-        self._count("replayed")
-        return graph.replay(inputs)
+        kept = None if graph is not None else self._eager_tables(key)
+        kind = ("replay" if graph is not None else "eager" if kept is None
+                else "capture")
+        with TRACER.span("world.batch.run", device=device, kind=kind):
+            if graph is None:
+                if kept is None:
+                    out, kept = _eager(fn, inputs, device)
+                    self._remember(key, kept)
+                    self._count("eager")
+                    return out
+                graph = self.capture(key, fn, inputs, device, kept)
+            self._count("replayed")
+            return graph.replay(inputs)

@@ -24,7 +24,7 @@ from ..dsp.minphase import minimum_phase_spectrum, mirror_full
 from ..dsp.ola import SLOT, SlotGrid, rank_bound
 from ..dsp.scanops import compact_rows, running_sum
 from ..dsp.windows import np_hanning_matlab
-from ..frames import uniform_frame_period_ms
+from ..frames import host_flag, uniform_frame_period_ms, upload
 from ..tables import table
 
 DEFAULT_F0 = 500.0
@@ -271,8 +271,8 @@ def synthesis(source_object: dict, filter_object: dict, noise: torch.Tensor = No
     CPU is asked for).  The noise draw is ``noise``, or drawn from
     ``generator`` (seeded 0 on the device when None)."""
     dev = resolve_device(device)
-    as_t = lambda a: torch.tensor(np.asarray(a, dtype=np.float64),   # noqa: E731
-                                  dtype=dtype, device=dev)
+    as_t = lambda a: upload(np.asarray(a, dtype=np.float64), dtype,   # noqa: E731
+                            dev)
     f0 = np.asarray(source_object["f0"], dtype=np.float64)
     tp = np.asarray(source_object["temporal_positions"], dtype=np.float64)
     spectrogram = as_t(filter_object["spectrogram"])
@@ -291,7 +291,7 @@ def synthesis(source_object: dict, filter_object: dict, noise: torch.Tensor = No
         max_pulses, max_noise, noise_mode, variant,
         None if fp_ms is None else fp_ms / 1000.0,
         pulse_rank_bound(np.max(f0, initial=0.0), fs, variant))
-    if bool(overflow):
+    if host_flag(overflow):
         warnings.warn(f"synthesis: pulse count exceeded max_pulses={max_pulses}; "
                       f"trailing pulses were dropped — raise max_pulses",
                       RuntimeWarning, stacklevel=2)

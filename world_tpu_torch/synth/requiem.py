@@ -16,7 +16,7 @@ from ..dsp.minphase import minimum_phase_spectrum, mirror_full
 from ..dsp.ola import SLOT, slot_ola, uniform_ola
 from ..dsp.scanops import compact_rows, running_sum
 from ..dsp.windows import np_hanning_matlab
-from ..frames import host, uniform_frame_period_ms
+from ..frames import host, host_flag, uniform_frame_period_ms, upload
 from ..tables import table
 from .classic import default_max_pulses, grid_interp, pulse_rank_bound, sample_times
 
@@ -139,8 +139,8 @@ def synthesis_requiem(source_object: dict, filter_object: dict,
     :func:`..synth.seeds.seed_tables`' of tensors; ``noise_offsets`` is
     one velvet-noise read cursor per band (zeros when None)."""
     dev = resolve_device(device)
-    as_t = lambda a: torch.tensor(np.asarray(host(a), dtype=np.float64),   # noqa: E731
-                                  dtype=dtype, device=dev)
+    as_t = lambda a: upload(np.asarray(host(a), dtype=np.float64),   # noqa: E731
+                            dtype, dev)
     f0 = np.asarray(host(source_object["f0"]), dtype=np.float64)
     tp = np.asarray(host(source_object["temporal_positions"]), dtype=np.float64)
     fs = int(filter_object["fs"])
@@ -162,7 +162,7 @@ def synthesis_requiem(source_object: dict, filter_object: dict,
         as_t(source_object["aperiodicity"]), pulse_seed, noise_seed, offsets,
         fs, y_length, max_pulses, None if fp_ms is None else fp_ms / 1000.0,
         pulse_rank_bound(np.max(f0, initial=0.0), fs))   # the contour is on the host
-    if bool(overflow):
+    if host_flag(overflow):
         warnings.warn(f"synthesis_requiem: pulse count exceeded max_pulses="
                       f"{max_pulses}; trailing pulses were dropped — raise "
                       f"max_pulses", RuntimeWarning, stacklevel=2)
