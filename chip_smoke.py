@@ -168,8 +168,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 GOLDEN_DIR = ROOT / "tests" / "golden"
 GOLDEN = GOLDEN_DIR / "harvest_16k.npz"
-ALL_PHASES = (1, 2, 3, 20, 22, 23, 4, 5, 18, 19, 6, 7, 8, 9, 10, 11, 12, 13, 21,
-              14, 15, 16, 17)
+ALL_PHASES = (1, 2, 3, 20, 22, 23, 24, 4, 5, 18, 19, 6, 7, 8, 9, 10, 11, 12, 13,
+              21, 14, 15, 16, 17)
 
 # K1: kernel and plain version evaluate the same IEEE operations in the same
 # order, so the interpolated f0 may differ only by rounding of equal
@@ -1796,6 +1796,7 @@ def classic_graph_run(model, x, noise, label, card, reset_counts, path_launches,
     from torch.profiler import ProfilerActivity, profile
 
     from bench_torch import eager_classic_round_trip
+    from world_tpu_torch.ops.classic_pulses import pulse_counter
 
     eager_call = lambda t: eager_classic_round_trip(model, t, noise)   # noqa: E731
     host = x.cpu().pin_memory()
@@ -1820,10 +1821,12 @@ def classic_graph_run(model, x, noise, label, card, reset_counts, path_launches,
                              f"{ran}")
     graph = model.graphs.graphs()[-1]
     reset_counts()
+    k8_before = pulse_counter.launches
     r1 = model(x, noise=noise)
     r2 = model(x, noise=noise)
     torch.cuda.synchronize()
     counts = path_launches(f"classic_graph_{label}")
+    k8_launches = pulse_counter.launches - k8_before
     differ = [k for k in CLASSIC_KEYS if not torch.equal(r1[k], eager[k])]
     twice = all(torch.equal(r1[k], r2[k]) for k in CLASSIC_KEYS)
     g1 = cuda_ms(lambda: model(x, noise=noise), iters=graph_iters)
@@ -1847,7 +1850,8 @@ def classic_graph_run(model, x, noise, label, card, reset_counts, path_launches,
           f"{differ or ''}, two replays bitwise {twice}; launches per replay K1 "
           f"{counts['event_engine'] / 2:g}, K2 {counts['refine_dft'] / 2:g}, K3 "
           f"{counts['extension_scan'] / 2:g}, K6 {counts['d4c_centroid'] / 2:g}, "
-          f"K7 {counts['d4c_band_ap'] / 2:g}; replay {g1:.2f}/{g2:.2f} ms = "
+          f"K7 {counts['d4c_band_ap'] / 2:g}, K8 {k8_launches / 2:g}; replay "
+          f"{g1:.2f}/{g2:.2f} ms = "
           f"{audio_s / (t_graph / 1e3):.1f} xRT, eager static {e1:.2f}/{e2:.2f} ms "
           f"= {audio_s / (t_eager / 1e3):.1f} xRT, ratio {t_eager / t_graph:.2f}; "
           f"one replay under torch.profiler: {n_events} device events, "
@@ -1857,10 +1861,11 @@ def classic_graph_run(model, x, noise, label, card, reset_counts, path_launches,
         raise AssertionError(f"phase 19 {label}: the graph is not bitwise the eager "
                              f"static call ({differ}) or itself")
     if counts != {"event_engine": 2, "refine_dft": 0, "extension_scan": 4,
-                  "extend_chains": 0, "merge_sections": 0, **d4c_launches(2)}:
-        raise AssertionError(f"phase 19 {label}: K1, K6 and K7 must launch once "
-                             f"per replay, K3 twice, K2 never: {counts} in two "
-                             f"replays")
+                  "extend_chains": 0, "merge_sections": 0,
+                  **d4c_launches(2)} or k8_launches != 2:
+        raise AssertionError(f"phase 19 {label}: K1, K6, K7 and K8 must launch "
+                             f"once per replay, K3 twice, K2 never: {counts}, "
+                             f"K8 {k8_launches} in two replays")
     if not (torch.isfinite(r1["y"]).all() and bool((r1["y"].abs().amax(-1) > 0).all())
             and not r1["_overflow"].any()):
         raise AssertionError(f"phase 19 {label}: non-finite, silent or "
@@ -1886,8 +1891,8 @@ def static_classic_and_graph(xs, fs, card, reset_counts, path_launches) -> dict:
     from world_tpu_torch._backend import STAGE_BYTES_BUDGET
     from world_tpu_torch.parallel.batch import (classic_caps, encode_classic_one,
                                                 synthesize_classic)
-    from world_tpu_torch.synth.classic import (PULSE_ITEMS_PER_SAMPLE,
-                                               pulse_blocking, standard_normal)
+    from world_tpu_torch.ops.classic_pulses import SLOT, k8_blocking
+    from world_tpu_torch.synth.classic import standard_normal
     from world_tpu_torch.spectral.cheaptrick import default_fft_size
 
     f32 = torch.float32
@@ -1943,8 +1948,10 @@ def static_classic_and_graph(xs, fs, card, reset_counts, path_launches) -> dict:
     torch.cuda.synchronize()
     synth_peak = torch.cuda.max_memory_allocated() - base
     fft = default_fft_size(GLIDE_FS)
-    block = pulse_blocking(1, mp, fft, 4) or mp
-    reckoned = block * PULSE_ITEMS_PER_SAMPLE * fft * 4
+    # K8's response buffer: a row of fft_size samples a slot of the block
+    # (and the next SLOT slots where the pulses come in blocks)
+    block = k8_blocking(1, mp, fft, 4) or mp
+    reckoned = min(mp, block if block == mp else block + SLOT) * fft * 4
     del dat
     gc.collect()
     torch.cuda.synchronize()
@@ -2507,6 +2514,187 @@ def time_d4c(a: dict, geo: str, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: K8, the classic synthesis' pulses
+# ---------------------------------------------------------------------------
+
+# K8 against its plain version: the waveform within this many times the
+# plain version's own difference between the card and the CPU on the same
+# operands (the bar K6 and K7 were held to), as the largest sample
+# difference over the rows compared on the CPU
+K8_PLAIN_SPREAD_FACTOR = 2.0
+# the cells' geometries: 16 zero-padded rows of a 1, 2, 3 and 5 s bucket at
+# 16 kHz (1,024, 2,048, 4,096 and 8,192 pulse slots), and x16 alone
+K8_BUCKETS = (1, 2, 3, 5)
+K8_ROWS = 16
+# rows of each geometry the plain version also runs on the CPU
+K8_CPU_ROWS = 2
+
+
+def k8_rows(x16: np.ndarray, fs: int, seconds: int, rows: int) -> np.ndarray:
+    """``rows`` cuts of x16 of lengths spread over the bucket's last second
+    (at most x16's own), each from another offset, zero-padded to the
+    bucket's length, as the corpus cells' calls hold them."""
+    n = seconds * fs
+    out = np.zeros((rows, n))
+    for i in range(rows):
+        length = int(min(x16.shape[0], (seconds - 1 + (i + 1) / rows) * fs))
+        out[i, :length] = np.roll(x16, -997 * i)[:length]
+    return out
+
+
+def k8_operands(x: np.ndarray, fs: int, dtype, seed: int) -> dict:
+    """The classic synthesis' operands of rows x (B, n) as the round trip
+    gives them on the card: the classic encode in ``dtype``, the per-pulse
+    decisions (synth/classic.py::pulse_operands), a noise draw from a
+    generator on the card, and the caps."""
+    import torch
+
+    from world_tpu_torch.parallel.batch import (classic_caps, classic_rank_bound,
+                                                encode_classic_one)
+    from world_tpu_torch.spectral.cheaptrick import default_fft_size
+    from world_tpu_torch.synth.classic import pulse_operands, standard_normal
+
+    B, n = x.shape
+    dat = encode_classic_one(torch.tensor(x, dtype=dtype, device="cuda"), fs, 5)
+    y_length, mp, mn = classic_caps(n, fs, 5)
+    fft = default_fft_size(fs)
+    ops = pulse_operands(dat["f0"], dat["vuv"], dat["temporal_positions"],
+                         dat["aperiodicity"], fs, y_length, fft, mp, mn,
+                         "standard", 0.005)
+    raw_count = ops.pop("raw_count")
+    noise = standard_normal((B, mp, mn), torch.Generator(device="cuda").manual_seed(seed),
+                            dtype, "cuda")
+    return {"spectrogram": dat["spectrogram"], "aperiodicity": dat["aperiodicity"],
+            "noise": noise, **ops, "raw_count": raw_count, "fs": fs,
+            "y_length": y_length, "fft_size": fft, "max_noise": mn,
+            "max_rank": classic_rank_bound(fs)}
+
+
+def k8_call(fn, a: dict, rows=None, device=None):
+    """fn (pulses_plain or pulses_cuda) on the operands ``a``, of ``rows``
+    only and moved to ``device`` when given."""
+    keys = ("spectrogram", "aperiodicity", "noise", "floor_i", "ceil_i", "wa",
+            "wb", "voiced", "shifts", "noise_sizes", "n_noise", "starts", "count")
+    args = []
+    for k in keys:
+        t = a[k]
+        if rows is not None:
+            t = t[rows]
+        if device is not None:
+            t = t.to(device)
+        args.append(t.contiguous() if k not in ("spectrogram", "aperiodicity") else t)
+    return fn(*args, a["fs"], a["y_length"], a["fft_size"], a["max_noise"],
+              "gaussian", a["max_rank"])
+
+
+def k8_bound(a: dict) -> tuple:
+    """The least time of K8's work on these operands (ms, and which term):
+    bytes: the frames of both arrays the live pulses reach, their noise
+    samples and per-pulse operands read once, the output written once;
+    operations: a live pulse's three complex FFTs (5 N log2 N each), its
+    direct convolution (2 flops a product) and ~30 operations a bin of
+    lerps, logs, exponentials and phases, and N additions of the
+    overlap-add."""
+    import torch
+
+    count = torch.clamp(a["count"], max=a["starts"].shape[1])
+    P = a["starts"].shape[1]
+    live = torch.arange(P, device=count.device)[None, :] < count[:, None]
+    B, bins, F = a["spectrogram"].shape
+    item = a["spectrogram"].element_size()
+    frames = torch.zeros((B, F), dtype=torch.bool, device=count.device)
+    rows = torch.arange(B, device=count.device)[:, None].expand(B, P)
+    for f in (a["floor_i"], a["ceil_i"]):
+        frames[rows[live], f[live]] = True
+    n_live = int(live.sum())
+    nn = a["n_noise"][live].double()
+    N = a["fft_size"]
+    bytes_ = (int(frames.sum()) * bins * 2 * item + float(nn.sum()) * item
+              + n_live * (8 * 4 + 4 * item + 1) + B * 8
+              + B * a["y_length"] * item)
+    conv = float((2 * (N * nn - nn * (nn - 1) / 2)).sum())
+    ops = n_live * (3 * 5 * N * np.log2(N) + 30 * bins + N) + conv
+    b_ms, o_ms = 1e3 * bytes_ / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations"), n_live
+
+
+def phase_k8(x16: np.ndarray, fs: int, card: str) -> dict:
+    """Phase 24: K8 against its plain version at the corpus cells'
+    geometries (16 rows of the 1, 2, 3 and 5 s buckets, float32) and on x16
+    alone (float32 and float64): the crowded flags equal, the waveform
+    within K8_PLAIN_SPREAD_FACTOR times the plain version's own card-
+    against-CPU difference (the rows K8_CPU_ROWS), two calls bitwise, the
+    live counter equal to the rows' live pulses; then kernel and plain
+    timed (plain, kernel, kernel, plain) beside the bound.  Returns the
+    numbers by geometry."""
+    import torch
+
+    from world_tpu_torch.ops import classic_pulses as K
+    from world_tpu_torch.utils.profiling import TRACER
+
+    found, failed = {}, []
+    cases = [(f"corpus_{sec}s", k8_rows(x16, fs, sec, K8_ROWS), torch.float32)
+             for sec in K8_BUCKETS]
+    cases += [("x16", x16[None], torch.float32), ("x16_f64", x16[None], torch.float64)]
+    for label, x, dtype in cases:
+        a = k8_operands(x, fs, dtype, seed=24)
+        B, P = a["starts"].shape
+        counter = TRACER.device_counter(K.LIVE, "cuda")
+        torch.cuda.synchronize()
+        before = int(counter.item())
+        launches = K.pulse_counter.launches
+        y1, c1 = k8_call(K.pulses_cuda, a)
+        y2, c2 = k8_call(K.pulses_cuda, a)
+        torch.cuda.synchronize()
+        live_read = (int(counter.item()) - before) / 2
+        yp, cp = k8_call(K.pulses_plain, a)
+        cpu_rows = slice(0, min(B, K8_CPU_ROWS))
+        yc, cc = k8_call(K.pulses_plain, a, rows=cpu_rows, device="cpu")
+        bound, n_live = k8_bound(a)
+        d_k = float((y1[cpu_rows] - yp[cpu_rows]).abs().max())
+        d_p = float((yp[cpu_rows].cpu() - yc).abs().max())
+        d_all = float((y1 - yp).abs().max())
+        scale = float(yp.abs().max())
+        ok = (torch.equal(y1, y2) and torch.equal(c1, cp) and torch.equal(c1, c2)
+              and torch.equal(cp[cpu_rows].cpu(), cc)
+              and d_k <= K8_PLAIN_SPREAD_FACTOR * d_p and live_read == n_live
+              and K.pulse_counter.launches - launches == 2
+              and bool(torch.isfinite(y1).all()))
+        plain_iters = 1 if P * B > 20000 else 3
+        p1 = cuda_ms(lambda: k8_call(K.pulses_plain, a), iters=plain_iters)
+        k1 = cuda_ms(lambda: k8_call(K.pulses_cuda, a), iters=10)
+        k2 = cuda_ms(lambda: k8_call(K.pulses_cuda, a), iters=10)
+        p2 = cuda_ms(lambda: k8_call(K.pulses_plain, a), iters=plain_iters)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        found[label] = {"rows": B, "slots": P, "fft_size": a["fft_size"],
+                        "dtype": str(dtype), "live": n_live,
+                        "live_share": n_live / (B * P), "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound[0],
+                        "bound_by": bound[1], "kernel_vs_plain": d_k,
+                        "plain_card_vs_cpu": d_p, "kernel_vs_plain_all_rows": d_all,
+                        "scale": scale, "crowded": c1.tolist(), "ok": ok}
+        print(f"phase 24 K8 {label} ({B} x {P} slots, fft_size {a['fft_size']}, "
+              f"{dtype}) [{card}]: live {n_live} = {n_live / (B * P):.4f} of the "
+              f"slots (device counter {live_read:g}); kernel {k1:.4f}/{k2:.4f} ms, "
+              f"plain {p1:.3f}/{p2:.3f} ms ({plain_ms / ms:.1f}x); bound "
+              f"{bound[0]:.4g} ms ({bound[1]}), {100 * bound[0] / ms:.2f}% of it; "
+              f"waveform: kernel vs plain on the card {d_k:.3g} (all rows "
+              f"{d_all:.3g}), plain card vs CPU {d_p:.3g}, ratio "
+              f"{d_k / d_p if d_p else float('inf'):.3g} (bar "
+              f"{K8_PLAIN_SPREAD_FACTOR:g}), scale {scale:.3g}; crowded "
+              f"{int(c1.sum())} rows, equal {torch.equal(c1, cp)}; two calls "
+              f"bitwise {torch.equal(y1, y2)}; {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(label)
+        del a, y1, y2, yp, yc
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"phase 24: K8 failed at {failed}")
+    print("phase 24 K8: ok")
+    return found
+
+
 def main(phases=ALL_PHASES) -> int:
     import torch
 
@@ -2574,6 +2762,12 @@ def main(phases=ALL_PHASES) -> int:
                         "replaces": "world_tpu/aperiodicity/common.py:188",
                         "library_ms": None, "launches_by_path": {},
                         "geometries": {}},
+        # no Pallas kernel: the classic synthesis' stock ops over every pulse
+        # slot (world_tpu/synth/classic.py::_synthesis_core)
+        "classic_pulses": {"name": "classic_pulses", "route": "cuda",
+                           "source": "world_tpu_torch/csrc/classic_pulses.cu",
+                           "replaces": None, "library_ms": None,
+                           "launches_by_path": {}, "geometries": {}},
     }
 
     def path_launches(path: str):
@@ -2804,6 +2998,9 @@ def main(phases=ALL_PHASES) -> int:
             raise AssertionError(f"phase 22: K6/K7 disagree with their plain "
                                  f"versions at {failed}")
         print("phase 22 K6 and K7: ok")
+
+    if 24 in phases:
+        kernels["classic_pulses"]["geometries"] = phase_k8(x16, fs, card)
 
     if 23 in phases:
         # World.encode -> decode at 192 kHz through Harvest, with classic D4C

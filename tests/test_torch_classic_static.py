@@ -135,7 +135,8 @@ def _dynamic_synthesis(f0, vuv, tp, spectrogram, aperiodicity, noise, fs,
     from world_tpu_torch.dsp.minphase import minimum_phase_spectrum, mirror_full
     from world_tpu_torch.dsp.ola import scatter_ola
     from world_tpu_torch.dsp.windows import np_hanning_matlab
-    from world_tpu_torch.synth.classic import _interp, cmul, sample_times
+    from world_tpu_torch.ops.classic_pulses import cmul
+    from world_tpu_torch.synth.classic import _interp, sample_times
 
     dtype = spectrogram.dtype
     time_axis = sample_times(y_length, fs, tp[0])
@@ -273,11 +274,11 @@ def test_static_synthesis_of_an_unvoiced_contour(golden_args):
 def test_static_synthesis_in_blocks_of_pulses(golden_args, monkeypatch):
     """Blocks of pulses fill one slot grid in the unblocked order: any
     blocking gives the same bits, the last block short."""
-    from world_tpu_torch.synth import classic
+    from world_tpu_torch.ops import classic_pulses
 
     args = (golden_args, "a", "gaussian", golden_args["vuv"])
     whole, _ = _static(*args)
-    monkeypatch.setattr(classic, "pulse_blocking", lambda *a: 333)
+    monkeypatch.setattr(classic_pulses, "pulse_blocking", lambda *a: 333)
     blocked, _ = _static(*args)
     assert torch.equal(blocked, whole)
 
@@ -285,8 +286,8 @@ def test_static_synthesis_in_blocks_of_pulses(golden_args, monkeypatch):
 def test_pulse_blocking_follows_the_budget():
     from world_tpu_torch._backend import STAGE_BYTES_BUDGET
     from world_tpu_torch.parallel.batch import classic_caps
-    from world_tpu_torch.synth.classic import (PULSE_ITEMS_PER_SAMPLE,
-                                               pulse_blocking)
+    from world_tpu_torch.ops.classic_pulses import (PULSE_ITEMS_PER_SAMPLE,
+                                                    pulse_blocking)
 
     assert pulse_blocking(3, 256, 512, 8) is None            # the tiny shape
     _, max_pulses, _ = classic_caps(74304, 16000, 5)          # x16

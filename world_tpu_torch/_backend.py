@@ -255,6 +255,22 @@ def _build_and_load():
         # N, max_half, span, rows, K6's blocks a frame (out), K7's (out)
         fn.argtypes = [I, I, I, I, P, P]
         fn.restype = I
+        fn = getattr(lib, f"world_pulse_plan_{suffix}")
+        # N, max_noise, grid (out), shared memory bytes (out), scratch items
+        # a block (out)
+        fn.argtypes = [I, I, P, P, P]
+        fn.restype = I
+        fn = getattr(lib, f"world_pulse_responses_{suffix}")
+        # sp, ap, count, f1, f2, wa, wb, voiced, phase_step, gain, n_noise,
+        # noise, dc_base, twiddles, B, P, F, N, max_noise, p_lo, p_hi,
+        # p_own_hi, resp, scratch, live, stream
+        fn.argtypes = [P] * 14 + [I] * 8 + [P] * 4
+        fn.restype = I
+        fn = getattr(lib, f"world_pulse_ola_{suffix}")
+        # resp, starts, count, B, P, N, y_length, max_rank, p_lo, p_own_hi,
+        # rows, y, stream
+        fn.argtypes = [P, P, P] + [I] * 8 + [P, P]
+        fn.restype = I
     return lib, seconds
 
 

@@ -2,7 +2,8 @@
 engine), K2 (refine_dft, Harvest refinement), K3 (extension_scan, DIO's
 FixStep3 and FixStep4), K4 and K5 (fix_step3, Harvest's FixStep3: the
 extension chains and the merge), K6 and K7 (d4c_spectra, D4C's centroid
-spectra and band aperiodicity), and the arithmetic their plain versions
+spectra and band aperiodicity), K8 (classic_pulses, the classic synthesis'
+pulse responses and overlap-add), and the arithmetic their plain versions
 share with the rest of the package."""
 import torch
 

@@ -264,6 +264,7 @@ def encode_classic_one(x: torch.Tensor, fs: int, frame_period: int,
             "aperiodicity": an["aperiodicity"].transpose(1, 2)}
 
 
+@functools.lru_cache(maxsize=None)
 def classic_caps(sig_len: int, fs: int, frame_period: int):
     """(y_length, max_pulses, max_noise) of the classic round trip, bounded
     by the f0 ceiling rather than the data (DIO keeps no candidate above
@@ -718,9 +719,10 @@ class DioClassic(_TableModule):
         dev = self.dio_bank.device
         with TRACER.span("world.batch.dio_classic", device=dev, fs=self.fs):
             TRACER.count("samples.computed", xb.shape[0] * xb.shape[1])
+            _, max_pulses, max_noise = classic_caps(self.n_samples, self.fs,
+                                                    self.frame_period)
+            TRACER.count("synth.pulses.slots", xb.shape[0] * max_pulses)
             if noise is None:
-                _, max_pulses, max_noise = classic_caps(self.n_samples, self.fs,
-                                                        self.frame_period)
                 with TRACER.span("world.batch.noise"):
                     noise = standard_normal((xb.shape[0], max_pulses, max_noise),
                                             generator, xb.dtype, dev)

@@ -93,8 +93,8 @@ import torch
 from .. import tables
 from .._backend import STAGE_BYTES_BUDGET
 from ..utils.profiling import TRACER
-from ..ops import (d4c_spectra, edge_interp, extension_scan, fix_step3,
-                   refine_dft)
+from ..ops import (classic_pulses, d4c_spectra, edge_interp, extension_scan,
+                   fix_step3, refine_dft)
 
 # the bytes a cache's pools hold together: 4 GiB, a twentieth of an 80 GB
 # card, holds the 60 s round trip's graph (2.6 GiB) or a ragged server's
@@ -109,7 +109,8 @@ _COUNTERS = {"event_engine": edge_interp.counter,
              "extend_chains": fix_step3.extend_counter,
              "merge_sections": fix_step3.merge_counter,
              "d4c_centroid": d4c_spectra.centroid_counter,
-             "d4c_band_ap": d4c_spectra.band_ap_counter}
+             "d4c_band_ap": d4c_spectra.band_ap_counter,
+             "classic_pulses": classic_pulses.pulse_counter}
 # one capture at a time in the process: two captures would share the
 # allocator's capture state
 _CAPTURE_LOCK = threading.Lock()

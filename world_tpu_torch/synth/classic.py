@@ -1,11 +1,14 @@
 """Classic WORLD synthesis (port of world_tpu/synth/classic.py): a pulse
 train and filtered noise, overlap-added.
 
-Pulse times come from the wrapped phase of the interpolated f0; every
-pulse's periodic response (minimum-phase spectrum with a fractional time
-shift) and aperiodic response (noise convolved with a minimum-phase
-response) are computed for every slot of a static pulse axis, in blocks of
-pulses, and overlap-added in a fixed order (:class:`..dsp.ola.SlotGrid`).
+Pulse times come from the wrapped phase of the interpolated f0, on a
+static pulse axis; every per-pulse decision (positions, shifts, noise
+lengths, overlap-add starts, frame pairs, the voicing gate) is a (B, P)
+tensor here.  Each pulse's periodic response (minimum-phase spectrum with a
+fractional time shift) and aperiodic response (noise convolved with a
+minimum-phase response), and their overlap-add in a fixed order, are
+:mod:`..ops.classic_pulses`': K8 on the card, which computes the live
+pulses only, and its plain version on the CPU, which computes every slot.
 The synthesis takes a leading batch axis and reads nothing back to the
 host, as the JAX package's static program does.  The noise is an explicit
 argument, a standard-normal draw of shape (B, max_pulses, max_noise), so
@@ -18,14 +21,13 @@ import warnings
 import numpy as np
 import torch
 
-from .._backend import F64_EPS, chunk_size, resolve_device, sdiv
+from .._backend import resolve_device, sdiv
 from ..dsp.interp import interp1_extrap
-from ..dsp.minphase import minimum_phase_spectrum, mirror_full
-from ..dsp.ola import SLOT, SlotGrid, rank_bound
+from ..dsp.ola import SLOT, rank_bound
 from ..dsp.scanops import compact_rows, running_sum
-from ..dsp.windows import np_hanning_matlab
 from ..frames import host_flag, uniform_frame_period_ms, upload
-from ..tables import table
+from ..ops.classic_pulses import pulse_synthesis
+from ..utils.profiling import TRACER
 
 DEFAULT_F0 = 500.0
 
@@ -97,30 +99,26 @@ def time_base(temporal_positions, f0, vuv, fs: float, time_axis,
     return locs.to(f0_i.dtype), pli, shift, vuv_i, raw_count
 
 
-def cmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The complex product a * b from its real products, each rounded once.
-    PyTorch's own product on the CPU fuses a product into an FMA in its
-    vector lanes but not in its scalar remainder, so an element's last bit
-    would depend on where it lies in the tensor, and a pulse's response on
-    the batch and the block of pulses it is computed in."""
-    ar, ai, br, bi = a.real, a.imag, b.real, b.imag
-    return torch.complex(ar * br - ai * bi, ar * bi + ai * br)
-
-
-# what the responses of one pulse hold alive at once, in items of the
-# working type per sample of fft_size: the spectra and their two minimum-
-# phase transforms, the complex spectra and responses, the noise and its
-# convolution at twice the size, and the overlap-add's shifted row.  A
-# reckoning, as the other stages' are (_backend.chunk_size).
-PULSE_ITEMS_PER_SAMPLE = 48
-
-
-def pulse_blocking(n_rows: int, max_pulses: int, fft_size: int,
-                   itemsize: int):
-    """The pulses a block of :func:`synthesis_core` computes at once: None
-    where all of them fit ``STAGE_BYTES_BUDGET``'s rule."""
-    return chunk_size(n_rows * PULSE_ITEMS_PER_SAMPLE * fft_size * itemsize,
-                      max_pulses)
+def frame_pair(locs, temporal_positions, dtype, frame_period_s=None):
+    """Each pulse's 2-frame lerp at its location locs (B, P): the 0-based
+    frame pair (floor_i, ceil_i) and the weights (a, b) of its two frames
+    (synthesis.py's interp1 of the frame index), in the working type
+    ``dtype``."""
+    dev = locs.device
+    n_frames = temporal_positions.shape[0]
+    frame_ids = torch.arange(1, n_frames + 1, dtype=dtype, device=dev)
+    tpi = torch.clamp(_interp(frame_ids, temporal_positions, locs,
+                              frame_period_s), 1.0, float(n_frames))
+    floor_i = torch.floor(tpi).to(torch.int64) - 1
+    ceil_i = torch.ceil(tpi).to(torch.int64) - 1
+    t1 = temporal_positions[floor_i]
+    t2 = temporal_positions[ceil_i]
+    xq = torch.maximum(t1, torch.minimum(t2, locs))
+    same = t1 == t2
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    b = torch.where(same, zero, (xq - t1) / torch.where(
+        same, torch.ones_like(t1), t2 - t1))
+    return floor_i, ceil_i, 1.0 - b, b
 
 
 def synthesis_core(f0, vuv, temporal_positions, spectrogram, aperiodicity,
@@ -134,9 +132,11 @@ def synthesis_core(f0, vuv, temporal_positions, spectrogram, aperiodicity,
     f0 and vuv are (B, frames); spectrogram and aperiodicity (B, bins,
     frames); noise is the standard-normal draw (B, max_pulses, max_noise),
     whose rows feed the pulses in order.  One utterance may come without its
-    batch axis, and its outputs then have none.  Every pulse slot is computed and
-    the slots past the pulse count are left out of the overlap-add, in
-    blocks of pulses (:func:`pulse_blocking`).  ``noise_mode="constant"``
+    batch axis, and its outputs then have none.  The per-pulse decisions
+    are (B, max_pulses) tensors here; the responses and the overlap-add are
+    :func:`..ops.classic_pulses.pulse_synthesis`' (K8 on the card, on the
+    live pulses only; on the CPU every slot, the slots past the pulse count
+    left out of the overlap-add).  ``noise_mode="constant"``
     uses 0.1 in the draw's place, as the golden waveform does, and takes
     noise None.  ``variant="a"`` is synthesis_a: pulses at pi/2 phase wraps,
     no fractional shift, no aperiodicity gate.  ``max_rank``: the overlap-
@@ -150,7 +150,6 @@ def synthesis_core(f0, vuv, temporal_positions, spectrogram, aperiodicity,
             y_length, fft_size, max_pulses, max_noise, noise_mode, variant,
             frame_period_s, max_rank)
         return y[0], overflow[0]
-    dtype, dev = spectrogram.dtype, spectrogram.device
     B = f0.shape[0]
     if noise_mode == "gaussian" and (noise is None or tuple(noise.shape)
                                      != (B, max_pulses, max_noise)):
@@ -158,6 +157,29 @@ def synthesis_core(f0, vuv, temporal_positions, spectrogram, aperiodicity,
                          f"{max_noise}) standard-normal draw")
     if noise_mode not in ("gaussian", "constant"):
         raise ValueError(f"noise_mode {noise_mode!r}")
+    ops = pulse_operands(f0, vuv, temporal_positions, aperiodicity, fs,
+                         y_length, fft_size, max_pulses, max_noise, variant,
+                         frame_period_s)
+    raw_count = ops.pop("raw_count")
+    y, crowded = pulse_synthesis(spectrogram, aperiodicity, noise, **ops, fs=fs,
+                                 y_length=y_length, fft_size=fft_size,
+                                 max_noise=max_noise, noise_mode=noise_mode,
+                                 max_rank=max_rank)
+    return y, (raw_count > max_pulses) | crowded
+
+
+def pulse_operands(f0, vuv, temporal_positions, aperiodicity, fs: int,
+                   y_length: int, fft_size: int, max_pulses: int,
+                   max_noise: int, variant: str = "standard",
+                   frame_period_s=None) -> dict:
+    """Every per-pulse decision of :func:`synthesis_core` for f0 and vuv
+    (B, frames) and aperiodicity (B, bins, frames), as (B, max_pulses)
+    tensors: the frame pair ``floor_i``/``ceil_i`` and weights ``wa``/``wb``
+    of each pulse's spectral lerp, its ``voiced`` gate, fractional
+    ``shifts``, ``noise_sizes`` and ``n_noise``, and the overlap-add
+    ``starts`` (the slots past the count parked past the output); ``count``
+    (B,), the pulses kept, and ``raw_count`` (B,), the phase wraps found."""
+    dtype, dev = aperiodicity.dtype, aperiodicity.device
     time_axis = sample_times(y_length, fs, temporal_positions[0])
     wrap_threshold = math.pi if variant == "standard" else math.pi / 2
     locs, pli, shifts, vuv_i, raw_count = time_base(
@@ -175,81 +197,17 @@ def synthesis_core(f0, vuv, temporal_positions, spectrogram, aperiodicity,
     n_noise = torch.clamp(torch.clamp(noise_sizes, max=max_noise), min=3)
     starts = torch.where(valid, pli - fft_size // 2,
                          torch.full_like(pli, y_length + fft_size + 2))
-
-    n_frames = temporal_positions.shape[0]
-    frame_ids = torch.arange(1, n_frames + 1, dtype=dtype, device=dev)
-    S = spectrogram.transpose(-1, -2)                       # (B, frames, bins)
-    AP = (aperiodicity ** 2).transpose(-1, -2)
-    PER = torch.clamp(1.0 - AP, min=0.001)
-    rows = torch.arange(B, device=dev)[:, None]
-    zero = torch.zeros((), dtype=dtype, device=dev)
-    half_n = fft_size // 2 + 1
-    coefficient = 2.0 * math.pi * fs / fft_size
-    half_k = torch.arange(half_n, dtype=dtype, device=dev)
-    dc_base = table("classic_dc_base", (int(fft_size),),
-                    lambda: np_hanning_matlab(fft_size)
-                    / np_hanning_matlab(fft_size).sum(), dtype, dev)
-    conv_n = 2 * fft_size
-    grid = SlotGrid(starts, y_length, fft_size, dtype)
-    block = pulse_blocking(B, max_pulses, fft_size, spectrogram.element_size())
-    block = max_pulses if block is None else block
-    for p0 in range(0, max_pulses, block):
-        cols = slice(p0, p0 + block)
-        lc = locs[:, cols]
-        tpi = torch.clamp(_interp(frame_ids, temporal_positions, lc,
-                                  frame_period_s), 1.0, float(n_frames))
-        # 2-frame spectral lerp
-        floor_i = torch.floor(tpi).to(torch.int64) - 1
-        ceil_i = torch.ceil(tpi).to(torch.int64) - 1
-        t1 = temporal_positions[floor_i]
-        t2 = temporal_positions[ceil_i]
-        xq = torch.maximum(t1, torch.minimum(t2, lc))
-        same = t1 == t2
-        b = torch.where(same, zero, (xq - t1) / torch.where(
-            same, torch.ones_like(t1), t2 - t1))
-        a = (1.0 - b)[..., None]
-        b = b[..., None]
-        spec = a * S[rows, floor_i] + b * S[rows, ceil_i]
-        per = a * PER[rows, floor_i] + b * PER[rows, ceil_i]
-        aps = a * AP[rows, floor_i] + b * AP[rows, ceil_i]
-        voiced = torch.gather(vuv_i, -1, pli[:, cols] - 1)
-        if variant == "standard":
-            voiced = voiced & (aps[..., 0] <= 0.999)
-
-        # periodic responses (synthesis.py:100-116)
-        mp = minimum_phase_spectrum(mirror_full(torch.clamp(spec * per,
-                                                            min=F64_EPS)))
-        theta = -(coefficient * shifts[:, cols])[..., None] * half_k
-        half = cmul(mp[..., :half_n], torch.polar(torch.ones_like(theta), theta))
-        full = torch.cat([half, torch.flip(half[..., 1:-1], (-1,)).conj()],
-                         dim=-1)
-        response = torch.fft.fftshift(torch.fft.ifft(full).real, dim=-1)
-        dc_remover = dc_base * (-response.sum(dim=-1, keepdim=True))
-        periodic = ((response + dc_remover) * torch.sqrt(torch.clamp(
-            noise_sizes[:, cols].to(dtype), min=1.0))[..., None])
-        periodic = torch.where(voiced[..., None], periodic, zero)
-
-        # aperiodic responses (synthesis.py:86-96)
-        ap_spec = torch.clamp(torch.where(voiced[..., None], spec * aps, spec),
-                              min=F64_EPS)
-        ap_response = torch.fft.fftshift(
-            torch.fft.ifft(minimum_phase_spectrum(mirror_full(ap_spec))).real,
-            dim=-1)
-        nn_ = n_noise[:, cols]
-        noise_mask = torch.arange(max_noise, device=dev) < nn_[..., None]
-        if noise_mode == "constant":
-            draw = torch.full(noise_mask.shape, 0.1, dtype=dtype, device=dev)
-        else:
-            draw = noise[:, cols].to(dtype)
-        draw = torch.where(noise_mask, draw, zero)
-        draw = torch.where(noise_mask, draw - draw.sum(dim=-1, keepdim=True)
-                           / nn_[..., None].to(dtype), zero)
-        ap_out = torch.fft.irfft(cmul(torch.fft.rfft(draw, conv_n),
-                                      torch.fft.rfft(ap_response, conv_n)),
-                                 conv_n)[..., :fft_size]
-        grid.add(periodic + ap_out, p0, max_rank)
-    y, crowded = grid.result(max_rank)
-    return y, (raw_count > max_pulses) | crowded
+    floor_i, ceil_i, wa, wb = frame_pair(locs, temporal_positions, dtype,
+                                         frame_period_s)
+    voiced = torch.gather(vuv_i, -1, pli - 1)
+    if variant == "standard":
+        ap0 = aperiodicity[:, 0, :] ** 2                      # (B, frames)
+        voiced = voiced & (wa * torch.gather(ap0, -1, floor_i)
+                           + wb * torch.gather(ap0, -1, ceil_i) <= 0.999)
+    return {"floor_i": floor_i, "ceil_i": ceil_i, "wa": wa, "wb": wb,
+            "voiced": voiced, "shifts": shifts, "noise_sizes": noise_sizes,
+            "n_noise": n_noise, "starts": starts, "count": count,
+            "raw_count": raw_count}
 
 
 def default_max_pulses(temporal_positions: np.ndarray, f0: np.ndarray) -> int:
@@ -281,6 +239,7 @@ def synthesis(source_object: dict, filter_object: dict, noise: torch.Tensor = No
     fft_size = (spectrogram.shape[0] - 1) * 2
     if max_pulses is None:
         max_pulses = default_max_pulses(tp, f0)
+    TRACER.count("synth.pulses.slots", max_pulses)
     max_noise = max_noise_length(fs)
     if noise is None and noise_mode == "gaussian":
         noise = standard_normal((max_pulses, max_noise), generator, dtype, dev)

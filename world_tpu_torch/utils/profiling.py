@@ -20,7 +20,11 @@ The tracer, :data:`TRACER`, records:
     is on; a replay made while tracing reads them once it has run;
   * counters (:meth:`Tracer.count`), always on, added where the work
     happens (:data:`COUNTERS`).  A call's outermost span keeps what each
-    counter gained during the call.
+    counter gained during the call.  A counter that device work adds to
+    (:meth:`Tracer.device_counter`, a kernel's int64 on the card) is read
+    into its counter only at the end of an entry point's call (an outermost
+    span given a device) while the tracer records, so off it costs no wait
+    for the device.
 
 It records while :func:`tracing` is entered, or while a profiler session
 records in the process.  Otherwise a boundary costs one check and records,
@@ -60,6 +64,12 @@ COUNTERS = {
                         "padded length",
     "samples.true": "the callers' own samples among them, where the entry "
                     "knows them",
+    "synth.pulses.slots": "pulse slots of the classic syntheses' static "
+                          "pulse axes: rows times max_pulses",
+    "synth.pulses.live": "the live pulses among them, which the classic "
+                         "syntheses compute (K8's live blocks count them on "
+                         "the card): read off the device at a traced call's "
+                         "end",
 }
 
 
@@ -72,7 +82,7 @@ class Span:
 
     __slots__ = ("name", "id", "parent", "call", "attrs", "t0", "t1",
                  "device_ms", "counts", "_events", "_tracer", "_device",
-                 "_range")
+                 "_range", "_at_entry")
 
     def __init__(self, name, id, parent=None, call=None, attrs=None, t0=None,
                  t1=None, device_ms=None, events=None):
@@ -82,7 +92,7 @@ class Span:
         self.t0, self.t1, self.device_ms = t0, t1, device_ms
         self.counts = None
         self._events = events
-        self._tracer = self._device = self._range = None
+        self._tracer = self._device = self._range = self._at_entry = None
 
     @property
     def host_ms(self):
@@ -103,6 +113,8 @@ class Span:
             self.parent, self.call = stack[-1].id, stack[-1].call
         else:
             self.counts = tracer.counters()
+            if self._device is not None:          # a call into an entry point
+                self._at_entry = tracer._device_snapshot()
         if _profiler_on():
             self._range = _RANGE(self.name)
             self._range.__enter__()
@@ -128,9 +140,11 @@ class Span:
         if self._range is not None:
             self._range.__exit__(None, None, None)
         if self.counts is not None:
+            if self._at_entry is not None:
+                tracer._read_device_counters(self._at_entry)
             now = tracer.counters()
             self.counts = {k: v - self.counts.get(k, 0) for k, v in now.items()}
-        self._tracer = self._device = self._range = None
+        self._tracer = self._device = self._range = self._at_entry = None
         tracer._keep(self)
         return False
 
@@ -173,6 +187,7 @@ class Tracer:
         self._spans = collections.deque()
         self._pending = {}
         self._counts = dict.fromkeys(COUNTERS, 0)
+        self._device_counters = {}
 
     # ------------------------------------------------------------ switches
     def on(self) -> bool:
@@ -250,6 +265,59 @@ class Tracer:
     def counters(self) -> dict:
         with self._lock:
             return dict(self._counts)
+
+    def device_counter(self, name: str, device) -> torch.Tensor:
+        """The int64 tensor (1,) on ``device`` that work there adds the
+        counter ``name``'s gains to (a kernel, or the plain version's
+        tensor op on the CPU).  Made at its first use, which must not be
+        under a graph capture (the capture would zero it at each replay);
+        it then lives as long as the process, so graphs may hold it."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = (name, str(device))
+        t = self._device_counters.get(key)
+        if t is None:
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"the device counter {name} on {device} is "
+                                   f"first asked for under a graph capture: "
+                                   f"make it in an eager call first")
+            t = torch.zeros(1, dtype=torch.int64, device=device)
+            with self._lock:
+                t = self._device_counters.setdefault(key, t)
+        return t
+
+    def _device_snapshot(self) -> list:
+        """At a call's entry: (name, tensor, a copy of its value) of each
+        device counter, the copy made on the device without a wait."""
+        if not self._device_counters or (torch.cuda.is_available()
+                                         and torch.cuda.is_current_stream_capturing()):
+            return []
+        with self._lock:
+            items = list(self._device_counters.items())
+        return [(name, t, t.clone()) for (name, _), t in items
+                if t.device.type != "meta"]
+
+    def _read_device_counters(self, at_entry):
+        """At a traced call's end: add what each device counter gained since
+        ``at_entry`` (:meth:`_device_snapshot`) to its counter, after the
+        device has run the call's work; a counter made during the call
+        gained all it holds."""
+        if not self._device_counters or (torch.cuda.is_available()
+                                         and torch.cuda.is_current_stream_capturing()):
+            return
+        before = {id(t): snap for _, t, snap in at_entry or ()}
+        with self._lock:
+            items = list(self._device_counters.items())
+        for (name, _), t in items:
+            if t.device.type == "meta":
+                continue
+            if t.device.type == "cuda":
+                torch.cuda.synchronize(t.device)
+            snap = before.get(id(t))
+            gain = int(t.item()) - (0 if snap is None else int(snap.item()))
+            if gain:
+                self.count(name, gain)
 
     # --------------------------------------------------------- stage stamps
     def stamp(self, stage: str, device):
