@@ -3,16 +3,18 @@ measure for ``--seconds``, read the trace where asked, check the sampled
 outputs against the plain reference, and print the result.
 
 Everything that belongs to one cell is found by name: the cell in
-BENCHMARK.json, its configuration (``configs/<config>.json``), its traffic
-mix (``mixes/<traffic>.json``, which names a driver in ``traffic/`` and the
+BENCHMARK.json, its configuration (``configs/<config>.json``), the audio
+the configuration names (``data/<audio>.npy`` and its manifest
+``data/<audio>.json``, traffic/cuts.py), its traffic mix
+(``mixes/<traffic>.json``, which names a driver in ``traffic/`` and the
 kind of entry point, ``api``, that the configuration maps to a module of
-``entries/``), its limits (``limits/<cell>.json``) and each metric's reader
+``entries/`` and to a reference path, ``paths/<reference>.py``), its
+limits (``limits/<cell>.json``) and each metric's reader
 (``metrics/<metric>.py``).
 """
 import argparse
 import gc
 import importlib
-import importlib.util
 import json
 import subprocess
 import sys
@@ -22,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import judge
+from . import judge, load_module
 
 BENCH = Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
@@ -49,15 +51,6 @@ def load_json(path: Path) -> dict:
     return json.loads(path.read_text())
 
 
-def load_module(path: Path):
-    """A module of the benchmark by its file (metric names hold dots)."""
-    spec = importlib.util.spec_from_file_location(
-        "bench_" + path.stem.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def cell_of(name: str) -> tuple:
     """(BENCHMARK.json, the cell's entry, its configuration, its mix)."""
     bench = load_json(ROOT / "BENCHMARK.json")
@@ -71,6 +64,28 @@ def cell_of(name: str) -> tuple:
     cfg = dict(cfg, entry=cfg["entries"][mix["api"]],
                reference=cfg["references"][mix["api"]])
     return bench, cell, cfg, mix
+
+
+def audio_of(cfg: dict, mix: dict):
+    """The audio the configuration names (traffic/cuts.py's ``Audio``).
+    Raise Setup where it names none, where its manifest's rate is not the
+    configuration's, or where the mix asks for cuts longer than the audio:
+    nothing is resampled or cut short."""
+    from traffic import cuts
+    if "audio" not in cfg:
+        raise Setup(f"the configuration {cfg['name']!r} names no audio")
+    try:
+        audio = cuts.load(cfg["audio"])
+    except FileNotFoundError as e:
+        raise Setup(f"the audio {cfg['audio']!r} is missing: {e}") from e
+    if audio.fs != cfg["fs"]:
+        raise Setup(f"the audio {cfg['audio']!r} is at {audio.fs} Hz, the "
+                    f"configuration {cfg['name']!r} at {cfg['fs']} Hz")
+    max_s = mix["params"].get("max_s", 0.0)
+    if int(max_s * audio.fs) > audio.x.shape[0]:
+        raise Setup(f"the mix asks for cuts of up to {max_s} s; the audio "
+                    f"{cfg['audio']!r} holds {audio.x.shape[0] / audio.fs} s")
+    return audio
 
 
 def metrics_of(bench: dict, cell: dict, trace: int) -> list:
@@ -174,13 +189,14 @@ def run(args, t_start: float, device=None, cell_data=None) -> dict:
         import world_tpu_torch  # noqa: F401  (the program under test)
     except ImportError as e:
         raise Setup(f"the program is not in this checkout: {e}") from e
-    from traffic import common, cuts
+    from traffic import common
 
     device = torch.device(device or "cuda:0")
-    x32 = cuts.x16().astype(np.float32)
+    audio = audio_of(cfg, mix)
+    x32 = audio.x
     driver = importlib.import_module(f"traffic.{mix['driver']}")
     params = mix["params"]
-    plan = driver.plan(params, args.seed, x32, args.seconds)
+    plan = driver.plan(params, args.seed, audio, args.seconds)
     system = importlib.import_module(f"entries.{cfg['entry']}").System(
         cfg, x32, device)
     rooflines = [] if args.trace else None
@@ -221,7 +237,7 @@ def run(args, t_start: float, device=None, cell_data=None) -> dict:
                rooflines=rooflines)
     if args.trace:
         info.spans = spans.per_call_ms()
-        pplan = driver.plan(params, args.seed, x32, PROFILE_S)
+        pplan = driver.plan(params, args.seed, audio, PROFILE_S)
 
         def window():
             rec = common.Record()

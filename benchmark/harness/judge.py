@@ -1,6 +1,7 @@
 """Whether what the timed path produced is right: each sampled request's
 outputs against the frozen plain reference (benchmark/reference) run in
-float64, after the window.
+float64, after the window, along the reference path the configuration
+names (``references``; benchmark/paths/<name>.py, :func:`path_of`).
 
 Two comparisons, each of a stage by itself:
 
@@ -51,11 +52,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from reference import facade as RF
-from reference import roundtrip as R
-from reference.synth import classic as RC
+from . import load_module
 
-LIMITS = Path(__file__).resolve().parent.parent / "limits"
+BENCH = Path(__file__).resolve().parent.parent
+LIMITS = BENCH / "limits"
+PATH_DIR = BENCH / "paths"
 NUMBERS = ("vuv_flips", "f0_gross", "f0_med_hz", "f0_rmse_hz", "sp_lsd_db",
            "ap_err_db", "y_ltas_db", "y_band_db", "y_rel")
 AGREE = 0.01            # the relative f0 error of an agreeing frame
@@ -65,13 +66,11 @@ STFT_SIZE, STFT_HOP = 1024, 256
 # the power a bin of the short-time spectrum is floored at: a sinusoid of
 # amplitude 1e-4 (-80 dB of full scale) under the Hann window
 SPEC_FLOOR = (1e-4 * np.hanning(STFT_SIZE).sum() / 2) ** 2
-# the control of each path: the reference in the program's place one
-# precision below the configuration's float32.  TF32 reaches the Harvest
-# path (the FIR banks' convolution and the Requiem synthesis' matrix
-# product); it reaches nothing of the classic path, whose control also
-# rounds its input to bfloat16 (torch.fft has no bfloat16 kernels)
-CONTROL = {"harvest_requiem": "tf32", "dio_classic": "bf16",
-           "world_dio_classic": "bf16"}
+# the controls a path may name (its ``CONTROL``): the reference in the
+# program's place one precision below the configuration's float32, with
+# TF32 on (``tf32``), and so on its input rounded to bfloat16 (``bf16``),
+# for a path that TF32 does not reach (torch.fft has no bfloat16 kernels)
+CONTROLS = ("tf32", "bf16")
 
 
 def limits_file(cell: str) -> dict:
@@ -103,174 +102,23 @@ def tf32(on: bool):
         torch.set_float32_matmul_precision(saved[2])
 
 
-def n_frames(n: int, fs: int, fp: int) -> int:
-    return int(1000 * n / fs / fp + 1)
-
-
-def cut_of(x32: np.ndarray, req) -> np.ndarray:
-    return x32[req.offset:req.offset + req.n]
-
-
-def classic_noise(seed: int, shape: tuple, device) -> torch.Tensor:
-    """The benchmark's standard-normal draw for a classic synthesis: float32
-    on the card from a generator seeded with ``seed``."""
-    g = torch.Generator(device=device)
-    g.manual_seed(int(seed))
-    return torch.randn(shape, generator=g, dtype=torch.float32, device=device)
+def path_of(name: str):
+    """The reference path ``name``: the module benchmark/paths/<name>.py
+    (``outputs`` and ``CONTROL``, benchmark/paths/__init__.py)."""
+    path = PATH_DIR / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no reference path {name!r}: {path} is missing")
+    return load_module(path)
 
 
 def control_input(x32: np.ndarray, kind: str) -> np.ndarray:
     """The input a control computes on: x32 as it is (``tf32``), or rounded
     to bfloat16 (``bf16``)."""
+    if kind not in CONTROLS:
+        raise ValueError(f"no control {kind!r}: one of {CONTROLS}")
     if kind == "bf16":
         return torch.from_numpy(x32).to(torch.bfloat16).float().numpy()
     return x32
-
-
-# ---------------------------------------------------------------- reference
-def _rows(x32, items, L):
-    xb = np.zeros((len(items), L), np.float64)
-    for r, (req, *_rest) in enumerate(items):
-        xb[r, :req.n] = cut_of(x32, req)
-    return xb
-
-
-def _by_bucket(items) -> dict:
-    groups = {}
-    for i, it in enumerate(items):
-        groups.setdefault(it[0].bucket, []).append(i)
-    return groups
-
-
-def _own_frames(full, got, items, idx, key, fs, fp):
-    """The reference's rows ``full`` (B, F, ...) with each request's own
-    frames replaced by its output ``key`` in ``got``."""
-    rows = full.clone()
-    for r, i in enumerate(idx):
-        nf = n_frames(items[i][0].n, fs, fp)
-        rows[r, :nf] = torch.as_tensor(np.asarray(got[i][key]),
-                                       device=full.device).to(full.dtype)
-    return rows
-
-
-def harvest_requiem(cfg, x32, items, dtype, device, gots=()) -> list:
-    """The Harvest/Requiem round trip of the requests ``items`` (request,
-    call, row, ...) at their bucket's length, rows stripped to each
-    utterance; and for each of ``gots`` (a list of each request's outputs:
-    the program's, a control's), the Requiem synthesis of its own analysis,
-    in ``y_syn``."""
-    fs, fp = cfg["fs"], cfg["frame_period_ms"]
-    out = [None] * len(items)
-    for L, idx in _by_bucket(items).items():
-        xb = torch.tensor(_rows(x32, [items[i] for i in idx], L), dtype=dtype,
-                          device=device)
-        t = R.harvest_requiem_tables(fs, cfg["seed_bank"], dtype, device)
-        max_pulses = R.default_batch_max_pulses(L, fs)
-        rt = R.encode_decode_one(xb, t["pulse_seed"], t["noise_seed"], fs, fp,
-                                 max_pulses,
-                                 R.default_max_candidates(R.F0_FLOOR, R.F0_CEIL),
-                                 R.default_max_sections(L, fs),
-                                 tables={k: t[k] for k in R.HARVEST_TABLE_KEYS})
-        y_syns = []
-        for got in gots:
-            own = {k: _own_frames(rt[src], got, items, idx, k, fs, fp)
-                   for k, src in (("f0", "f0"), ("vuv", "vuv"),
-                                  ("sp", "spectrogram"),
-                                  ("ap", "band_aperiodicity"))}
-            y_syns.append(R.synthesize(
-                rt["temporal_positions"], own["f0"], own["vuv"],
-                own["ap"].transpose(-1, -2), own["sp"].transpose(-1, -2),
-                t["pulse_seed"], t["noise_seed"],
-                torch.zeros(t["pulse_seed"].shape[1], dtype=torch.int64,
-                            device=device),
-                fs, R.output_length(L, fs, fp), max_pulses, int(fp / 1000 * fs),
-                float(fp) / 1000.0, R.round_trip_rank_bound(fs))[0])
-        for r, i in enumerate(idx):
-            n = items[i][0].n
-            nf, ny = n_frames(n, fs, fp), R.output_length(n, fs, fp)
-            out[i] = {"f0": rt["f0"][r, :nf], "vuv": rt["vuv"][r, :nf],
-                      "sp": rt["spectrogram"][r, :nf],
-                      "ap": rt["band_aperiodicity"][r, :nf], "y": rt["y"][r, :ny]}
-            out[i]["y_syn"] = [y[r, :ny] for y in y_syns]
-    return out
-
-
-def dio_classic(cfg, x32, items, dtype, device, gots=()) -> list:
-    """The classic round trip of the requests ``items`` at their bucket's
-    length with each request's rows of the benchmark's noise draw (redrawn
-    from the call's seed), rows stripped; and for each of ``gots``, the
-    classic synthesis of its own analysis on the same noise rows, in
-    ``y_syn``."""
-    fs, fp = cfg["fs"], cfg["frame_period_ms"]
-    out = [None] * len(items)
-    for L, idx in _by_bucket(items).items():
-        xb = torch.tensor(_rows(x32, [items[i] for i in idx], L), dtype=dtype,
-                          device=device)
-        _, P, N = R.classic_caps(L, fs, fp)
-        noise = torch.stack([
-            classic_noise(items[i][1].noise_seed, (items[i][1].rows, P, N),
-                          device)[items[i][2]] for i in idx]).to(dtype)
-        tables = R.classic_tables(fs, dtype, device)
-        rt = R.encode_decode_classic_one(xb, fs, fp, noise=noise, tables=tables)
-        y_syns = []
-        for got in gots:
-            own = {"temporal_positions": rt["temporal_positions"]}
-            for k, src in (("f0", "f0"), ("vuv", "vuv")):
-                own[k] = _own_frames(rt[src], got, items, idx, k, fs, fp)
-            for k, src in (("sp", "spectrogram"), ("ap", "aperiodicity")):
-                own[src] = _own_frames(rt[src].transpose(1, 2), got, items, idx,
-                                       k, fs, fp).transpose(1, 2)
-            y_syns.append(R.synthesize_classic(own, noise, fs, L, fp)[0])
-        for r, i in enumerate(idx):
-            n = items[i][0].n
-            nf, ny = n_frames(n, fs, fp), R.output_length(n, fs, fp)
-            out[i] = {"f0": rt["f0"][r, :nf], "vuv": rt["vuv"][r, :nf],
-                      "sp": rt["spectrogram"][r, :, :nf].T,
-                      "ap": rt["aperiodicity"][r, :, :nf].T, "y": rt["y"][r, :ny]}
-            out[i]["y_syn"] = [y[r, :ny] for y in y_syns]
-    return out
-
-
-def world_facade(cfg, x32, items, dtype, device, gots=()) -> list:
-    """``World.encode`` (DIO, classic D4C) and ``decode`` of each request at
-    its own length, the classic synthesis' noise drawn as the program's
-    ``decode(dat, key=generator)`` draws it (float32 on the card, the
-    request's seed); and for each of ``gots``, ``decode`` of its own
-    analysis on the same draw, in ``y_syn``."""
-    fs, fp = cfg["fs"], cfg["frame_period_ms"]
-
-    def decode(d, seed):
-        tp = np.asarray(d["temporal_positions"], np.float64)
-        f0 = np.asarray(d["f0"], np.float64)
-        noise = classic_noise(seed, (RC.default_max_pulses(tp, f0),
-                                     RC.max_noise_length(fs)), device).to(dtype)
-        y = RC.synthesis(d, d, noise=noise, dtype=dtype, device=device)
-        y = y.double().cpu().numpy()
-        m = np.max(np.abs(y))
-        return y / m if m > 1.0 else y
-
-    out = []
-    for i, (req, call, _row, *_rest) in enumerate(items):
-        dat = RF.encode(fs, cut_of(x32, req).astype(np.float64), dtype, device,
-                        f0_method=cfg["f0_method"], f0_floor=cfg["f0_floor"],
-                        f0_ceil=cfg["f0_ceil"],
-                        channels_in_octave=cfg["channels_in_octave"],
-                        target_fs=cfg["target_fs"], frame_period=fp)
-        o = {"f0": dat["f0"], "vuv": dat["vuv"], "sp": dat["spectrogram"].T,
-             "ap": dat["aperiodicity"].T, "y": decode(dat, call.noise_seed),
-             "tp": dat["temporal_positions"]}
-        # each analysis' own frame times, which set its waveform's length
-        o["y_syn"] = [decode({"f0": g[i]["f0"], "vuv": g[i]["vuv"], "fs": fs,
-                              "temporal_positions": g[i]["tp"],
-                              "spectrogram": np.asarray(g[i]["sp"]).T,
-                              "aperiodicity": np.asarray(g[i]["ap"]).T},
-                             call.noise_seed) for g in gots]
-        out.append(o)
-    return out
-
-
-PATHS = {"harvest_requiem": harvest_requiem, "dio_classic": dio_classic,
-         "world_dio_classic": world_facade}
 
 
 def _numpy(v):
@@ -287,17 +135,17 @@ def reference(cfg, x32, items, dtype=torch.float64, device=None,
     the reference's synthesis of that analysis."""
     device = device or ("cuda" if torch.cuda.is_available() else "cpu")
     x32 = np.asarray(x32)
+    path = path_of(cfg["reference"])
     with torch.no_grad():
-        outs = PATHS[cfg["reference"]](cfg, x32, items, dtype, device, gots)
+        outs = path.outputs(cfg, x32, items, dtype, device, gots)
     return [{k: _numpy(v) for k, v in o.items()} for o in outs]
 
 
 def control(cfg, x32, items, device=None, kind=None) -> list:
     """The control's outputs of the sampled requests: the reference put in
     the program's place, in float32 with TF32 on, on the input of ``kind``
-    (:func:`control_input`; the path's own, :data:`CONTROL`, unless
-    given)."""
-    kind = kind or CONTROL[cfg["reference"]]
+    (:func:`control_input`; the path's own ``CONTROL`` unless given)."""
+    kind = kind or path_of(cfg["reference"]).CONTROL
     with tf32(True):
         return reference(cfg, control_input(np.asarray(x32), kind), items,
                          dtype=torch.float32, device=device)
@@ -380,7 +228,7 @@ def judge(cfg, got: list, ref: list, k: int = 0) -> tuple:
     """(run's numbers, per-request numbers) of the outputs ``got`` (each
     request's) against the reference's ``ref`` (:func:`reference`, whose
     ``y_syn[k]`` is its synthesis of ``got``'s analysis)."""
-    requiem = cfg["reference"] == "harvest_requiem"
+    requiem = cfg["d4c"] == "requiem"
     per = [dict(analysis_numbers(g, r, requiem),
                 **synthesis_numbers(g["y"], r["y_syn"][k], cfg["fs"]))
            for g, r in zip(got, ref)]

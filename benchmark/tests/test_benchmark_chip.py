@@ -2,10 +2,11 @@
 path is broken underneath comes out not correct, in every cell.
 
 The control is the plain reference put in the program's place on a run's
-sampled requests, one precision below the configuration's float32
-(``judge.CONTROL``): in float32 with TF32 on where TF32 reaches the path
-(Harvest's FIR banks and the Requiem synthesis), and in the classic cells,
-which TF32 does not reach, so with its input rounded to bfloat16.
+sampled requests, one precision below the configuration's float32 (the
+``CONTROL`` of the reference path, benchmark/paths/<name>.py): in float32
+with TF32 on where TF32 reaches the path (Harvest's FIR banks and the
+Requiem synthesis), and in the classic cells, which TF32 does not reach,
+so with its input rounded to bfloat16.
 The faults are planted in the program before set-up, so that its graphs
 capture them: answers altered where they are produced (the analysis' f0
 detuned by 1% where voiced; every frame unvoiced, as an analysis that finds

@@ -1,9 +1,11 @@
 """BENCHMARK.json as the benchmark's contract has it: its keys, names,
-units, files and bounds."""
+units, files and bounds; and each configuration's audio and reference
+paths, found by the names it gives."""
 import json
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent.parent
@@ -70,3 +72,27 @@ def test_every_cell_reports_setup_another_end_to_end_and_a_layer():
         assert "setup_s" in {m["name"] for m in e2e} and len(e2e) >= 2
         assert any(w["name"] in m.get("workloads", []) for m in BENCH["per_layer"])
         assert (ROOT / "benchmark" / "limits" / f"{w['name']}.json").exists()
+
+
+@pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
+def test_a_configuration_names_its_audio_at_its_rate(conf):
+    cfg = json.loads((ROOT / conf["file"]).read_text())
+    data = ROOT / "benchmark" / "data"
+    assert (data / f"{cfg['audio']}.npy").is_file()
+    manifest = json.loads((data / f"{cfg['audio']}.json").read_text())
+    assert set(manifest) == {"fs", "source", "made", "seconds"}
+    assert TEXT.match(manifest["source"])
+    assert manifest["fs"] == cfg["fs"]
+    n = np.load(data / f"{cfg['audio']}.npy", mmap_mode="r").shape[0]
+    assert abs(manifest["seconds"] - n / manifest["fs"]) < 1e-3
+
+
+@pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
+def test_a_configuration_names_reference_paths_with_known_controls(conf):
+    from harness import judge
+    cfg = json.loads((ROOT / conf["file"]).read_text())
+    assert set(cfg["references"]) == set(cfg["entries"])
+    for name in cfg["references"].values():
+        assert (ROOT / "benchmark" / "paths" / f"{name}.py").is_file()
+        path = judge.path_of(name)
+        assert path.CONTROL in judge.CONTROLS and callable(path.outputs)

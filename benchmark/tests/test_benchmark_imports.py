@@ -1,7 +1,7 @@
 """What the benchmark loads: no module of JAX or of the JAX package
 (world_tpu), compared by whole top-level names, in a CPU dry run of
 everything a run of any cell loads, and nothing of the program in the
-plain reference."""
+plain reference or in the reference paths."""
 import ast
 import json
 import os
@@ -24,6 +24,7 @@ for w in bench["workloads"]:
     _, cell, cfg, mix = core.cell_of(w["name"])
     importlib.import_module("traffic." + mix["driver"])
     importlib.import_module("entries." + cfg["entry"])
+    judge.path_of(cfg["reference"])
     for m in core.metrics_of(bench, cell, 0) + core.metrics_of(bench, cell, 1):
         core.load_module(core.BENCH / "metrics" / (m["name"] + ".py"))
 import world_tpu_torch, world_tpu_torch.parallel.graphs
@@ -60,7 +61,9 @@ def test_no_benchmark_file_imports_jax():
 def test_reference_imports_nothing_of_the_program():
     files = list((BENCH / "reference").rglob("*.py"))
     assert len(files) > 20
-    for path in files:
+    paths = list((BENCH / "paths").glob("*.py"))
+    assert len(paths) >= 4
+    for path in files + paths:
         names = top_level_imports(path)
         assert not names & (FORBIDDEN | {"world_tpu_torch"}), (path, names)
 

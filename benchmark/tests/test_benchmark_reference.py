@@ -14,7 +14,7 @@ FS = 16000
 
 @pytest.fixture(scope="module")
 def rows():
-    x = cuts.x16()
+    x = cuts.load("x16").x
     return np.stack([x[20000:28000], x[40000:48000]]).astype(np.float32)
 
 

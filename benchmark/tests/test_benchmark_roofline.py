@@ -29,7 +29,7 @@ def test_k1_at_harvest_geometry():
 
 @pytest.fixture(scope="module")
 def refine_operands():
-    x = torch.tensor(cuts.x16()[None], dtype=torch.float32)
+    x = torch.tensor(cuts.load("x16").x[None])
     tables = H.harvest_tables(FS, F0_FLOOR, F0_CEIL, torch.float32, "cpu")
     y, afs = H.downsample(x, FS, 8000, h=tables["decimator_ir"])
     n_frames = int(1000 * x.shape[1] / FS + 1)
@@ -54,10 +54,10 @@ def test_k2_at_harvest_geometry(refine_operands):
 
 
 def test_k6_k7_at_x16_requiem():
-    golden = np.load(cuts.DATA.parent.parent.parent / "tests" / "golden"
+    golden = np.load(cuts.DATA.parent.parent / "tests" / "golden"
                      / "harvest_16k.npz")
     f0 = golden["f0"]
-    x = torch.tensor(cuts.x16()[None], dtype=torch.float32)
+    x = torch.tensor(cuts.load("x16").x[None])
     F = f0.shape[0]
     N, fi, n_ap = requiem_fft_size(FS), 3000.0, n_bands_ap(FS)
     max_half = int(2.0 * FS / 47.0 + 0.5)

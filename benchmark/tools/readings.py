@@ -8,9 +8,10 @@ one process:
   * on the seeds of ``--control-seeds``, on the same sampled requests, the
     controls' (the reference put in the program's place in float32 with
     TF32 on, ``tf32``, and so on its input rounded to bfloat16, ``bf16``;
-    :data:`judge.CONTROL` names the cell's) and the faults' (:data:`FAULTS`,
-    the program's own outputs altered where they are produced), each judged
-    as the program's are.
+    the ``CONTROL`` of the reference path the cell's configuration names,
+    benchmark/paths/<name>.py, is the cell's) and the faults'
+    (:data:`FAULTS`, the program's own outputs altered where they are
+    produced), each judged as the program's are.
 
 Run from the root of a checkout:
 
@@ -19,8 +20,9 @@ Run from the root of a checkout:
 
 Each seed prints one JSON line: {"seed", "program", "tf32", "bf16", and
 each fault's}, each with the run's numbers (``summary``) and the per-request numbers
-(``per``); the last line gives each number's largest program reading and
-smallest control and fault readings.
+(``per``); the last line names the cell's reference path and its control,
+and gives each number's largest program reading and smallest control and
+fault readings.
 """
 import argparse
 import json
@@ -62,7 +64,7 @@ def control_readings(out) -> dict:
     cfg, x32, samples = out["cfg"], out["x32"], out["samples"]
     got = [s[3] for s in samples]
     sets = {kind: judge.control(cfg, x32, samples, kind=kind)
-            for kind in ("tf32", "bf16")}
+            for kind in judge.CONTROLS}
     sets.update({name: [f(o) for o in got] for name, f in FAULTS.items()})
     ref = judge.reference(cfg, x32, samples, gots=list(sets.values()))
     res = {}
@@ -80,7 +82,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
-    core.look_for_cards(core.cell_of(args.workload)[1])
+    _, cell, cfg, _ = core.cell_of(args.workload)
+    core.look_for_cards(cell)
     lines, high, low = [], {}, {}
     for seed in args.seeds:
         t0 = time.perf_counter()
@@ -101,7 +104,9 @@ def main(argv=None) -> int:
         print(json.dumps(line), flush=True)
         lines.append(line)
         del out
-    summary = {"workload": args.workload, "program_max": high, "other_min": low}
+    summary = {"workload": args.workload, "path": cfg["reference"],
+               "control": judge.path_of(cfg["reference"]).CONTROL,
+               "program_max": high, "other_min": low}
     print(json.dumps(summary), flush=True)
     if args.out:
         with open(args.out, "a") as f:

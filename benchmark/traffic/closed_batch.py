@@ -17,22 +17,23 @@ from .common import Call, Request, draw_seed
 
 
 class Plan:
-    def __init__(self, params: dict, seed: int, x):
-        self.p, self.seed, self.x = params, int(seed), x
+    def __init__(self, params: dict, seed: int, audio):
+        self.p, self.seed, self.x, self.fs = params, int(seed), audio.x, audio.fs
         q = params["quantum_s"]
-        self.shares = cuts.bucket_shares(q, params["min_s"], params["max_s"])
+        self.shares = cuts.bucket_shares(q, params["min_s"], params["max_s"],
+                                         self.fs)
         self.counts = cuts.calls_per_pass(self.shares, params["calls_per_pass"])
-        self.quantum = int(round(q * cuts.FS))
+        self.quantum = int(round(q * self.fs))
 
     def _call(self, index: int, L: int, g, first_id: int) -> Call:
         p = self.p
-        lo = max(int(p["min_s"] * cuts.FS), L - self.quantum + 1)
-        hi = min(int(p["max_s"] * cuts.FS), L, self.x.shape[0])
+        lo = max(int(p["min_s"] * self.fs), L - self.quantum + 1)
+        hi = min(int(p["max_s"] * self.fs), L, self.x.shape[0])
         n = (lo + cuts.stratified(p["rows"], 0.0, 1.0, g) * (hi - lo + 1)).astype(int)
         reqs = []
         for r, m in enumerate(n.clip(lo, hi)):
             off, m = cuts.cut(self.x, int(m), g)
-            reqs.append(Request(first_id + r, off, m, bucket=L))
+            reqs.append(Request(first_id + r, off, m, bucket=L, fs=self.fs))
         return Call(index, reqs, p["rows"], L,
                     noise_seed=draw_seed(self.seed, 3, index))
 
@@ -54,8 +55,8 @@ class Plan:
                 for i, L in enumerate(sorted(self.counts))]
 
 
-def plan(params: dict, seed: int, x, seconds: float) -> Plan:
-    return Plan(params, seed, x)
+def plan(params: dict, seed: int, audio, seconds: float) -> Plan:
+    return Plan(params, seed, audio)
 
 
 def run(system, plan: Plan, seconds: float, record):

@@ -13,16 +13,16 @@ from .common import Call, Request, draw_seed
 
 
 class Plan:
-    def __init__(self, params: dict, seed: int, x):
-        self.p, self.seed, self.x = params, int(seed), x
-        n_max = x.shape[0]
+    def __init__(self, params: dict, seed: int, audio):
+        self.p, self.seed, self.x, self.fs = params, int(seed), audio.x, audio.fs
         self.lengths = cuts.lengths_in(params["lengths_per_pass"],
                                        params["min_s"], params["max_s"],
-                                       cuts.rng(seed, 1), n_max)
+                                       cuts.rng(seed, 1), self.x.shape[0],
+                                       self.fs)
 
     def _call(self, index: int, n: int, g) -> Call:
         off, n = cuts.cut(self.x, int(n), g)
-        return Call(index, [Request(index, off, n)], 1, n,
+        return Call(index, [Request(index, off, n, fs=self.fs)], 1, n,
                     noise_seed=draw_seed(self.seed, 3, index))
 
     def calls(self):
@@ -39,8 +39,8 @@ class Plan:
                 for i, n in enumerate(sorted(set(self.lengths.tolist())))]
 
 
-def plan(params: dict, seed: int, x, seconds: float) -> Plan:
-    return Plan(params, seed, x)
+def plan(params: dict, seed: int, audio, seconds: float) -> Plan:
+    return Plan(params, seed, audio)
 
 
 def run(system, plan: Plan, seconds: float, record):

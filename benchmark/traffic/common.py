@@ -1,7 +1,8 @@
 """What every traffic driver shares: a request, a call of requests, and the
 record of a measured window.
 
-A driver module exposes ``plan(params, seed, x) -> Plan`` and
+A driver module exposes ``plan(params, seed, audio, seconds) -> Plan``
+(``audio``: the cell's :class:`.cuts.Audio`, samples and rate) and
 ``run(system, plan, seconds, record)``.  A plan knows the calls its window
 makes (``calls()``, in order, as many as asked for) and the calls that warm
 each signature up (``warm_calls()``).  A system (benchmark/entries) takes a
@@ -12,21 +13,22 @@ import time
 
 import numpy as np
 
-from .cuts import FS, rng
+from .cuts import rng
 
 
 @dataclasses.dataclass
 class Request:
     id: int
-    offset: int                 # first sample of the cut of x16
+    offset: int                 # first sample of the cut of the cell's audio
     n: int                      # its samples
     bucket: int = 0             # the length it is padded to (0: none)
     due: float = 0.0            # seconds after the window opened (open loop)
     noise_seed: int = 0         # the request's draws, where its system draws
+    fs: int = dataclasses.field(kw_only=True)   # the audio's rate
 
     @property
     def audio_s(self) -> float:
-        return self.n / FS
+        return self.n / self.fs
 
 
 @dataclasses.dataclass

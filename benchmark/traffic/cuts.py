@@ -1,25 +1,42 @@
-"""Utterances cut from x16, the repository's 4.644 s of 16 kHz read speech
-(benchmark/data/x16.npy, a copy of tests/golden/harvest_16k.npz's ``x16``),
-and the length buckets the port groups them into.
+"""Utterances cut from a configuration's audio, and the length buckets the
+port groups them into.
 
-The generator is tools/bench_stream_torch.py's: a cut of x16 whose length is
-uniform in [min_s, max_s] at a uniform offset.  Here every seed gets the
-same multiset of lengths, in another order and at other offsets (the
+A configuration names its audio, ``"audio": "<stem>"``: the samples are
+benchmark/data/<stem>.npy, and the manifest beside them, <stem>.json, gives
+their rate ``fs``, their ``source``, the transform that ``made`` them from
+it (with its seed; null where they are the source's own) and their
+``seconds``.  Every conversion between seconds and samples takes the
+audio's own rate; nothing is resampled.
+
+The generator is tools/bench_stream_torch.py's: a cut of the audio whose
+length is uniform in [min_s, max_s] at a uniform offset.  Here every seed
+gets the same multiset of lengths, in another order and at other offsets (the
 midpoints of equal strata of the uniform law; a batch call's own cuts are
 drawn inside the strata of its bucket), so that the work of a run does not
 move with its seed while the audio does.
 """
+import dataclasses
+import json
 from pathlib import Path
 
 import numpy as np
 
-DATA = Path(__file__).resolve().parent.parent / "data" / "x16.npy"
-FS = 16000
+DATA = Path(__file__).resolve().parent.parent / "data"
 
 
-def x16() -> np.ndarray:
-    """The speech every cut is taken from, float64 (74,304 samples)."""
-    return np.load(DATA)
+@dataclasses.dataclass(frozen=True)
+class Audio:
+    """The speech a cell's cuts are taken from: its samples as the program
+    takes them (float32) and their rate."""
+    x: np.ndarray
+    fs: int
+
+
+def load(stem: str) -> Audio:
+    """The audio ``stem`` in :data:`DATA`, at its manifest's rate."""
+    manifest = json.loads((DATA / f"{stem}.json").read_text())
+    return Audio(np.load(DATA / f"{stem}.npy").astype(np.float32),
+                 int(manifest["fs"]))
 
 
 def rng(seed: int, *stream) -> np.random.Generator:
@@ -36,12 +53,13 @@ def stratified(n: int, lo: float, hi: float, g: np.random.Generator) -> np.ndarr
     return g.permutation(lo + (hi - lo) * u)
 
 
-def lengths_in(n: int, lo_s: float, hi_s: float, g, n_max: int) -> np.ndarray:
-    """n cut lengths in samples, the midpoints of n equal strata of
+def lengths_in(n: int, lo_s: float, hi_s: float, g, n_max: int,
+               fs: int) -> np.ndarray:
+    """n cut lengths in samples at ``fs``, the midpoints of n equal strata of
     [lo_s, hi_s] seconds (at most ``n_max``), in an order drawn from g:
     every seed gets the same lengths."""
     u = lo_s + (hi_s - lo_s) * (np.arange(n) + 0.5) / n
-    return g.permutation(np.minimum((u * FS).astype(np.int64), n_max))
+    return g.permutation(np.minimum((u * fs).astype(np.int64), n_max))
 
 
 def cut(x: np.ndarray, n: int, g: np.random.Generator) -> tuple:
@@ -49,27 +67,30 @@ def cut(x: np.ndarray, n: int, g: np.random.Generator) -> tuple:
     return int(g.integers(0, x.shape[0] - n + 1)), int(n)
 
 
-def bucket_of(n: int, quantum_s: float) -> int:
-    """The padded length of an utterance of n samples in buckets of
-    ``quantum_s`` seconds (world_tpu_torch.parallel.batch.bucket_lengths)."""
-    q = max(1, int(round(quantum_s * FS)))
+def bucket_of(n: int, quantum_s: float, fs: int) -> int:
+    """The padded length of an utterance of n samples at ``fs`` in buckets
+    of ``quantum_s`` seconds (world_tpu_torch.parallel.batch.bucket_lengths)."""
+    q = max(1, int(round(quantum_s * fs)))
     return max(q, -(-n // q) * q)
 
 
-def bucket_range(L: int, quantum_s: float, lo_s: float, hi_s: float) -> tuple:
-    """The lengths in seconds [a, b] of the cuts that bucket L holds."""
+def bucket_range(L: int, quantum_s: float, lo_s: float, hi_s: float,
+                 fs: int) -> tuple:
+    """The lengths in seconds [a, b] of the cuts that bucket L (samples at
+    ``fs``) holds."""
     q = quantum_s
-    return max(lo_s, L / FS - q), min(hi_s, L / FS)
+    return max(lo_s, L / fs - q), min(hi_s, L / fs)
 
 
-def bucket_shares(quantum_s: float, lo_s: float, hi_s: float) -> dict:
-    """{padded length: share of a uniform law on [lo_s, hi_s] it holds}."""
-    out, L = {}, bucket_of(int(lo_s * FS), quantum_s)
-    while L / FS - quantum_s < hi_s:
-        a, b = bucket_range(L, quantum_s, lo_s, hi_s)
+def bucket_shares(quantum_s: float, lo_s: float, hi_s: float, fs: int) -> dict:
+    """{padded length at ``fs``: share of a uniform law on [lo_s, hi_s] it
+    holds}."""
+    out, L = {}, bucket_of(int(lo_s * fs), quantum_s, fs)
+    while L / fs - quantum_s < hi_s:
+        a, b = bucket_range(L, quantum_s, lo_s, hi_s, fs)
         if b > a:
             out[L] = (b - a) / (hi_s - lo_s)
-        L += int(round(quantum_s * FS))
+        L += int(round(quantum_s * fs))
     return out
 
 

@@ -23,20 +23,20 @@ SPIN_S = 0.002      # the last stretch before a due time is spun, not slept
 
 
 class Plan:
-    def __init__(self, params: dict, seed: int, x, seconds: float):
-        self.p, self.seed, self.x = params, int(seed), x
+    def __init__(self, params: dict, seed: int, audio, seconds: float):
+        self.p, self.seed, self.x, self.fs = params, int(seed), audio.x, audio.fs
         rate = float(params["rate"])
         self.n = max(1, int(round(rate * seconds)))
         gaps = -np.log(1.0 - (np.arange(self.n) + 0.5) / self.n) / rate
         self.due = np.cumsum(cuts.rng(0, 1).permutation(gaps))
         g = cuts.rng(seed, 1)
         self.lengths = cuts.lengths_in(self.n, params["min_s"], params["max_s"],
-                                       g, x.shape[0])
-        self.offsets = [cuts.cut(x, int(m), g)[0] for m in self.lengths]
+                                       g, self.x.shape[0], self.fs)
+        self.offsets = [cuts.cut(self.x, int(m), g)[0] for m in self.lengths]
 
     def _call(self, i: int, off: int, n: int, due: float) -> Call:
-        L = cuts.bucket_of(n, self.p["quantum_s"])
-        req = Request(i, off, n, bucket=L, due=float(due))
+        L = cuts.bucket_of(n, self.p["quantum_s"], self.fs)
+        req = Request(i, off, n, bucket=L, due=float(due), fs=self.fs)
         return Call(i, [req], 1, L, noise_seed=draw_seed(self.seed, 3, i))
 
     def calls(self):
@@ -47,15 +47,16 @@ class Plan:
         """One request of each bucket the window sends."""
         g = cuts.rng(self.seed, 2)
         out = []
-        for i, L in enumerate(sorted({cuts.bucket_of(int(n), self.p["quantum_s"])
+        for i, L in enumerate(sorted({cuts.bucket_of(int(n), self.p["quantum_s"],
+                                                     self.fs)
                                       for n in self.lengths})):
             n = int(min(L, self.x.shape[0]))
             out.append(self._call(-1 - i, cuts.cut(self.x, n, g)[0], n, 0.0))
         return out
 
 
-def plan(params: dict, seed: int, x, seconds: float) -> Plan:
-    return Plan(params, seed, x, seconds)
+def plan(params: dict, seed: int, audio, seconds: float) -> Plan:
+    return Plan(params, seed, audio, seconds)
 
 
 def run(system, plan: Plan, seconds: float, record):
