@@ -90,20 +90,18 @@ def main(argv=None) -> int:
 
     import importlib
 
-    import numpy as np
     import torch
 
     from harness import core
-    from traffic import cuts
     from world_tpu_torch.utils.profiling import TRACER, tracing
 
     device = torch.device("cuda", 0)
     _, _, cfg, mix = core.cell_of(args.workload)
-    x32 = cuts.x16().astype(np.float32)
+    audio = core.audio_of(cfg, mix)
     driver = importlib.import_module(f"traffic.{mix['driver']}")
-    plan = driver.plan(mix["params"], args.seed, x32, 1.0)
+    plan = driver.plan(mix["params"], args.seed, audio, 1.0)
     system = importlib.import_module(f"entries.{cfg['entry']}").System(
-        cfg, x32, device)
+        cfg, audio.x, device)
     core.warm(system, plan, mix)
     core.sync(device)
     calls = []

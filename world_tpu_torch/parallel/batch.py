@@ -3,8 +3,8 @@ batch axis of equal-length utterances:
 
   * Harvest -> CheapTrick -> D4C-Requiem -> Requiem synthesis
     (``_encode_decode_one``);
-  * DIO -> StoneMask -> CheapTrick -> D4C -> classic synthesis
-    (``_encode_classic_one``, ``_encode_decode_classic_one``);
+  * DIO -> StoneMask, or Harvest, -> CheapTrick -> D4C -> classic
+    synthesis (``_encode_classic_one``, ``_encode_decode_classic_one``);
   * the first of these for a batch (``batch_encode_decode``) and for a
     ragged batch in length buckets (``batch_encode_decode_ragged``), on one
     device or with the rows sharded over a list of devices;
@@ -16,9 +16,10 @@ Several devices are driven by one process, one worker thread per device
 are independent, so the shards exchange nothing; the results are gathered on
 the first device.
 
-On the card, ``HarvestRequiem``, ``DioClassic`` and each device's call of
-``batch_encode_decode`` (so each bucket of ``batch_encode_decode_ragged``)
-replay one CUDA graph per static signature from its second call on
+On the card, ``HarvestRequiem``, ``DioClassic``, ``HarvestClassic`` and each
+device's call of ``batch_encode_decode`` (so each bucket of
+``batch_encode_decode_ragged``) replay one CUDA graph per static signature
+from its second call on
 (:mod:`.graphs`), what ``jax.jit`` is to ``_encode_decode_one`` and
 ``_encode_decode_classic_one``; a signature's first call, and every call on
 the CPU, runs the same static code eagerly.  ``batch_encode_decode``'s
@@ -185,14 +186,20 @@ def analyze(x: torch.Tensor, fs: int, frame_period: float,
 
 
 @functools.lru_cache(maxsize=None)
+def harvest_ceiling() -> float:
+    """The highest f0 of a Harvest contour, from the caps alone: the F0
+    ceiling (plus FixStep4's one hertz of fill), raised by the smoothing's
+    gain (the sum of its kernel's magnitudes bounds any smoothed value)."""
+    gain = float(np.abs(smooth_zero_phase_kernel()).sum())
+    return (F0_CEIL + 1.0) * gain
+
+
+@functools.lru_cache(maxsize=None)
 def round_trip_rank_bound(fs: int) -> int:
     """The overlap-add's passes in the round trip's Requiem synthesis
     (:func:`..synth.classic.pulse_rank_bound`), from the caps alone: its f0 is
-    at most the F0 ceiling (plus FixStep4's one hertz of fill), raised by
-    the smoothing's gain (the sum of its kernel's magnitudes bounds any
-    smoothed value)."""
-    gain = float(np.abs(smooth_zero_phase_kernel()).sum())
-    return pulse_rank_bound((F0_CEIL + 1.0) * gain, fs)
+    at most :func:`harvest_ceiling`."""
+    return pulse_rank_bound(harvest_ceiling(), fs)
 
 
 def synthesize(temporal_positions, f0, vuv, band_ap_db, spectrogram,
@@ -249,86 +256,121 @@ def encode_decode_one(x: torch.Tensor, pulse_seed: torch.Tensor,
             "_pulse_overflow": pulse_overflow}
 
 
+HARVEST_FLAGS = ("_refine_overflow", "_section_overflow")
+
+
 def encode_classic_one(x: torch.Tensor, fs: int, frame_period: int,
-                       tables: dict = None) -> dict:
-    """DIO -> StoneMask -> CheapTrick -> D4C for rows x (B, n) (the
-    reference's main.py:126-130 + 138-146).  Returns f0, vuv (B, F),
-    temporal_positions (F,), spectrogram and aperiodicity (B, bins, F).
-    ``tables``: :func:`classic_tables`' dict (built when None)."""
+                       tables: dict = None, f0_method: str = "dio") -> dict:
+    """DIO -> StoneMask (the reference's main.py:126-130), or Harvest with
+    its caps at their defaults, then CheapTrick -> D4C (main.py:138-146) for
+    rows x (B, n).  Returns f0, vuv (B, F), temporal_positions (F,),
+    spectrogram and aperiodicity (B, bins, F), and with Harvest its capacity
+    flags (B,) ``HARVEST_FLAGS``.  ``tables``: :func:`classic_tables`' dict
+    of the method (built when None)."""
     if tables is None:
-        tables = classic_tables(fs, x.dtype, x.device)
-    an = analyze(x, fs, frame_period, "dio", False, tables=tables)
-    return {"f0": an["f0"], "vuv": an["vuv"],
-            "temporal_positions": an["temporal_positions"],
-            "spectrogram": an["spectrogram"].transpose(1, 2),
-            "aperiodicity": an["aperiodicity"].transpose(1, 2)}
+        tables = classic_tables(fs, x.dtype, x.device, f0_method)
+    an = analyze(x, fs, frame_period, f0_method, False, tables=tables)
+    out = {"f0": an["f0"], "vuv": an["vuv"],
+           "temporal_positions": an["temporal_positions"],
+           "spectrogram": an["spectrogram"].transpose(1, 2),
+           "aperiodicity": an["aperiodicity"].transpose(1, 2)}
+    out.update({k: an[k] for k in HARVEST_FLAGS if k in an})
+    return out
+
+
+def classic_ceiling(f0_method: str = "dio") -> float:
+    """The highest f0 of the classic round trip's contour, from the caps
+    alone: StoneMask's 1.2 times the ceiling DIO keeps its candidates under,
+    or :func:`harvest_ceiling` (500 Hz where unvoiced, in either)."""
+    return F0_CEIL * 1.2 if f0_method == "dio" else harvest_ceiling()
 
 
 @functools.lru_cache(maxsize=None)
-def classic_caps(sig_len: int, fs: int, frame_period: int):
+def classic_caps(sig_len: int, fs: int, frame_period: int,
+                 f0_method: str = "dio"):
     """(y_length, max_pulses, max_noise) of the classic round trip, bounded
-    by the f0 ceiling rather than the data (DIO keeps no candidate above
-    it): the shape of its noise draw."""
+    by the f0 method's ceiling rather than the data: the shape of its noise
+    draw.  ``default_max_pulses`` reckons with 1.2 times the f0 it is given:
+    DIO's ceiling (DIO keeps no candidate above it; the 1.2 is StoneMask's
+    room), or :func:`harvest_ceiling`."""
     n_frames = frame_positions(sig_len, fs, frame_period).shape[0]
     tp_last = (n_frames - 1) * frame_period / 1000.0
     y_length = len(np.arange(0.0, tp_last + 1.0 / fs, 1.0 / fs))
-    max_pulses = default_max_pulses(np.array([0.0, tp_last]), np.array([F0_CEIL]))
+    top = F0_CEIL if f0_method == "dio" else harvest_ceiling()
+    max_pulses = default_max_pulses(np.array([0.0, tp_last]), np.array([top]))
     return y_length, max_pulses, max_noise_length(fs)
 
 
 @functools.lru_cache(maxsize=None)
-def classic_rank_bound(fs: int) -> int:
+def classic_rank_bound(fs: int, f0_method: str = "dio") -> int:
     """The overlap-add's passes in the round trip's classic synthesis, from
-    the caps alone: its f0 is at most StoneMask's 1.2 times the F0 ceiling
-    (:func:`classic_caps`), 500 Hz where unvoiced."""
-    return pulse_rank_bound(F0_CEIL * 1.2, fs)
+    the caps alone: its f0 is at most :func:`classic_ceiling`."""
+    return pulse_rank_bound(classic_ceiling(f0_method), fs)
 
 
 def synthesize_classic(dat: dict, noise: torch.Tensor, fs: int, sig_len: int,
-                       frame_period: int):
+                       frame_period: int, f0_method: str = "dio"):
     """Classic pulse/noise synthesis (synthesis.py:21-82) of every row of
     :func:`encode_classic_one`'s dat at once, row b from the standard-normal
-    draw noise[b] of shape :func:`classic_caps`.  Returns y (B, y_length)
-    and the per-row capacity flags (B,)."""
-    y_length, max_pulses, max_noise = classic_caps(sig_len, fs, frame_period)
+    draw noise[b] of shape :func:`classic_caps` of the same f0 method.
+    Returns y (B, y_length) and the per-row capacity flags (B,)."""
+    y_length, max_pulses, max_noise = classic_caps(sig_len, fs, frame_period,
+                                                   f0_method)
     return synthesis_core(
         dat["f0"], dat["vuv"], dat["temporal_positions"], dat["spectrogram"],
         dat["aperiodicity"], noise, fs, y_length, default_fft_size(fs),
         max_pulses, max_noise, "gaussian", "standard",
-        float(frame_period) / 1000.0, classic_rank_bound(fs))
+        float(frame_period) / 1000.0, classic_rank_bound(fs, f0_method))
 
 
 def encode_decode_classic_one(x: torch.Tensor, fs: int, frame_period: int,
                               noise: torch.Tensor = None,
                               generator: torch.Generator = None,
-                              tables: dict = None) -> dict:
+                              tables: dict = None,
+                              f0_method: str = "dio") -> dict:
     """The classic round trip for rows x (B, n): :func:`encode_classic_one`,
-    then :func:`synthesize_classic`.
+    then :func:`synthesize_classic`, by ``f0_method`` (DIO and StoneMask,
+    or Harvest).
 
     ``noise`` is the standard-normal draw (B, max_pulses, max_noise) of
     :func:`classic_caps`; when None it is drawn from ``generator`` (seeded
     0 on x's device when None).  Returns the encode outputs, y
-    (B, y_length) and the per-row capacity flag _overflow (B,).
+    (B, y_length) and the per-row capacity flag _overflow (B,): the
+    synthesis' flag, or'd with Harvest's.
 
     The JAX package's ``_encode_decode_classic_one`` on its static shapes:
     given its noise, nothing on the round trip is read back to the host, so
-    that a CUDA graph can capture it (:class:`DioClassic`)."""
+    that a CUDA graph can capture it (:class:`DioClassic`,
+    :class:`HarvestClassic`)."""
     B, sig_len = x.shape
-    dat = encode_classic_one(x, fs, frame_period, tables)
+    dat = encode_classic_one(x, fs, frame_period, tables, f0_method)
     if noise is None:
-        _, max_pulses, max_noise = classic_caps(sig_len, fs, frame_period)
+        _, max_pulses, max_noise = classic_caps(sig_len, fs, frame_period,
+                                                f0_method)
         noise = standard_normal((B, max_pulses, max_noise), generator, x.dtype,
                                 x.device)
-    y, overflow = synthesize_classic(dat, noise, fs, sig_len, frame_period)
+    y, overflow = synthesize_classic(dat, noise, fs, sig_len, frame_period,
+                                     f0_method)
     TRACER.stamp("synthesis", x.device)
+    for k in HARVEST_FLAGS:
+        if k in dat:
+            overflow = overflow | dat[k]
     return dict(dat, y=y, _overflow=overflow)
 
 
-def classic_tables(fs: int, dtype: torch.dtype, device) -> dict:
-    """The classic round trip's static tables: DIO's band bank, its offsets
-    and its decimator's impulse response, and StoneMask's DFT table.  Built
-    once per (fs, type, device) and kept (:mod:`..tables`)."""
+def classic_tables(fs: int, dtype: torch.dtype, device,
+                   f0_method: str = "dio") -> dict:
+    """The classic round trip's static tables for its f0 method: DIO's band
+    bank, its offsets and its decimator's impulse response, and StoneMask's
+    DFT table; or Harvest's (:data:`HARVEST_TABLE_KEYS`).  Built once per
+    (fs, method, type, device) and kept (:mod:`..tables`).  Raises for a
+    method the classic round trip does not take."""
     device = device_key(device)
+    if f0_method == "harvest":
+        return harvest_tables(fs, F0_FLOOR, F0_CEIL, dtype, device)
+    if f0_method != "dio":
+        raise ValueError(f"the classic round trip takes f0_method 'dio' or "
+                         f"'harvest', not {f0_method!r}")
 
     def build():
         tables = dio_tables(fs, F0_FLOOR, F0_CEIL, 2, 4000, dtype, device)
@@ -676,15 +718,15 @@ class SwipeF0(_TableModule):
                           self.sTHR, dict(self.named_buffers()))
 
 
-class DioClassic(_TableModule):
-    """The classic round trip (DIO -> StoneMask -> CheapTrick -> D4C ->
-    classic synthesis) as a module whose buffers are its static tables: the
-    DIO band bank and offsets, the decimator's impulse response and the
-    StoneMask DFT table.
+class _ClassicRoundTrip(_TableModule):
+    """The classic round trip (F0 -> CheapTrick -> D4C -> classic synthesis)
+    as a module whose buffers are its F0 method's static tables
+    (:func:`classic_tables`); a subclass names the method (``F0_METHOD``)
+    and the outermost span of its calls (``SPAN``).
 
     ``forward(x, noise=None, generator=None)`` takes (B, n_samples) or
     (n_samples,) signals of the length the module was built for, and the
-    noise draw (B, max_pulses, max_noise) of :func:`classic_caps`, drawn from
+    noise draw (B, max_pulses, max_noise) of :meth:`caps`, drawn from
     ``generator`` (seeded 0 on the module's device when None) before the
     round trip when it is None.  On the card it replays one CUDA graph per
     batch size and type from the second call of that size on (the first
@@ -694,6 +736,8 @@ class DioClassic(_TableModule):
     module drops its graphs; :meth:`from_numpy_state` writes the buffers in
     place, which the graphs read at each replay."""
 
+    F0_METHOD = SPAN = None
+
     def __init__(self, fs: int, n_samples: int, frame_period: int = 5,
                  dtype=torch.float32, device=None):
         super().__init__()
@@ -701,26 +745,31 @@ class DioClassic(_TableModule):
         self.n_samples = int(n_samples)
         self.frame_period = int(frame_period)
         self.graphs = GraphCache()
-        self._register_tables(classic_tables(self.fs, dtype,
-                                             resolve_device(device)))
+        self._register_tables(classic_tables(
+            self.fs, dtype, resolve_device(device), self.F0_METHOD))
 
     def _apply(self, fn, *args, **kwargs):
         self.graphs.clear()
         return super()._apply(fn, *args, **kwargs)
 
+    def caps(self) -> tuple:
+        """:func:`classic_caps` of the module: (y_length, max_pulses,
+        max_noise)."""
+        return classic_caps(self.n_samples, self.fs, self.frame_period,
+                            self.F0_METHOD)
+
     def _round_trip(self, x: torch.Tensor, noise: torch.Tensor) -> dict:
-        return encode_decode_classic_one(x, self.fs, self.frame_period,
-                                         noise=noise,
-                                         tables=dict(self.named_buffers()))
+        return encode_decode_classic_one(
+            x, self.fs, self.frame_period, noise=noise,
+            tables=dict(self.named_buffers()), f0_method=self.F0_METHOD)
 
     def forward(self, x: torch.Tensor, noise: torch.Tensor = None,
                 generator: torch.Generator = None) -> dict:
         xb = self._batch(x)
-        dev = self.dio_bank.device
-        with TRACER.span("world.batch.dio_classic", device=dev, fs=self.fs):
+        dev = next(self.buffers()).device
+        with TRACER.span(self.SPAN, device=dev, fs=self.fs):
             TRACER.count("samples.computed", xb.shape[0] * xb.shape[1])
-            _, max_pulses, max_noise = classic_caps(self.n_samples, self.fs,
-                                                    self.frame_period)
+            _, max_pulses, max_noise = self.caps()
             TRACER.count("synth.pulses.slots", xb.shape[0] * max_pulses)
             if noise is None:
                 with TRACER.span("world.batch.noise"):
@@ -735,9 +784,29 @@ class DioClassic(_TableModule):
         """The key of the graph a call replays: the device, the rows, the
         length and type of the signals, the caps (the draw's shape) and its
         type, and the tables' identity."""
-        return (device_key(self.dio_bank.device), tuple(xb.shape), xb.dtype,
-                tuple(noise.shape), noise.dtype,
+        return (device_key(next(self.buffers()).device), tuple(xb.shape),
+                xb.dtype, tuple(noise.shape), noise.dtype,
                 table_identity(dict(self.named_buffers())))
+
+
+class DioClassic(_ClassicRoundTrip):
+    """WORLD's original round trip, DIO -> StoneMask -> CheapTrick -> D4C ->
+    classic synthesis (:class:`_ClassicRoundTrip`); its buffers are the DIO
+    band bank and offsets, the decimator's impulse response and the
+    StoneMask DFT table."""
+
+    F0_METHOD, SPAN = "dio", "world.batch.dio_classic"
+
+
+class HarvestClassic(_ClassicRoundTrip):
+    """pyworld's default chain, Harvest -> CheapTrick -> D4C -> classic
+    synthesis (:class:`_ClassicRoundTrip`); its buffers are Harvest's
+    tables: the band FIR bank and offsets, the decimator's impulse
+    response, the refinement DFT table and the smoothing kernel.  Harvest's
+    caps (``max_candidates``, ``max_sections``) are its defaults for the
+    range and the length, and its capacity flags join ``_overflow``."""
+
+    F0_METHOD, SPAN = "harvest", "world.batch.harvest_classic"
 
 
 class HarvestRequiem(_TableModule):
