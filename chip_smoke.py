@@ -77,8 +77,8 @@ Phases (each raises on failure; any failure exits non-zero):
      eager static call from the upload to the output makes no host sync,
      the module's first call runs eagerly, its second captures, and its
      replays are bitwise the eager call and each other (f0, vuv, envelope,
-     aperiodicity, y, flags), launch K1, K6 and K7 once, K3 twice and K2
-     never, and
+     aperiodicity, y, flags) and pinned host tensors, launch K1, K6 and K7
+     once, K3 twice and K2 never, and
      row 0 meets phase 8's bars against float64 on the card; the first
      call, the capture, the pool, the replay beside the eager call and its
      device events; at 60 s the classic synthesis' peak memory inside the
@@ -104,7 +104,8 @@ Phases (each raises on failure; any failure exits non-zero):
      synthesis.npz's waveform;
  10. a batch of 4 utterances through the DioClassic module with one
      explicit noise draw from a generator on the card: row 0 must take the
-     single-stream run's decisions; K1 must have launched and K2 not;
+     single-stream run's decisions, the outputs come back as pinned host
+     tensors; K1 must have launched and K2 not;
  11. path A, SWIPE': float32 against the port's float64 run on the card at
      tests/test_swipe.py's bars, then World.encode(f0_method="swipe") ->
      decode; no kernel may launch but its D4C's K6 and K7, once each;
@@ -1827,8 +1828,10 @@ def classic_graph_run(model, x, noise, label, card, reset_counts, path_launches,
     torch.cuda.synchronize()
     counts = path_launches(f"classic_graph_{label}")
     k8_launches = pulse_counter.launches - k8_before
-    differ = [k for k in CLASSIC_KEYS if not torch.equal(r1[k], eager[k])]
+    # the module hands its outputs out on the host, the eager call on the card
+    differ = [k for k in CLASSIC_KEYS if not torch.equal(r1[k], eager[k].cpu())]
     twice = all(torch.equal(r1[k], r2[k]) for k in CLASSIC_KEYS)
+    pinned = all(v.is_pinned() for out in (r1, r2) for v in out.values())
     g1 = cuda_ms(lambda: model(x, noise=noise), iters=graph_iters)
     e1 = cuda_ms(lambda: eager_call(x), iters=eager_iters)
     e2 = cuda_ms(lambda: eager_call(x), iters=eager_iters)
@@ -1847,7 +1850,8 @@ def classic_graph_run(model, x, noise, label, card, reset_counts, path_launches,
           f"{graph.pool_growth / 2**20:.1f} MiB to "
           f"{model.graphs.pool_bytes() / 2**20:.1f} MiB; replay bitwise the eager call for "
           f"{len(CLASSIC_KEYS) - len(differ)} of {len(CLASSIC_KEYS)} outputs "
-          f"{differ or ''}, two replays bitwise {twice}; launches per replay K1 "
+          f"{differ or ''}, two replays bitwise {twice}, pinned on the host "
+          f"{pinned}; launches per replay K1 "
           f"{counts['event_engine'] / 2:g}, K2 {counts['refine_dft'] / 2:g}, K3 "
           f"{counts['extension_scan'] / 2:g}, K6 {counts['d4c_centroid'] / 2:g}, "
           f"K7 {counts['d4c_band_ap'] / 2:g}, K8 {k8_launches / 2:g}; replay "
@@ -1857,9 +1861,10 @@ def classic_graph_run(model, x, noise, label, card, reset_counts, path_launches,
           f"one replay under torch.profiler: {n_events} device events, "
           f"{dev_us / 1e3:.3f} ms device time, idle share {idle} of the "
           f"unprofiled replay; overflow flags {r1['_overflow'].tolist()}")
-    if differ or not twice:
+    if differ or not twice or not pinned:
         raise AssertionError(f"phase 19 {label}: the graph is not bitwise the eager "
-                             f"static call ({differ}) or itself")
+                             f"static call ({differ}) or itself, or its outputs "
+                             f"are not pinned host tensors")
     if counts != {"event_engine": 2, "refine_dft": 0, "extension_scan": 4,
                   "extend_chains": 0, "merge_sections": 0,
                   **d4c_launches(2)} or k8_launches != 2:
@@ -3191,14 +3196,20 @@ def main(phases=ALL_PHASES) -> int:
         off = int(((single["f0"][0] - batch["f0"][0]).abs() > 0.5).sum())
         bitwise = all(torch.equal(single[k][0], batch[k][0])
                       for k in ("f0", "vuv", "spectrogram", "aperiodicity"))
+        # the module's outputs come back on the host, in pinned memory
+        pinned = all(v.is_pinned() for out in (single, batch) for v in out.values())
         print(f"phase 10 classic batch of 4 through DioClassic: row 0 vs single "
               f"stream: {flips} vuv flips, {off} frames off by > 0.5 Hz, "
-              f"analysis bitwise equal: {bitwise}; y {tuple(batch['y'].shape)}, "
+              f"analysis bitwise equal: {bitwise}; outputs pinned on the host: "
+              f"{pinned}; y {tuple(batch['y'].shape)}, "
               f"overflow flags {batch['_overflow'].tolist()}; launches K1 "
               f"{counts['event_engine']}, K2 {counts['refine_dft']}, K3 "
               f"{counts['extension_scan']}")
         if flips or off:
             raise AssertionError("phase 10: batched row 0 changed decisions")
+        if not pinned:
+            raise AssertionError("phase 10: DioClassic's outputs are not pinned "
+                                 "host tensors")
         if counts != {"event_engine": 1, "refine_dft": 0, "extension_scan": 2,
                       "extend_chains": 0, "merge_sections": 0, **d4c_launches(1)}:
             raise AssertionError(f"phase 10: the classic batch must launch K1, K6 "

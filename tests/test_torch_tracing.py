@@ -9,9 +9,9 @@ nest by parent; a ``torch.profiler`` session switches the tracer on and its
 events hold the program's range names; the counters of one facade call;
 each reader on a tracer filled by hand, and None on an empty one.  Marked
 ``gpu``: a graph replay's outputs are bitwise equal with tracing on and
-off, and its four stage spans sum to its launch span's device ms, for both
-graph entries (``python -m pytest --noconftest tests/test_torch_tracing.py
--m gpu -q`` on the card).
+off, its four stage spans sum to its launch span's device ms and its
+outputs' copy back has a device span, for both graph entries (``python -m
+pytest --noconftest tests/test_torch_tracing.py -m gpu -q`` on the card).
 """
 import importlib.util
 from pathlib import Path
@@ -84,7 +84,7 @@ def test_tracing_one_call_shares_its_id_and_nests():
     xs = [_chirp(2500, 130.0, 0.8), _chirp(2000, 150.0, 0.7, seed=1)]
     TRACER.clear()
     with tracing():
-        _ragged_call(xs)
+        out = _ragged_call(xs)
     spans = TRACER.spans()
     TRACER.clear()
     by_id = {s.id: s for s in spans}
@@ -100,14 +100,24 @@ def test_tracing_one_call_shares_its_id_and_nests():
                  "world.batch.encode_decode", "world.batch.overflow",
                  "world.batch.copy_back", "world.batch.strip"):
         assert names.count(name) == 1, name
-    assert names.count("world.host.read") == 6      # overflow + 5 outputs
+    # the overflow flag read alone; the five outputs in one copy back
+    assert names.count("world.host.read") == 1
     stages = [s for s in spans if s.name.startswith("world.stage.")]
     assert [s.name for s in sorted(stages, key=lambda s: s.t0)] == STAGES
     (call,) = [s for s in spans if s.name == "world.batch.encode_decode"]
     assert all(s.parent == call.id for s in stages)
     assert root.counts["samples.computed"] == 2 * 3072
     assert root.counts["samples.true"] == 4500
-    assert root.counts["host.syncs"] == 6
+    assert root.counts["host.syncs"] == 2
+    # the bucket's two padded rows of 3072 samples, float32
+    from world_tpu_torch.parallel.batch import output_length
+    bins, bands = (out[0][k].shape[1] for k in ("spectrogram",
+                                                "band_aperiodicity"))
+    n_frames = int(1000 * 3072 / FS / FP + 1)
+    copied = 4 * 2 * (n_frames * (2 + bins + bands) + output_length(3072, FS, FP))
+    assert root.counts["copy_back.bytes"] == copied
+    assert root.counts["bytes.d2h"] == copied + 2           # and the two flags
+    assert root.counts["copy_back.fresh_bytes"] == 0        # on the host already
 
 
 def test_a_profiler_session_turns_the_tracer_on():
@@ -301,8 +311,10 @@ def test_dio_classic_replay_traced_on_the_card(cuda, spun):
     gen.manual_seed(7)
     noise = torch.randn((2, P, N), generator=gen, device=cuda)
     module = DioClassic(16000, 16000, 5, dtype=torch.float32, device=cuda)
-    off, on, spans = _traced_replay(lambda: {
-        k: v.cpu() for k, v in module(rows, noise=noise).items()})
+    off, on, spans = _traced_replay(lambda: module(rows, noise=noise))
     for k in off:
-        assert torch.equal(off[k], on[k]), k
+        assert on[k].is_pinned() and torch.equal(off[k], on[k]), k
     _stages_against_launch(spans)
+    # the outputs' copies to the host, after the replay's clone
+    (copy,) = [s for s in spans if s.name == "world.batch.copy_back"]
+    assert copy.device_ms > 0

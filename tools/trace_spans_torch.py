@@ -18,7 +18,9 @@ Prints each span's name with its count a call, its median host ms and,
 where it has one, its median device ms; for the graph replays, the four
 stage spans' device ms against the launch span's (CUDA events on the
 stream around ``cudaGraphLaunch``, so that the difference is the time the
-device waited for the launch); the median ms a call off and on; and the
+device waited for the launch); the copy back's bytes a call and those of
+them that went into fresh pinned memory (the counters ``copy_back.bytes``
+and ``copy_back.fresh_bytes``); the median ms a call off and on; and the
 cost of one boundary while the tracer is off (a span entered and left and
 a stage stamp, 100,000 each).  ONE JSON line last; ``--out`` writes it too.
 It needs the card.
@@ -34,6 +36,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT / "benchmark"), str(ROOT)]
+# the copy back's counters over the traced calls (the fresh bytes are read
+# only while the tracer records), as bytes a call
+COPY_COUNTERS = ("copy_back.bytes", "copy_back.fresh_bytes")
 
 
 def card_line() -> str:
@@ -120,13 +125,17 @@ def main(argv=None) -> int:
         return ms
 
     off, on, spans, dropped = [], [], [], 0
+    counted = dict.fromkeys(COPY_COUNTERS, 0)
     TRACER.clear()
     for _ in range(args.rounds):
         off += block()
+        before = TRACER.counters()
         with tracing():
             on += block()
         spans += TRACER.spans()
         dropped += TRACER.dropped
+        for k in counted:
+            counted[k] += TRACER.counters()[k] - before[k]
         TRACER.clear()
     system.close()
 
@@ -149,6 +158,7 @@ def main(argv=None) -> int:
            "launch_device_ms": median([a for a, _ in replays]),
            "stages_device_ms": median([b for _, b in replays]),
            "launch_wait_ms": median([a - b for a, b in replays]),
+           "copy_back": {k: v / n_calls for k, v in counted.items()},
            "off_cost": off_cost_us(), "dropped": dropped}
     print(f"card: {out['card']}; {n_calls} calls a side; ms a call: off "
           f"{out['call_ms_off']:.3f}, on {out['call_ms_on']:.3f}")
@@ -161,6 +171,10 @@ def main(argv=None) -> int:
         print(f"replays {len(replays)}: launch device ms "
               f"{out['launch_device_ms']:.4f}, stages {out['stages_device_ms']:.4f},"
               f" the device waiting for the launch {out['launch_wait_ms']:.4f}")
+    copied, fresh = (out["copy_back"][k] for k in COPY_COUNTERS)
+    print(f"copy back a traced call: {copied / 2**20:.3f} MiB, "
+          f"{fresh / 2**20:.3f} MiB of it into fresh pinned memory"
+          + (f" ({100 * fresh / copied:.2f}%)" if copied else ""))
     print(f"off: a span {out['off_cost']['span_us']:.3f} us, a stamp "
           f"{out['off_cost']['stamp_us']:.3f} us")
     line = json.dumps(out)

@@ -24,7 +24,10 @@ from its second call on
 ``_encode_decode_classic_one``; a signature's first call, and every call on
 the CPU, runs the same static code eagerly.  ``batch_encode_decode``'s
 graphs are held in ``BATCH_GRAPHS`` (``BATCH_GRAPHS.clear()`` frees them); a
-module holds its own.
+module holds its own.  ``DioClassic`` and ``HarvestClassic`` return their
+outputs, and ``batch_encode_decode_ragged`` its arrays, on the host, copied
+from the card into pinned memory (:func:`.graphs.copy_back`);
+``HarvestRequiem`` and ``batch_encode_decode`` return theirs on the device.
 """
 import functools
 import warnings
@@ -54,7 +57,7 @@ from ..synth.requiem import excitation_core, waveform_core
 from ..synth.seeds import seed_tables
 from ..tables import cached, device_key
 from ..utils.profiling import TRACER
-from .graphs import GraphCache
+from .graphs import GraphCache, copy_back
 
 F0_FLOOR, F0_CEIL = 71.0, 800.0
 SWIPE_DT = 0.005
@@ -604,9 +607,9 @@ def batch_encode_decode_ragged(xs, fs: int, devices=None, frame_period: int = 5,
                 out = batch_encode_decode(xb, fs, devices=devs, frame_period=fp,
                                           seed=seed, check_capacity=check_capacity,
                                           dtype=dtype, tables=tables)
-                with TRACER.span("world.batch.copy_back", device=devs[0]):
-                    out = {k: host(out[k]) for k in (
-                        "f0", "vuv", "spectrogram", "band_aperiodicity", "y")}
+                out = copy_back({k: out[k] for k in (
+                    "f0", "vuv", "spectrogram", "band_aperiodicity", "y")})
+                out = {k: v.numpy() for k, v in out.items()}
                 with TRACER.span("world.batch.strip"):
                     for r, i in enumerate(idxs):
                         nf = int(1000 * lens[i] / fs / fp + 1)
@@ -734,7 +737,14 @@ class _ClassicRoundTrip(_TableModule):
     the replay copies in, so a replay with the same draw gives the eager
     call's bits.  On the CPU the same static code runs eagerly.  Moving the
     module drops its graphs; :meth:`from_numpy_state` writes the buffers in
-    place, which the graphs read at each replay."""
+    place, which the graphs read at each replay.
+
+    Its outputs come back on the host, whatever the device: every caller
+    reads them there.  On the card each call, eager or replayed, copies
+    them into pinned host tensors that are the caller's to keep
+    (:func:`.graphs.copy_back`: pinned blocks are rounded up to a power of
+    two and held until the caller frees them) and returns once the bytes
+    have landed; on the CPU they are the round trip's own tensors."""
 
     F0_METHOD = SPAN = None
 
@@ -777,8 +787,8 @@ class _ClassicRoundTrip(_TableModule):
                                             generator, xb.dtype, dev)
             if not replays(dev):
                 return self._round_trip(xb, noise)
-            return self.graphs.run(self.signature(xb, noise), self._round_trip,
-                                   (xb, noise), dev)
+            return copy_back(self.graphs.run(
+                self.signature(xb, noise), self._round_trip, (xb, noise), dev))
 
     def signature(self, xb: torch.Tensor, noise: torch.Tensor) -> tuple:
         """The key of the graph a call replays: the device, the rows, the

@@ -78,6 +78,20 @@ outputs are cloned out of the pool.  The kernels' launch counters get, at
 each replay, the launches recorded at capture
 (:class:`.._backend.LaunchCounter`).
 
+The copy back (:func:`copy_back`): a round trip's outputs on the card go to
+the host as asynchronous copies into pinned host tensors, one wait for them
+all, so that the copies run at the bus's rate with no bounce buffer and no
+page faults.  The pinned blocks come from PyTorch's host caching
+allocator, which hands a block out again only once its tensor is freed and
+the copies that used it have completed: a caller keeps the tensors it is
+given for as long as it likes, and no later call writes into them.  Only
+the calls whose outputs are still held when the next call allocates pin
+fresh memory (``copy_back.fresh_bytes``, read while the tracer records).
+The allocator rounds each block up to a power of two and never gives its
+blocks back to the system: a caller that keeps many outputs holds about
+twice their size in pinned memory, which cannot be swapped, until it
+frees them, and then the process keeps the blocks for later copies.
+
 Tracing (:mod:`..utils.profiling`): a capture records the round trip's
 stage stamps as event-record nodes of the graph, which the graph owns; a
 replay made while the tracer records files them under its launch span, and
@@ -144,6 +158,52 @@ class Pool:
         """Wait for the last replay's outputs to be cloned."""
         if self.done is not None:
             self.done.synchronize()
+
+
+def _pinned_blocks() -> int:
+    """The pinned blocks PyTorch's host caching allocator has made so far."""
+    return torch.cuda.memory.host_memory_stats_as_nested_dict()["num_host_alloc"]
+
+
+def copy_back(outputs: dict) -> dict:
+    """``outputs`` (name -> tensor) on the host, as the caller's own
+    tensors of the same shapes and types: each tensor on the card is copied
+    into a pinned host tensor on its device's current stream, as one memcpy
+    (a dense tensor's strides are kept; one whose layout has gaps goes
+    through a dense copy on the card first), and the copies are waited for
+    once; a tensor on the host is handed back as it is.  The copies run
+    under the span ``world.batch.copy_back``, whose device ms are theirs.
+    Counts one host sync, the bytes handed back (``bytes.d2h``,
+    ``copy_back.bytes``) and, while the tracer records, those for which the
+    allocator made a fresh pinned block (``copy_back.fresh_bytes``; the
+    allocator's count is global, so two threads copying back at once may
+    credit each other's blocks)."""
+    host, copies, fresh = dict(outputs), [], 0
+    devices = list(dict.fromkeys(v.device for v in outputs.values() if v.is_cuda))
+    watch = bool(devices) and TRACER.on()
+    blocks = _pinned_blocks() if watch else 0
+    for k, v in outputs.items():
+        if v.is_cuda:
+            dst = host[k] = torch.empty_like(v, device="cpu", pin_memory=True)
+            if watch:
+                now = _pinned_blocks()
+                fresh, blocks = fresh + v.nbytes * (now != blocks), now
+            if dst.stride() != v.stride():
+                v = torch.empty_like(dst, device=v.device).copy_(v)
+            flat = (v.numel(),), (1,)
+            copies.append((dst.as_strided(*flat), v.as_strided(*flat)))
+    n_bytes = sum(v.nbytes for v in outputs.values())
+    TRACER.count("host.syncs")
+    TRACER.count("bytes.d2h", n_bytes)
+    TRACER.count("copy_back.bytes", n_bytes)
+    TRACER.count("copy_back.fresh_bytes", fresh)
+    with TRACER.span("world.batch.copy_back",
+                     device=devices[0] if devices else None):
+        for dst, src in copies:
+            dst.copy_(src, non_blocking=True)
+        for device in devices:
+            torch.cuda.current_stream(device).synchronize()
+    return host
 
 
 class Graph:

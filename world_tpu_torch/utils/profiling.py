@@ -64,6 +64,11 @@ COUNTERS = {
                         "padded length",
     "samples.true": "the callers' own samples among them, where the entry "
                     "knows them",
+    "copy_back.bytes": "bytes the copy back hands to the host "
+                       "(parallel/graphs.py::copy_back)",
+    "copy_back.fresh_bytes": "those of them for which the host caching "
+                             "allocator had no free pinned block: fresh "
+                             "pinned memory",
     "synth.pulses.slots": "pulse slots of the classic syntheses' static "
                           "pulse axes: rows times max_pulses",
     "synth.pulses.live": "the live pulses among them, which the classic "
